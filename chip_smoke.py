@@ -12,19 +12,30 @@ seconds:
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — the kernel library, built from ``dwt_tpu_torch/csrc`` by one
              ``nvcc`` call (into ``build/dwt_tpu_torch/``).
-3. e2e     — the main path: an encoder built by ``get_encoder`` (which
-             runs the gather kernel's one-time probe) encodes a 3840x2160
-             RGB frame made from seed 0.  Every kernel's launch count is
-             set to 0 just before and read just after; each must be > 0.  The stream's length, token count and SHA-256 must
-             equal the JAX package's (constants below).  The inputs of each
-             kernel are kept from this run.
+3. e2e     — the two main paths.  Encode: an encoder built by
+             ``get_encoder`` (which runs the tile engines' one-time probe)
+             encodes a 3840x2160 RGB frame made from seed 0; the stream's
+             length, token count and SHA-256 must equal the JAX package's
+             (constants below).  Decode: ``decoder.decode`` reads that
+             stream back, and the pixels must equal the frame.  Every
+             kernel's launch count is set to 0 just before each path and
+             read just after; each kernel of the path must be > 0.  The
+             inputs of each kernel are kept from these runs.  Then two
+             lossy decodes of the same stream, a 1,000,000-byte prefix
+             (which must leave planes missing, so the midpoint bias runs)
+             and a reduced decode capped at 960x540 (``pixels_max=518400``),
+             whose shapes and pixels' SHA-256 must equal the JAX package's
+             (constants below).
 4. kernels — each kernel again on those inputs, held against its plain
              PyTorch version on the same CUDA tensors (exact: integers),
              and timed beside the plain version and, where one PyTorch call
              computes the same function, that call.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
-             and idle share from torch.profiler, three readings).
+             and idle share from torch.profiler, three readings); three
+             warm decodes in MP/s, and one decode split into host parse,
+             upload, device tail and download, with the scatter kernel's
+             share of the tail.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -55,6 +66,21 @@ W, H, C = 3840, 2160, 3
 REF_BYTES = 12_604_029
 REF_TOKENS = 29_420_237
 REF_SHA256 = "4bd23205c77d3029962c42d1dd3bdf72de160c86cd691c1f7190270490bb638d"
+# The JAX package's pixels for two lossy decodes of that stream, made on
+# the CPU with (``stream`` as above)
+#   JAX_PLATFORMS=cpu python3 -c '...; from dwt_tpu.codec.decoder import
+#     decode; for s, px in ((stream[:1_000_000], 0), (stream, 518400)):
+#       img, _ = decode(s, px); print(img.shape,
+#       hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest())'
+# pixels_max=518400 caps the levels at 960x540, but the stream's layer
+# schedule reaches that cap before it starts the planes of the 960x540
+# level, so the decode ends at 480x270 (decode.c:136-268 semantics).
+PREFIX_BYTES = 1_000_000
+PREFIX_SHAPE = (2160, 3840, 3)
+PREFIX_SHA256 = "2d7970b03a0a4b858b9ce877c8fffbe7e7ca6377051dc7f8f5a9398daf5b179b"
+REDUCED_PIXELS = 518_400
+REDUCED_SHAPE = (270, 480, 3)
+REDUCED_SHA256 = "a748f357bc36c3b22fc4a54c56091b889b8518ed85d9c359f289af0e3ff85bbe"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -75,42 +101,57 @@ def random_image(w: int, h: int, c: int, seed: int) -> np.ndarray:
 
 
 class Kernels:
-    """The kernel wrappers of the encode path (the four kernels and the
-    gather's probe), their sources and the TPU kernels they replace."""
+    """The kernel wrappers of the two paths (the five kernels and the tile
+    engines' probe), their sources, the TPU kernels they replace and the
+    path ("encode" or "decode") whose run must launch them."""
 
     def __init__(self):
-        from dwt_tpu_torch.codec import emit, stage1, tokens
-        from dwt_tpu_torch.ops import compact, hilbert_gather, pack
+        from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
+        from dwt_tpu_torch.ops import (compact, hilbert_gather,
+                                       hilbert_scatter, pack)
 
         # The codec modules call the kernel wrappers by these names.
         self.sites = [(stage1, "hilbert_gather"), (tokens, "compact_tokens"),
-                      (emit, "pack_words"), (emit, "scatter_refbits")]
+                      (emit, "pack_words"), (emit, "scatter_refbits"),
+                      (decoder, "hilbert_scatter")]
         self.rows = [
             ("hilbert_gather", hilbert_gather.hilbert_gather,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
-             "dwt_tpu/ops/pallas_hilbert.py:284"),
+             "dwt_tpu/ops/pallas_hilbert.py:284", "encode"),
             # The probe's count lives on engine_supported, which launches
-            # the gather kernel through engine_probe once per device.
+            # the gather kernel (engine_probe) and the scatter kernel
+            # (scatter_probe) once per device, when the first encoder or
+            # decoder tail is built: in this script, the encoder.
             ("engine_supported", hilbert_gather.engine_supported,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
-             "dwt_tpu/ops/pallas_hilbert.py:107"),
+             "dwt_tpu/ops/pallas_hilbert.py:107", "encode"),
             ("compact_tokens", compact.compact_tokens,
              "dwt_tpu_torch/csrc/compact.cu",
-             "dwt_tpu/ops/pallas_compact.py:404"),
+             "dwt_tpu/ops/pallas_compact.py:404", "encode"),
             ("pack_words", pack.pack_words,
              "dwt_tpu_torch/csrc/pack.cu",
-             "dwt_tpu/ops/pallas_pack.py:235"),
+             "dwt_tpu/ops/pallas_pack.py:235", "encode"),
             ("scatter_refbits", compact.scatter_refbits,
              "dwt_tpu_torch/csrc/compact.cu",
-             "dwt_tpu/ops/pallas_compact.py:548"),
+             "dwt_tpu/ops/pallas_compact.py:548", "encode"),
+            ("hilbert_scatter", hilbert_scatter.hilbert_scatter,
+             "dwt_tpu_torch/csrc/hilbert_scatter.cu",
+             "dwt_tpu/ops/pallas_hilbert.py:538", "decode"),
         ]
 
     def reset(self) -> None:
-        for _, fn, _, _ in self.rows:
+        for _, fn, _, _, _ in self.rows:
             fn.launches = 0
 
     def counts(self) -> dict:
-        return {name: fn.launches for name, fn, _, _ in self.rows}
+        return {name: fn.launches for name, fn, _, _, _ in self.rows}
+
+    def check_launched(self, path: str, counts: dict) -> None:
+        idle = [name for name, _, _, _, p in self.rows
+                if p == path and counts[name] <= 0]
+        if idle:
+            raise AssertionError(
+                f"kernels never launched on the {path} path: {idle}")
 
     @contextlib.contextmanager
     def capture(self, store: dict):
@@ -178,9 +219,9 @@ def unit_elements(torch, vmag, meta, E: int) -> int:
 def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     """Phase 4: each kernel against its plain version, and its times."""
     from dwt_tpu_torch.codec.stage1 import ALIGN
-    from dwt_tpu_torch.hilbert import padded_layout
+    from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack
+    from dwt_tpu_torch.ops import compact, hilbert_gather, hilbert_scatter, pack
 
     from dwt_tpu_torch.ops.compact import E
 
@@ -195,7 +236,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        src, rep = next((s, r) for n, _, s, r in K.rows if n == name)
+        src, rep = next((s, r) for n, _, s, r, _ in K.rows if n == name)
         out.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=err, ms=ms,
@@ -219,15 +260,28 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                 reps=3),
         4 * (src.numel() + co.numel() + k.numel()), lib_ms)
 
-    # 1b. the gather's probe: one 32x32 tile (as engine_supported runs it)
+    # 1b. the tile engines' probe: one 32x32 tile through the gather and
+    # the scatter kernel (as engine_supported runs them)
     co, src = hilbert_gather.probe_tile(co.device)
-    k = hilbert_gather.engine_probe(co, src)
-    p = hilbert_gather.hilbert_gather_plain(co, src)
+    lin1, src2 = co.reshape(1, -1), src.reshape(hilbert_gather.TS, -1)
+
+    def probe(gather, scatter):
+        return torch.cat([gather(co, src).reshape(-1),
+                          scatter(lin1, src2).reshape(-1)])
+
+    k = probe(hilbert_gather.engine_probe, hilbert_gather.scatter_probe)
+    p = probe(hilbert_gather.hilbert_gather_plain,
+              hilbert_scatter.hilbert_scatter_plain)
+    idx = src.long()
     row("engine_supported", k, p,
-        time_ms(torch, lambda: hilbert_gather.engine_probe(co, src)),
-        time_ms(torch, lambda: hilbert_gather.hilbert_gather_plain(co, src)),
-        4 * (src.numel() + co.numel() + k.numel()),
-        time_ms(torch, lambda: co.reshape(-1, 1)[src.long()].T.contiguous()))
+        time_ms(torch, lambda: (hilbert_gather.engine_probe(co, src),
+                                hilbert_gather.scatter_probe(lin1, src2))),
+        time_ms(torch, lambda: (
+            hilbert_gather.hilbert_gather_plain(co, src),
+            hilbert_scatter.hilbert_scatter_plain(lin1, src2))),
+        4 * 2 * (src.numel() + co.numel() + co.numel()),
+        time_ms(torch, lambda: (co.reshape(-1, 1)[idx].T.contiguous(),
+                                lin1[:, idx].T.contiguous())))
 
     # 2. kernel A: reads the elements its live units cover, writes one
     # pair per newly significant element (meta col 6)
@@ -279,6 +333,23 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                 setup=lambda: (vmag, meta, words.clone()), reps=2),
         4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
              + 2 * ref_words), None)
+
+    # 5. inverse scatter (decode): reads its index and C coefficients for
+    # each pixel off the root band, and writes the (H, W, C) plane; one
+    # gather through the full inverse permutation is the library yardstick
+    lin, src = got["hilbert_scatter"]
+    k = hilbert_scatter.hilbert_scatter(lin, src)
+    p = hilbert_scatter.hilbert_scatter_plain(lin, src)
+    inv = torch.as_tensor(reconstruction_perm(compute_pyramid(W, H)),
+                          device=lin.device).long()
+    lib_ms = time_ms(torch, lambda: lin[:, inv].T.reshape(H, W, C)
+                     .contiguous())
+    row("hilbert_scatter", k, p,
+        time_ms(torch, lambda: hilbert_scatter.hilbert_scatter(lin, src)),
+        time_ms(torch, lambda: hilbert_scatter.hilbert_scatter_plain(lin,
+                                                                     src),
+                reps=3),
+        4 * (C * int((src >= 0).sum()) + src.numel() + k.numel()), lib_ms)
     return out
 
 
@@ -362,6 +433,88 @@ def profile(torch, enc, img) -> None:
         f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
 
 
+def sha256_pixels(img: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def lossy_decodes(torch, decoder, stream: bytes) -> None:
+    """Phase 3's two lossy decodes, held to the JAX package's pixels."""
+    prefix = stream[:PREFIX_BYTES]
+    for name, s, px, shape, want in (
+            ("prefix", prefix, 0, PREFIX_SHAPE, PREFIX_SHA256),
+            ("reduced", stream, REDUCED_PIXELS, REDUCED_SHAPE,
+             REDUCED_SHA256)):
+        missing = decoder._parse(s, px, torch.device("cuda"))[4]
+        out, _ = decoder.decode(s, px)
+        digest = sha256_pixels(out)
+        progress(f"e2e: {name} decode ({len(s)} bytes, pixels_max={px}) "
+                 f"-> {out.shape}, sha256 {digest[:16]}; most planes "
+                 f"missing at a level {int(missing.max())}")
+        if name == "prefix" and not (missing >= 2).any():
+            raise AssertionError("the prefix leaves no level two or more "
+                                 "planes short: the midpoint bias would "
+                                 "not run")
+        if out.shape != shape or digest != want:
+            raise AssertionError(
+                f"{name} decode differs from the JAX package's: {out.shape} "
+                f"sha256 {digest} (want {shape} {want})")
+
+
+def decode_profile(torch, decoder, stream: bytes, img: np.ndarray) -> None:
+    """Where one warm 4K decode spends its time, host clock with a
+    synchronise after each step: host parse (into a zeroed pinned buffer,
+    whose allocation and zeroing are also timed alone), upload, device
+    tail, download.  Then the tail once under torch.profiler: its device
+    busy time and the scatter kernel's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.zeros((C, W * H), dtype=torch.int32, pin_memory=True)
+    zero_ms = 1e3 * (time.perf_counter() - t0)
+    marks = [time.perf_counter()]
+    w, h, gray, coeffs, missing, levels = decoder._parse(stream, 0, dev)
+    marks.append(time.perf_counter())
+    x = coeffs.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    tail = decoder._tail(w, h, levels, C, gray, dev)
+    y = tail(x, missing)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    out = y.cpu().numpy()
+    marks.append(time.perf_counter())
+    if not np.array_equal(out, img):
+        raise AssertionError("the profiled decode differs from the frame")
+    ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    progress(f"profile: one warm 4K decode: host parse {ms[0]:.1f} ms "
+             f"(pinned zeroed buffer alone {zero_ms:.1f} ms), upload "
+             f"{ms[1]:.1f} ms ({x.numel() * 4 / ms[1] / 1e6:.1f} GB/s), "
+             f"device tail {ms[2]:.1f} ms, download {ms[3]:.1f} ms "
+             f"(host clock, synchronised)")
+    for i in range(2):  # the first pays the profiler's start-up
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tail(x, missing)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    busy = busy_ms(events, DeviceType)
+    sc = sum(e.time_range.elapsed_us() for e in events
+             if e.device_type == DeviceType.CUDA
+             and "hilbert_scatter_kernel" in e.name) / 1e3
+    if 0 < busy <= wall and sc > 0:
+        progress(f"profile: decode tail under torch.profiler: device busy "
+                 f"{busy:.2f} ms of {wall:.2f} ms wall; scatter kernel "
+                 f"{sc:.3f} ms, {sc / busy:.3f} of the busy time")
+    else:
+        progress(f"profile: decode tail device time not measured (busy "
+                 f"{busy:.2f} ms, scatter {sc:.3f} ms, wall {wall:.2f} ms)")
+
+
 def main() -> int:
     import torch
 
@@ -386,7 +539,8 @@ def main() -> int:
     progress(f"build: {len(build.sources())} sources, one nvcc call, "
              f"{secs:.1f} s -> {os.path.relpath(path, ROOT)}")
 
-    # 3. e2e: the main path, with the kernels' launch counts
+    # 3. e2e: the main paths, with the kernels' launch counts
+    from dwt_tpu_torch.codec import decoder
     from dwt_tpu_torch.codec.encoder import get_encoder
 
     img = random_image(W, H, C, seed=0)
@@ -408,9 +562,20 @@ def main() -> int:
             f"stream differs from the JAX package's: {len(stream)} bytes, "
             f"T={info['tokens']}, sha256 {digest} (want {REF_BYTES}, "
             f"{REF_TOKENS}, {REF_SHA256})")
-    idle = [name for name, n in launches.items() if n <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+    K.check_launched("encode", launches)
+
+    K.reset()
+    with K.capture(got):
+        out, gray = decoder.decode(stream)
+    torch.cuda.synchronize()
+    dec_launches = K.counts()
+    progress(f"e2e: decoded to {out.shape} gray={gray}; launches "
+             f"{dec_launches}")
+    if gray or out.shape != img.shape or not np.array_equal(out, img):
+        raise AssertionError("the lossless decode differs from the frame")
+    K.check_launched("decode", dec_launches)
+    launches["hilbert_scatter"] = dec_launches["hilbert_scatter"]
+    lossy_decodes(torch, decoder, stream)
 
     # 4. kernels against their plain versions, on the main path's inputs
     rows = check_kernels(torch, K, got, launches)
@@ -427,6 +592,16 @@ def main() -> int:
     progress(f"timing: warm 4K encode {', '.join(f'{m:.2f}' for m in mps)} "
              f"MP/s on {card}")
     profile(torch, enc, img)
+    mps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, _ = decoder.decode(stream)
+        mps.append(W * H / 1e6 / (time.perf_counter() - t0))
+        if not np.array_equal(out, img):
+            raise AssertionError("a warm decode differs from the frame")
+    progress(f"timing: warm 4K decode {', '.join(f'{m:.2f}' for m in mps)} "
+             f"MP/s on {card}")
+    decode_profile(torch, decoder, stream, img)
 
     print(json.dumps({"kernels": rows}))
     print(card)

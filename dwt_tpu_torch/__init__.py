@@ -7,7 +7,9 @@ kernels under ``csrc/``, built with one ``nvcc`` call at first use
 has no side effects and imports neither JAX nor ``dwt_tpu``.
 
 Port state: the single-stream lossless encoder
-(``dwt_tpu_torch.codec.encoder``).
+(``dwt_tpu_torch.codec.encoder``) and the single-stream decoder
+(``dwt_tpu_torch.codec.decoder``: lossless, truncated and reduced-resolution
+decodes, its bit parse in host C++ under ``native/``).
 """
 
 __version__ = "0.1.0"

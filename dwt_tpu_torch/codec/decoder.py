@@ -1,0 +1,154 @@
+"""Single-stream decoder: the entry point of the port's decode path.
+
+Port of ``dwt_tpu/codec/decoder.py``'s ``parse_header``, ``_tail_fn`` and
+``decode``.  The host C++ parser (``runtime/native.py``) fills the
+linearized coefficients: the bit parse of one stream is serial, as in the
+JAX package.  On the device, the inverse tail applies the missing-plane
+midpoint bias, the inverse Hilbert scatter (the CUDA kernel
+``csrc/hilbert_scatter.cu``), the inverse lifting and the inverse colour
+transform.
+
+Truncation and reduced-resolution semantics follow decode.c:136-268: the
+output size is that of the deepest level actually decoded; a stream that
+dies inside the root band is a hard error (``ValueError``).
+
+Not ported yet, and refused with ``NotImplementedError``: the tiled
+``.dwtt`` container.  ``decode_batch`` (its only caller is the tiled
+decoder) waits for the same slice.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..geometry import compute_pyramid
+from ..hilbert import level_of_position, reconstruction_perm
+from ..ops.color import ycocg_to_rgb
+from ..ops.hilbert_gather import engine_supported
+from ..ops.hilbert_scatter import hilbert_scatter
+from ..ops.lifting import cdf53_inv, dwt2d_inv
+from ..runtime import native
+from .encoder import _LATER, _device
+
+
+def parse_header(stream: bytes) -> tuple:
+    if len(stream) < 6 or stream[0] != ord("W") or stream[1] not in (ord("5"), ord("6")):
+        raise ValueError("bad header")
+    gray = stream[1] == ord("5")
+    W = stream[2] + (stream[3] << 8) + 1
+    H = stream[4] + (stream[5] << 8) + 1
+    return W, H, gray
+
+
+def scatter_source(pyr) -> np.ndarray:
+    """The scatter kernel's (H, W) int32 source index for one pyramid: the
+    scan position of each pixel, -1 on the root band."""
+    inv = reconstruction_perm(pyr)
+    src = np.where(inv < pyr.pixels[0], -1, inv).astype(np.int32)
+    return src.reshape(pyr.height, pyr.width)
+
+
+class _Tail:
+    """The inverse tail for one (geometry, decoded levels, channels)
+    combination on one device.  Its static tables (the scatter's source
+    index and the level of each scan position) are built once and kept on
+    the device, so a warm decode uploads only the coefficients and the
+    (C, 16) ``missing`` table."""
+
+    def __init__(self, width: int, height: int, out_levels: int,
+                 channels: int, gray: bool, device: torch.device):
+        pyr = compute_pyramid(width, height)
+        self.out_h, self.out_w = pyr.heights[out_levels], pyr.widths[out_levels]
+        self.n_out = pyr.pixels[out_levels]
+        self.channels, self.gray, self.device = channels, gray, device
+        self.out_levels = out_levels
+        if out_levels == 0:
+            return
+        # The level chain of the reduced pyramid coincides with the
+        # original's lower levels, so scan order and lifting geometry are
+        # shared; but the level of a scan position is the full pyramid's.
+        self.sub_pyr = compute_pyramid(self.out_w, self.out_h)
+        assert self.sub_pyr.levels == out_levels
+        engine_supported(device)  # the tile engines' probe, once a device
+        self.src = torch.as_tensor(scatter_source(self.sub_pyr), device=device)
+        # Level of each scan position, shifted by one (root band -> 0) to
+        # index a (C, 17) bias table whose column 0 is 0.
+        self.lvl_idx = torch.as_tensor(
+            level_of_position(pyr)[:self.n_out] + 1, device=device)
+
+    def _bias(self, lin: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
+        """Midpoint bias for planes lost to truncation: push nonzero detail
+        coefficients away from zero by 2^(missing-2) (decode.c:50-58)."""
+        bias_l = np.where(missing >= 2,
+                          np.left_shift(1, np.clip(missing - 2, 0, 30)), 0)
+        table = np.zeros((self.channels, 17), np.int32)
+        table[:, 1:] = bias_l
+        bias = torch.as_tensor(table, device=self.device).index_select(
+            1, self.lvl_idx)
+        return lin + torch.sign(lin) * bias
+
+    def __call__(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
+        """(C, total >= n_out) int32 coefficients on the device and the
+        parser's (C, 16) missing-plane counts -> (outH, outW, C) uint8."""
+        C, n_out = self.channels, self.n_out
+        if self.out_levels == 0:
+            # Root-only decode: the reference still runs one inverse lifting
+            # pass at root size (decode.c:258 quirk, SURVEY §2.5).
+            x = coeffs[:, :n_out].T.reshape(self.out_h, self.out_w, C)
+            x = cdf53_inv(cdf53_inv(x, axis=0), axis=1)
+        else:
+            lin = coeffs
+            if (missing[:, :self.out_levels] >= 2).any():
+                lin = self._bias(coeffs[:, :n_out], missing)
+            x = hilbert_scatter(lin, self.src)
+            h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
+            x[:h0, :w0] = lin[:, :h0 * w0].T.reshape(h0, w0, C)
+            x = dwt2d_inv(x, self.sub_pyr)
+        if not self.gray:
+            x = ycocg_to_rgb(x)
+        return x.clamp(0, 255).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=64)
+def _tail(width: int, height: int, out_levels: int, channels: int,
+          gray: bool, device: torch.device) -> _Tail:
+    return _Tail(width, height, out_levels, channels, gray, device)
+
+
+def _parse(stream: bytes, pixels_max: int, device: torch.device) -> tuple:
+    """Header and host parse.  Returns (W, H, gray, coeffs, missing,
+    out_levels): ``coeffs`` is a (C, W*H) int32 CPU tensor, pinned when
+    ``device`` is a CUDA device, so its upload can run asynchronously."""
+    W, H, gray = parse_header(stream)
+    C = 1 if gray else 3
+    pyr = compute_pyramid(W, H)
+    levels_max = pyr.levels
+    if pixels_max > 0:
+        while levels_max > 0 and pyr.pixels[levels_max] > pixels_max:
+            levels_max -= 1
+    # The parser ORs bits into a zeroed buffer.
+    coeffs = torch.zeros((C, pyr.total), dtype=torch.int32,
+                         pin_memory=device.type == "cuda")
+    _, missing, level, _ = native.entropy_decode(
+        stream[6:], C, pyr.levels, levels_max, pyr.pixels, coeffs.numpy())
+    return W, H, gray, coeffs, missing, level + 1
+
+
+def decode(stream: bytes, pixels_max: int = 0, device=None) -> tuple:
+    """Decode one ``.dwt`` stream; returns (image uint8 (H, W, C), gray).
+
+    ``pixels_max > 0`` caps the output at the deepest level with at most
+    that many pixels.  ``device`` defaults to the CUDA card; without one
+    this raises unless ``device="cpu"`` is passed (the kernels' plain
+    PyTorch versions)."""
+    if stream[:2] == b"WT":
+        raise NotImplementedError("the tiled .dwtt container " + _LATER)
+    device = _device(device)
+    W, H, gray, coeffs, missing, out_levels = _parse(stream, pixels_max,
+                                                     device)
+    tail = _tail(W, H, out_levels, 1 if gray else 3, gray, device)
+    img = tail(coeffs.to(device, non_blocking=True), missing)
+    return img.cpu().numpy(), gray

@@ -85,6 +85,18 @@ def linearization_perm(pyr: Pyramid) -> np.ndarray:
     return perm
 
 
+@functools.lru_cache(maxsize=None)
+def reconstruction_perm(pyr: Pyramid) -> np.ndarray:
+    """Inverse permutation: scatter linearized coefficients back to 2-D.
+
+    ``coeff2d.reshape(-1)[j] = linear[inv[j]]``.
+    """
+    perm = linearization_perm(pyr)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+    return inv
+
+
 TS_RUN = 32  # tile side of the run decomposition (= pallas_hilbert.TS)
 
 

@@ -1,4 +1,5 @@
-"""Reversible YCoCg-R colour transform (port of ``dwt_tpu/ops/color.py``).
+"""Reversible YCoCg-R colour transform and its inverse (port of
+``dwt_tpu/ops/color.py``).
 
 Truncating division, as in the reference (image.h:39-79).
 """
@@ -20,3 +21,15 @@ def rgb_to_ycocg(img: torch.Tensor) -> torch.Tensor:
     V = G - T
     Y = T + _tdiv2(V)
     return torch.stack([Y, U, V], dim=-1)
+
+
+def ycocg_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """Inverse, with the reference's decode-side clamps (image.h:41-43)."""
+    Y = img[..., 0].clamp(0, 255)
+    U = img[..., 1].clamp(-255, 255)
+    V = img[..., 2].clamp(-255, 255)
+    T = Y - _tdiv2(V)
+    G = V + T
+    B = T - _tdiv2(U)
+    R = B + U
+    return torch.stack([R, G, B], dim=-1)

@@ -7,9 +7,10 @@ a precomputed source index per output slot (``-1`` for pads and the root
 band, which stay 0: the caller writes the root raster crop).
 
 :func:`engine_supported` is the port of ``pallas_hilbert.engine_supported``:
-a one-time probe, per device, that the gather kernel is built and right
-before an encoder uses it.  It raises where the JAX package would fall
-back.
+a one-time probe, per device, that the gather and scatter kernels (the
+two tile engines of the JAX package) are built and right before an
+encoder or a decoder uses them.  It raises where the JAX package would
+fall back.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..runtime import build
+from . import hilbert_scatter as _hs
 from ._launch import need, on_card
 
 
@@ -73,11 +75,24 @@ def engine_probe(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_probe(lin: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The probe's launch of the scatter kernel: the tile of
+    :func:`probe_tile` as a (1, TS*TS) row and a (TS, TS) index."""
+    need("scatter_probe lin", lin, torch.int32, 2)
+    need("scatter_probe src", src, torch.int32, 2)
+    if not on_card("scatter_probe", lin, src):
+        return _hs.hilbert_scatter_plain(lin, src)
+    out = _hs._launch(lin, src, "scatter_probe")
+    engine_supported.launches += 1
+    return out
+
+
 def engine_supported(device) -> bool:
-    """Once per CUDA device: gather one 32x32 ``arange`` tile through the
-    kernel and hold it to ``arange``.  Returns True, or raises when the
-    kernel cannot launch or gives a wrong result (an encoder never falls
-    back to another path).  On the CPU there is no kernel to probe."""
+    """Once per CUDA device: send one 32x32 ``arange`` tile through the
+    gather kernel and through the scatter kernel, and hold each result to
+    ``arange``.  Returns True, or raises when a kernel cannot launch or
+    gives a wrong result (an encoder or decoder never falls back to
+    another path).  On the CPU there is no kernel to probe."""
     device = torch.device(device)
     if device.type != "cuda":
         return True
@@ -85,12 +100,16 @@ def engine_supported(device) -> bool:
         device = torch.device("cuda", torch.cuda.current_device())
     if device not in _PROBED:
         co, src = probe_tile(device)
-        got = engine_probe(co, src).reshape(-1)
-        if not torch.equal(got, src):
-            bad = int((got != src).sum())
-            raise RuntimeError(
-                f"engine_supported: the gather kernel on {device} got "
-                f"{bad} of {TS * TS} probe values wrong")
+        for kind, got in (
+                ("gather", engine_probe(co, src)),
+                ("scatter", scatter_probe(co.reshape(1, -1),
+                                          src.reshape(TS, TS)))):
+            got = got.reshape(-1)
+            if not torch.equal(got, src):
+                bad = int((got != src).sum())
+                raise RuntimeError(
+                    f"engine_supported: the {kind} kernel on {device} got "
+                    f"{bad} of {TS * TS} probe values wrong")
         _PROBED.add(device)
     return True
 

@@ -1,4 +1,5 @@
-"""Integer CDF 5/3 forward lifting (port of ``dwt_tpu/ops/lifting.py``).
+"""Integer CDF 5/3 lifting, forward and inverse (port of
+``dwt_tpu/ops/lifting.py``).
 
 Whole-axis slice arithmetic over all rows or columns of a level at once.
 Every division truncates toward zero (C semantics, never Python's floor);
@@ -45,6 +46,37 @@ def cdf53_fwd(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.cat([s, d], dim=axis)
 
 
+def cdf53_inv(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inverse lifting: undo update, undo predict, re-interleave
+    (cdf53.h:36-61).  Input deinterleaved [L | H] along ``axis``."""
+    N = x.shape[axis]
+    ne = (N + 1) // 2
+    s, d = x.narrow(axis, 0, ne), x.narrow(axis, ne, N - ne)
+    no = d.shape[axis]
+    left = torch.cat([d.narrow(axis, 0, 1), d.narrow(axis, 0, no - 1)],
+                     dim=axis)
+    upd = _tdiv(left + d, 4)
+    nupd = ne if N % 2 == 0 else ne - 1
+    ev = torch.cat([s.narrow(axis, 0, nupd) - upd.narrow(axis, 0, nupd),
+                    s.narrow(axis, nupd, ne - nupd)], dim=axis)
+    if ne > no:
+        right = ev.narrow(axis, 1, ne - 1)
+    else:
+        right = torch.cat([ev.narrow(axis, 1, ne - 1),
+                           ev.narrow(axis, ne - 1, 1)], dim=axis)
+    od = d + _tdiv(ev.narrow(axis, 0, no) + right, 2)
+    # Re-interleave: stack on a fresh axis next to ``axis`` and merge (a
+    # reshape, not a scatter); odd N pads the odd stream by one sample,
+    # dropped after the merge.
+    if ne > no:
+        od = torch.cat([od, od.narrow(axis, no - 1, 1)], dim=axis)
+    ax = axis % x.dim()
+    shape = list(x.shape)
+    shape[ax] = 2 * ne
+    inter = torch.stack([ev, od], dim=ax + 1).reshape(shape)
+    return inter.narrow(ax, 0, N)
+
+
 def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
     """Multi-level forward 2-D DWT on (H, W, C) int32 (encode.c:16-30):
     rows, then columns, per level; the LL quadrant recurses."""
@@ -56,4 +88,20 @@ def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
             out = sub  # the first (full-size) level: a new tensor
         else:
             out[:h, :w] = sub  # in place: ``out`` is this function's own
+    return out
+
+
+def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+    """Inverse multi-level 2-D DWT (decode.c:16-30): coarsest level first,
+    columns then rows.  The input is left as it was."""
+    out = coeff
+    for l in range(1, pyr.levels + 1):
+        w, h = pyr.widths[l], pyr.heights[l]
+        sub = cdf53_inv(cdf53_inv(out[:h, :w], axis=0), axis=1)
+        if (h, w) == tuple(out.shape[:2]):
+            out = sub
+        else:
+            if out is coeff:
+                out = coeff.clone()  # the caller's tensor stays as it was
+            out[:h, :w] = sub
     return out

@@ -37,6 +37,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ENTRY_POINTS = {
     # (co, src, out, nlin, C, stream)
     "dwt_hilbert_gather": (_P, _P, _P, _L, _I, _P),
+    # (lin, src, out, npix, L, C, stream)
+    "dwt_hilbert_scatter": (_P, _P, _P, _L, _L, _I, _P),
     # (vmag, meta, pairs, units, sub, E, npairs, stream)
     "dwt_compact_tokens": (_P, _P, _P, _I, _I, _I, _L, _P),
     # (vmag, meta, words, units, sub, E, nwords, stream)

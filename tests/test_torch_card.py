@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
 versions on the same CUDA tensors (exact), at ragged shapes the 4K main
-path of chip_smoke.py does not reach, and the encoder on the card against
-the same encoder on the CPU.  Skipped where there is no CUDA card.
+paths of chip_smoke.py do not reach, and the encoder and decoder on the
+card against the same code on the CPU.  Skipped where there is no CUDA card.
 
 On a machine with a card (no JAX needed):
 
@@ -101,16 +101,25 @@ def test_pack_kernel_rejects_unsorted_widx(cuda):
     assert pack.pack_words.launches == before
 
 
-def test_engine_probe_launches_once_a_device(cuda):
+def test_engine_probe_launches_once_a_device(cuda, monkeypatch):
+    """The probe sends its tile through the gather and the scatter kernel,
+    once a device: two launches on its count."""
     from dwt_tpu_torch.ops import hilbert_gather as hg
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
 
     hg._PROBED.clear()
+    calls = []
+    real = hg.scatter_probe
+    monkeypatch.setattr(hg, "scatter_probe",
+                        lambda *a: calls.append(a) or real(*a))
     before = hg.engine_supported.launches
     assert hg.engine_supported(cuda) and hg.engine_supported(cuda)
-    assert hg.engine_supported.launches == before + 1
+    assert hg.engine_supported.launches == before + 2 and len(calls) == 1
     co, src = hg.probe_tile(cuda)
     assert torch.equal(hg.engine_probe(co, src),
                        hg.hilbert_gather_plain(co, src))
+    lin, idx = co.reshape(1, -1), src.reshape(hg.TS, hg.TS)
+    assert torch.equal(real(lin, idx), hs.hilbert_scatter_plain(lin, idx))
 
 
 @pytest.mark.parametrize("w,h,c", [(321, 239, 3), (64, 48, 1), (8, 8, 3)])
@@ -147,3 +156,73 @@ def test_encoder_on_card_equals_cpu(cuda, w, h, c, kind):
     assert got == encoder.Encoder(w, h, c, device="cpu").encode(img)
     moved = [f.launches - b for f, b in zip(fns, before)]
     assert moved == [1, 1, 1, 1], moved
+
+
+@pytest.mark.parametrize("w,h,c,sub", [(8, 8, 1, None), (9, 8, 3, None),
+                                       (321, 239, 1, None),
+                                       (320, 240, 3, None),
+                                       (320, 240, 3, (160, 120)),
+                                       (321, 239, 3, (41, 30))])
+def test_scatter_kernel_equals_plain(cuda, w, h, c, sub):
+    """On full pyramids and on a reduced sub-pyramid whose coefficient row
+    is the full image's (the decoder's reduced decodes)."""
+    from dwt_tpu_torch.codec.decoder import scatter_source
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+
+    rng = np.random.default_rng(w + c)
+    lin = torch.as_tensor(rng.integers(-2**20, 2**20, (c, w * h))
+                          .astype(np.int32)).to(cuda)
+    pyr = compute_pyramid(*(sub or (w, h)))
+    src = torch.as_tensor(scatter_source(pyr)).to(cuda)
+    before = hs.hilbert_scatter.launches
+    got = hs.hilbert_scatter(lin, src)
+    want = hs.hilbert_scatter_plain(lin, src)
+    torch.cuda.synchronize()
+    assert hs.hilbert_scatter.launches == before + 1
+    assert got.shape == (pyr.height, pyr.width, c) and torch.equal(got, want)
+
+
+def _port_stream(w, h, c, kind):
+    from dwt_tpu_torch.codec import encoder
+
+    img = random_image(np.random.default_rng(7), w, h, c, kind)
+    return img, encoder.Encoder(w, h, c, device="cpu").encode(img)
+
+
+@pytest.mark.parametrize("w,h,c,kind", [(320, 240, 3, "mixed"),
+                                        (321, 239, 1, "mixed"),
+                                        (8, 8, 1, "mixed"),
+                                        (9, 8, 3, "noise"),
+                                        (64, 64, 3, "flat"),
+                                        (96, 80, 3, "mixed")])
+def test_decode_on_card_equals_cpu(cuda, w, h, c, kind):
+    from dwt_tpu_torch.codec import decoder
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+
+    img, stream = _port_stream(w, h, c, kind)
+    before = hs.hilbert_scatter.launches
+    got, gray = decoder.decode(stream)
+    want, _ = decoder.decode(stream, device="cpu")
+    assert gray == (c == 1) and np.array_equal(got, want)
+    if kind != "flat":
+        assert np.array_equal(got, img)
+        assert hs.hilbert_scatter.launches == before + 1
+
+
+@pytest.mark.parametrize("cap,pixels", [(64, 0), (150, 0), (400, 0),
+                                        (1200, 0), (5000, 0), (0, 1),
+                                        (0, 300), (0, 1200), (0, 19200),
+                                        (1200, 1200), (400, 30)])
+def test_decode_prefix_on_card_equals_cpu(cuda, cap, pixels):
+    from dwt_tpu_torch.codec import decoder
+
+    _, stream = _port_stream(96, 80, 3, "mixed")
+    stream = stream[:cap] if cap else stream
+    if cap == 64:  # inside the root band
+        with pytest.raises(ValueError):
+            decoder.decode(stream)
+        return
+    got, _ = decoder.decode(stream, pixels)
+    want, _ = decoder.decode(stream, pixels, device="cpu")
+    assert got.shape == want.shape and np.array_equal(got, want)

@@ -89,19 +89,22 @@ def test_plain_path_counts_no_launch():
     count moves only where a kernel is launched."""
     from conftest import random_image
     from dwt_tpu import specmodel
-    from dwt_tpu_torch.codec import encoder
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack
+    from dwt_tpu_torch.codec import decoder, encoder
+    from dwt_tpu_torch.ops import compact, hilbert_gather, hilbert_scatter, pack
 
     fns = (hilbert_gather.hilbert_gather, hilbert_gather.engine_supported,
-           compact.compact_tokens, compact.scatter_refbits, pack.pack_words)
+           compact.compact_tokens, compact.scatter_refbits, pack.pack_words,
+           hilbert_scatter.hilbert_scatter)
     before = [f.launches for f in fns]
     img = random_image(np.random.default_rng(1), 40, 24, 3, "mixed")
-    assert encoder.encode(img, device="cpu") == specmodel.encode(img, False)
+    stream = encoder.encode(img, device="cpu")
+    assert stream == specmodel.encode(img, False)
+    assert np.array_equal(decoder.decode(stream, device="cpu")[0], img)
     assert [f.launches for f in fns] == before
 
 
 def test_wrappers_check_their_arguments():
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack
+    from dwt_tpu_torch.ops import compact, hilbert_gather, hilbert_scatter, pack
 
     i32 = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
@@ -111,6 +114,10 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         hilbert_gather.hilbert_gather(
             torch.zeros((4, 4, 3), dtype=torch.int32).transpose(0, 1), i32)
+    with pytest.raises(ValueError, match="2-D"):
+        hilbert_scatter.hilbert_scatter(i32.reshape(2, 4), i32)
+    with pytest.raises(ValueError, match="contiguous"):
+        hilbert_scatter.hilbert_scatter(i32.reshape(4, 2).T, i32.reshape(2, 4))
     meta = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         compact.compact_tokens(
@@ -132,8 +139,9 @@ def test_pack_words_rejects_unsorted_widx():
 
 
 def test_engine_probe_on_cpu():
-    """The gather's probe: on the CPU there is no kernel to probe, and the
-    probe tile through the plain version gives back ``arange``."""
+    """The tile engines' probe: on the CPU there is no kernel to probe, and
+    the probe tile through the plain gather and scatter gives back
+    ``arange``."""
     from dwt_tpu_torch.ops import hilbert_gather as hg
 
     before = hg.engine_supported.launches
@@ -142,6 +150,8 @@ def test_engine_probe_on_cpu():
     assert co.shape == (hg.TS, hg.TS, 1)
     assert torch.equal(hg.engine_probe(co, src).reshape(-1),
                        torch.arange(hg.TS * hg.TS, dtype=torch.int32))
+    assert torch.equal(hg.scatter_probe(co.reshape(1, -1),
+                                     src.reshape(hg.TS, hg.TS)), co)
     assert hg.engine_supported.launches == before
 
 
@@ -158,4 +168,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
-        "compact.cu", "hilbert_gather.cu", "pack.cu", "runtime.cu"]
+        "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu", "pack.cu",
+        "runtime.cu"]
