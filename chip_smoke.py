@@ -11,7 +11,8 @@ seconds:
 
 1. device  — the card's name and power limit (``nvidia-smi``).
 2. build   — the kernel library, built from ``dwt_tpu_torch/csrc`` by one
-             ``nvcc`` call (into ``build/dwt_tpu_torch/``).
+             ``nvcc`` process a source, all started together, and a link
+             (into ``build/dwt_tpu_torch/``).
 3. e2e     — the two main paths.  Encode: an encoder built by
              ``get_encoder`` (which runs the tile engines' one-time probe)
              encodes a 3840x2160 RGB frame made from seed 0; the stream's
@@ -25,17 +26,33 @@ seconds:
              (which must leave planes missing, so the midpoint bias runs)
              and a reduced decode capped at 960x540 (``pixels_max=518400``),
              whose shapes and pixels' SHA-256 must equal the JAX package's
-             (constants below).
-4. kernels — each kernel again on those inputs, held against its plain
-             PyTorch version on the same CUDA tensors (exact: integers),
-             and timed beside the plain version and, where one PyTorch call
-             computes the same function, that call.
+             (constants below).  Then a capacity encode (1,000,000 bytes),
+             which must equal the lossless stream's prefix with fewer
+             tokens.  Then the tiled paths: ``encode_tiled`` of the frame
+             in 512x512 tiles (40 tiles, 4 geometries), lossless and cut to
+             a third of its size, both held to the JAX package's container
+             digests, and ``decode_tiled`` of each container: the lossless
+             one must give the frame back, the budgeted one the JAX
+             package's pixels.  The capacity encode and each tiled path
+             also run with the launch counts reset before and read after
+             (each kernel of the path must be > 0) and with their kernel
+             inputs kept: one call of each kernel for each distinct set of
+             input shapes (a tile geometry, a token bucket, the batched
+             scatter of N tiles as N*C channels), held at once against
+             its plain version on the same CUDA tensors (exact).
+4. kernels — each kernel again on the 4K main paths' inputs, held against
+             its plain PyTorch version on the same CUDA tensors (exact:
+             integers), and timed beside the plain version and, where one
+             PyTorch call computes the same function, that call.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
              and idle share from torch.profiler, three readings); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
-             share of the tail.
+             share of the tail; three warm tiled encodes and decodes in
+             MP/s, and one ``decode_tiled`` split, by timers wrapped
+             around its own calls, into the thread-pooled host parse, the
+             upload, the batched tails and the rest (download, mosaic).
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -82,6 +99,29 @@ REDUCED_PIXELS = 518_400
 REDUCED_SHAPE = (270, 480, 3)
 REDUCED_SHA256 = "a748f357bc36c3b22fc4a54c56091b889b8518ed85d9c359f289af0e3ff85bbe"
 
+# The JAX package's tiled containers of the same frame, made on the CPU
+# with (one tile a vmapped dispatch, which bounds the host's memory and
+# leaves the bytes as they are)
+#   JAX_PLATFORMS=cpu python3 -c 'import hashlib, numpy as np, sys;
+#     sys.path[:0] = [".", "tests"]; from imagegen import random_image;
+#     from dwt_tpu.codec import tiled;
+#     tiled.BatchEncoder.MAX_PIXELS_PER_DISPATCH = 512 * 512;
+#     img = random_image(np.random.default_rng(0), 3840, 2160, 3, "mixed");
+#     full = tiled.encode_tiled(img, tile=(512, 512));
+#     cut = tiled.encode_tiled(img, tile=(512, 512), budget=len(full) // 3);
+#     out, _ = tiled.decode_tiled(cut);
+#     print(len(full), hashlib.sha256(full).hexdigest(), len(cut),
+#           hashlib.sha256(cut).hexdigest(),
+#           hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest())'
+TILE = (512, 512)
+TILED_BYTES = 12_585_953
+TILED_SHA256 = "bdd73e49dcd7d2bb1561a7f893c377eddbbef51dcc982c249182111c669b4da8"
+TILED_CUT_BYTES = 4_195_313  # budget 4,195,317 (a third of the above)
+TILED_CUT_SHA256 = "3f1a1ac4c16b8d7edfb2505796ba188a2eab36284129a699c8cc8146e170e068"
+TILED_CUT_PIXELS_SHA256 = (
+    "0374a98c578c277cd5ce9ef0d5c9a7b9853bfd9b6bb906b1bda61f1ecacd7c87")
+CAPACITY = 1_000_000
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -100,43 +140,81 @@ def random_image(w: int, h: int, c: int, seed: int) -> np.ndarray:
     return mod.random_image(np.random.default_rng(seed), w, h, c, "mixed")
 
 
+ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
+                "budgeted tiled encode")
+DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode")
+
+
+def max_abs_err(name: str, kernel_out, plain_out) -> int:
+    """Largest difference of two integer outputs (as uint32 bit patterns);
+    raises if their shapes or dtypes differ."""
+    if (kernel_out.shape, kernel_out.dtype) != (plain_out.shape,
+                                                plain_out.dtype):
+        raise AssertionError(
+            f"{name}: kernel gives {tuple(kernel_out.shape)} "
+            f"{kernel_out.dtype}, plain {tuple(plain_out.shape)} "
+            f"{plain_out.dtype}")
+    if not kernel_out.numel():
+        return 0
+    return int((u32(kernel_out) - u32(plain_out)).abs().max())
+
+
 class Kernels:
-    """The kernel wrappers of the two paths (the five kernels and the tile
+    """The kernel wrappers of the paths (the six kernels and the tile
     engines' probe), their sources, the TPU kernels they replace and the
-    path ("encode" or "decode") whose run must launch them."""
+    paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch
+    them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
         from dwt_tpu_torch.ops import (compact, hilbert_gather,
-                                       hilbert_scatter, pack)
+                                       hilbert_scatter, pack, transpose)
 
         # The codec modules call the kernel wrappers by these names.
         self.sites = [(stage1, "hilbert_gather"), (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
-                      (decoder, "hilbert_scatter")]
+                      (decoder, "hilbert_scatter"), (tokens, "transpose2d")]
+        # Each site's kernel wrapper and its plain version.
+        self.pairs = {
+            "hilbert_gather": (hilbert_gather.hilbert_gather,
+                               hilbert_gather.hilbert_gather_plain),
+            "compact_tokens": (compact.compact_tokens,
+                               compact.compact_tokens_plain),
+            "pack_words": (pack.pack_words, pack.pack_words_plain),
+            "scatter_refbits": (compact.scatter_refbits,
+                                compact.scatter_refbits_plain),
+            "hilbert_scatter": (hilbert_scatter.hilbert_scatter,
+                                hilbert_scatter.hilbert_scatter_plain),
+            "transpose2d": (transpose.transpose2d,
+                            transpose.transpose2d_plain),
+        }
         self.rows = [
             ("hilbert_gather", hilbert_gather.hilbert_gather,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
-             "dwt_tpu/ops/pallas_hilbert.py:284", "encode"),
+             "dwt_tpu/ops/pallas_hilbert.py:284", ENCODE_PATHS),
             # The probe's count lives on engine_supported, which launches
             # the gather kernel (engine_probe) and the scatter kernel
             # (scatter_probe) once per device, when the first encoder or
             # decoder tail is built: in this script, the encoder.
             ("engine_supported", hilbert_gather.engine_supported,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
-             "dwt_tpu/ops/pallas_hilbert.py:107", "encode"),
+             "dwt_tpu/ops/pallas_hilbert.py:107", ("encode",)),
             ("compact_tokens", compact.compact_tokens,
              "dwt_tpu_torch/csrc/compact.cu",
-             "dwt_tpu/ops/pallas_compact.py:404", "encode"),
+             "dwt_tpu/ops/pallas_compact.py:404", ENCODE_PATHS),
             ("pack_words", pack.pack_words,
              "dwt_tpu_torch/csrc/pack.cu",
-             "dwt_tpu/ops/pallas_pack.py:235", "encode"),
+             "dwt_tpu/ops/pallas_pack.py:235", ENCODE_PATHS),
             ("scatter_refbits", compact.scatter_refbits,
              "dwt_tpu_torch/csrc/compact.cu",
-             "dwt_tpu/ops/pallas_compact.py:548", "encode"),
+             "dwt_tpu/ops/pallas_compact.py:548", ENCODE_PATHS),
             ("hilbert_scatter", hilbert_scatter.hilbert_scatter,
              "dwt_tpu_torch/csrc/hilbert_scatter.cu",
-             "dwt_tpu/ops/pallas_hilbert.py:538", "decode"),
+             "dwt_tpu/ops/pallas_hilbert.py:538", DECODE_PATHS),
+            # The VLI order scan's two transposes, int32 in, int8 out.
+            ("transpose2d", transpose.transpose2d,
+             "dwt_tpu_torch/csrc/transpose.cu",
+             "dwt_tpu/ops/pallas_transpose.py:57", ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -147,22 +225,31 @@ class Kernels:
         return {name: fn.launches for name, fn, _, _, _ in self.rows}
 
     def check_launched(self, path: str, counts: dict) -> None:
-        idle = [name for name, _, _, _, p in self.rows
-                if p == path and counts[name] <= 0]
+        idle = [name for name, _, _, _, paths in self.rows
+                if path in paths and counts[name] <= 0]
         if idle:
             raise AssertionError(
                 f"kernels never launched on the {path} path: {idle}")
 
     @contextlib.contextmanager
     def capture(self, store: dict):
-        """Keep a copy of each kernel's inputs while the encoder runs."""
+        """Keep a copy of each kernel's inputs while a path runs: under the
+        kernel's name, one tuple of arguments for each distinct set of
+        tensor shapes and dtypes the path gives it, in call order (the
+        first call of each)."""
         sites = self.sites
         saved = [getattr(mod, name) for mod, name in sites]
+        seen = set()
 
         def keeper(name, fn):
             def run(*args):
-                store[name] = tuple(a.clone() if hasattr(a, "clone") else a
-                                    for a in args)
+                key = (name,) + tuple((tuple(a.shape), a.dtype)
+                                      for a in args if hasattr(a, "shape"))
+                if key not in seen:
+                    seen.add(key)
+                    store.setdefault(name, []).append(tuple(
+                        a.clone() if hasattr(a, "clone") else a
+                        for a in args))
                 return fn(*args)
             return run
 
@@ -173,6 +260,41 @@ class Kernels:
         finally:
             for (mod, name), fn in zip(sites, saved):
                 setattr(mod, name, fn)
+
+    def hold(self, store: dict) -> dict:
+        """Run each kept call of ``store`` again through its kernel and its
+        plain version (fresh copies of the arguments: kernel B works in
+        place) and raise unless they are equal.  Returns {kernel: calls
+        held}."""
+        def fresh(args):
+            return [a.clone() if hasattr(a, "clone") else a for a in args]
+
+        for name, calls in store.items():
+            kernel, plain = self.pairs[name]
+            for args in calls:
+                err = max_abs_err(name, kernel(*fresh(args)),
+                                  plain(*fresh(args)))
+                if err != 0:
+                    shapes = [tuple(a.shape) for a in args
+                              if hasattr(a, "shape")]
+                    raise AssertionError(
+                        f"{name} at {shapes}: kernel differs from its plain "
+                        f"version (max abs err {err})")
+        return {name: len(calls) for name, calls in store.items()}
+
+    @contextlib.contextmanager
+    def path(self, name: str, store: dict, counts: dict):
+        """Run a path with the launch counts set to 0 before it and read
+        into ``counts`` after it, and its kernel inputs kept in ``store``;
+        raise if a kernel of the path was never launched."""
+        import torch
+
+        self.reset()
+        with self.capture(store):
+            yield
+        torch.cuda.synchronize()
+        counts.update(self.counts())
+        self.check_launched(name, counts)
 
 
 def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
@@ -221,18 +343,15 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import compact, hilbert_gather, hilbert_scatter, pack
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
+                                   pack, transpose)
 
     from dwt_tpu_torch.ops.compact import E
 
     out = []
 
     def row(name, kernel_out, plain_out, ms, plain_ms, nbytes, library_ms):
-        if kernel_out.shape != plain_out.shape:
-            raise AssertionError(f"{name}: shape {tuple(kernel_out.shape)} "
-                                 f"!= plain {tuple(plain_out.shape)}")
-        err = int((u32(kernel_out) - u32(plain_out)).abs().max()) \
-            if kernel_out.numel() else 0
+        err = max_abs_err(name, kernel_out, plain_out)
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
@@ -248,7 +367,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                  f"bound {out[-1]['bound_ms']:.3f} ms)")
 
     # 1. gather: (H, W, C) coefficients -> (C, nlin)
-    co, src = got["hilbert_gather"]
+    co, src = got["hilbert_gather"][0]
     k = hilbert_gather.hilbert_gather(co, src)
     p = hilbert_gather.hilbert_gather_plain(co, src)
     perm = torch.as_tensor(padded_layout(compute_pyramid(W, H), ALIGN)[0],
@@ -285,7 +404,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
 
     # 2. kernel A: reads the elements its live units cover, writes one
     # pair per newly significant element (meta col 6)
-    vmag, meta, npairs = got["compact_tokens"]
+    vmag, meta, npairs = got["compact_tokens"][0]
     k = compact.compact_tokens(vmag, meta, npairs)
     p = compact.compact_tokens_plain(vmag, meta, npairs)
     row("compact_tokens", k, p,
@@ -298,7 +417,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     # 3. pack: 16 B read a token, and the words up to the last token's
     # third piece written (widx is nondecreasing); three index_add_ on
     # int64 words are the library yardstick
-    widx, c0, c1, c2, nwords = got["pack_words"]
+    widx, c0, c1, c2, nwords = got["pack_words"][0]
     k = pack.pack_words(widx, c0, c1, c2, nwords)
     p = pack.pack_words_plain(widx, c0, c1, c2, nwords)
     idx = [widx.long() + j for j in range(3)]
@@ -319,7 +438,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     # 4. kernel B (in place on the packed words: a fresh copy each run):
     # reads the elements its live units cover and reads and writes each
     # word that holds one of their refinement bits
-    vmag, meta, words = got["scatter_refbits"]
+    vmag, meta, words = got["scatter_refbits"][0]
     live = meta[meta[:, 6] > 0].long()
     bit0 = 32 * live[:, 3] + live[:, 4]
     ref_words = covered(torch, bit0 >> 5, ((bit0 + live[:, 6] - 1) >> 5) + 1,
@@ -337,7 +456,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     # 5. inverse scatter (decode): reads its index and C coefficients for
     # each pixel off the root band, and writes the (H, W, C) plane; one
     # gather through the full inverse permutation is the library yardstick
-    lin, src = got["hilbert_scatter"]
+    lin, src = got["hilbert_scatter"][0]
     k = hilbert_scatter.hilbert_scatter(lin, src)
     p = hilbert_scatter.hilbert_scatter_plain(lin, src)
     inv = torch.as_tensor(reconstruction_perm(compute_pyramid(W, H)),
@@ -350,6 +469,28 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                                                                      src),
                 reps=3),
         4 * (C * int((src >= 0).sum()) + src.numel() + k.numel()), lib_ms)
+
+    # 6. the VLI scan's two transposes (int32 (nblk, TB) in, int8 (TB,
+    # nblk) out): each held to its plain version and timed alone; the row
+    # gives the two summed, i.e. the cost of one encode.  Each reads and
+    # writes its tensor once; ``x.T.contiguous()`` is the library call.
+    parts, ks, ps = [], [], []
+    for (x,) in got["transpose2d"]:
+        k, p = transpose.transpose2d(x), transpose.transpose2d_plain(x)
+        max_abs_err("transpose2d", k, p)  # shape and dtype
+        ks.append(k.reshape(-1).to(torch.int32))
+        ps.append(p.reshape(-1).to(torch.int32))
+        parts.append((
+            time_ms(torch, lambda: transpose.transpose2d(x)),
+            time_ms(torch, lambda: transpose.transpose2d_plain(x)),
+            2 * x.numel() * x.element_size(),
+            time_ms(torch, lambda: x.T.contiguous())))
+        progress(f"kernels: transpose2d {tuple(x.shape)} {x.dtype}: "
+                 f"{parts[-1][0]:.3f} ms (plain {parts[-1][1]:.3f} ms, "
+                 f"library {parts[-1][3]:.3f} ms, bound "
+                 f"{parts[-1][2] / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    row("transpose2d", torch.cat(ks), torch.cat(ps),
+        *(sum(t[i] for t in parts) for i in range(4)))
     return out
 
 
@@ -515,6 +656,172 @@ def decode_profile(torch, decoder, stream: bytes, img: np.ndarray) -> None:
                  f"{busy:.2f} ms, scatter {sc:.3f} ms, wall {wall:.2f} ms)")
 
 
+def held_line(held: dict) -> str:
+    return ", ".join(f"{name} x{n}" for name, n in held.items())
+
+
+def capacity_encode(K: Kernels, enc, img, stream: bytes,
+                    tokens: int) -> None:
+    """Phase 3's capacity encode: the 1,000,000-byte budget must give the
+    lossless stream's prefix while coding fewer tokens; its kernels are
+    held against their plain versions on its own inputs."""
+    store, counts = {}, {}
+    t0 = time.perf_counter()
+    with K.path("capacity encode", store, counts):
+        s, info = enc.encode_with_stats(img, CAPACITY)
+    secs = time.perf_counter() - t0
+    progress(f"e2e: capacity encode ({CAPACITY} bytes) -> {len(s)} bytes, "
+             f"T={info['tokens']} (lossless {tokens}), {secs:.3f} s "
+             f"(kernel inputs kept); launches {counts}")
+    if s != stream[:CAPACITY] or not info["tokens"] < tokens:
+        raise AssertionError("the capacity encode is not the lossless "
+                             "stream's prefix with fewer tokens")
+    progress(f"e2e: capacity encode kernels equal to their plain versions: "
+             f"{held_line(K.hold(store))}")
+
+
+def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> bytes:
+    """Phase 3's tiled paths: the lossless and the budgeted container held
+    to the JAX package's digests, then the lossless container decoded back
+    to the frame and the budgeted one to the JAX package's pixels.  Each
+    path runs with the launch counts reset before and read after, and
+    each kernel call it kept (one for each set of input shapes) is held
+    against its plain version."""
+    def run(name, fn):
+        store, counts = {}, {}
+        t0 = time.perf_counter()
+        with K.path(name, store, counts):
+            result = fn()
+        secs = time.perf_counter() - t0
+        return result, secs, counts, store
+
+    def held(name, store):
+        progress(f"e2e: {name} kernels equal to their plain versions: "
+                 f"{held_line(K.hold(store))}")
+
+    full, secs, counts, store = run(
+        "tiled encode", lambda: tiled.encode_tiled(img, tile=TILE))
+    digest = hashlib.sha256(full).hexdigest()
+    progress(f"e2e: tiled encode {TILE} -> {len(full)} bytes, sha256 "
+             f"{digest[:16]}, {secs:.2f} s cold; launches {counts}")
+    if (len(full), digest) != (TILED_BYTES, TILED_SHA256):
+        raise AssertionError(f"tiled container differs from the JAX "
+                             f"package's: {len(full)} bytes, sha256 {digest}")
+    held("tiled encode", store)
+
+    budget = len(full) // 3
+    cut, secs, counts, store = run(
+        "budgeted tiled encode",
+        lambda: tiled.encode_tiled(img, tile=TILE, budget=budget))
+    digest = hashlib.sha256(cut).hexdigest()
+    progress(f"e2e: tiled encode, budget {budget} -> {len(cut)} bytes, "
+             f"sha256 {digest[:16]}, {secs:.2f} s; launches {counts}")
+    if (len(cut), digest) != (TILED_CUT_BYTES, TILED_CUT_SHA256):
+        raise AssertionError(f"budgeted tiled container differs from the "
+                             f"JAX package's: {len(cut)} bytes, sha256 "
+                             f"{digest}")
+    held("budgeted tiled encode", store)
+
+    (out, gray), secs, counts, store = run(
+        "tiled decode", lambda: tiled.decode_tiled(full))
+    progress(f"e2e: tiled decode -> {out.shape} gray={gray}, {secs:.2f} s; "
+             f"launches {counts}")
+    if gray or not np.array_equal(out, img):
+        raise AssertionError("the tiled decode differs from the frame")
+    held("tiled decode", store)
+
+    (out, _), secs, counts, store = run(
+        "budgeted tiled decode", lambda: tiled.decode_tiled(cut))
+    digest = sha256_pixels(out)
+    progress(f"e2e: budgeted tiled decode -> {out.shape}, sha256 "
+             f"{digest[:16]}, {secs:.2f} s; launches {counts}")
+    if out.shape != img.shape or digest != TILED_CUT_PIXELS_SHA256:
+        raise AssertionError(f"budgeted tiled decode differs from the JAX "
+                             f"package's: {out.shape} sha256 {digest}")
+    held("budgeted tiled decode", store)
+    return full
+
+
+@contextlib.contextmanager
+def wrapped(obj, name: str, wrap):
+    """Replace ``obj.name`` by ``wrap(obj.name)`` for the block."""
+    fn = getattr(obj, name)
+    setattr(obj, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+def tiled_timing(torch, tiled, img: np.ndarray, full: bytes,
+                 card: str) -> None:
+    """Phase 5's tiled rates: three warm tiled encodes and decodes of the
+    frame, then one ``decode_tiled`` split by timers wrapped around its own
+    calls (host clock): the thread-pooled host parse
+    (``native.entropy_decode_batch``), the upload (from the parse's return
+    to the synchronised start of the batched tail that follows it), the
+    batched tails (``_Tail.batch``, synchronised) and the rest (download
+    and mosaic)."""
+    from dwt_tpu_torch.codec import decoder
+    from dwt_tpu_torch.runtime import native
+
+    enc_mps, dec_mps = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s = tiled.encode_tiled(img, tile=TILE)
+        enc_mps.append(W * H / 1e6 / (time.perf_counter() - t0))
+        if s != full:
+            raise AssertionError("a warm tiled encode differs from the first")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, _ = tiled.decode_tiled(full)
+        dec_mps.append(W * H / 1e6 / (time.perf_counter() - t0))
+        if not np.array_equal(out, img):
+            raise AssertionError("a warm tiled decode differs from the frame")
+    progress(f"timing: warm 4K tiled encode "
+             f"{', '.join(f'{m:.2f}' for m in enc_mps)} MP/s, decode "
+             f"{', '.join(f'{m:.2f}' for m in dec_mps)} MP/s on {card}")
+
+    split = dict(parse=0.0, upload=0.0, tails=0.0)
+    parsed = []  # the parse's return time, until a tail starts
+
+    def parse(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            result = fn(*args)
+            parsed.append(time.perf_counter())
+            split["parse"] += parsed[-1] - t0
+            return result
+        return run
+
+    def tail(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if parsed:
+                split["upload"] += t0 - parsed.pop()
+            result = fn(*args)
+            torch.cuda.synchronize()
+            split["tails"] += time.perf_counter() - t0
+            return result
+        return run
+
+    with wrapped(native, "entropy_decode_batch", parse), \
+            wrapped(decoder._Tail, "batch", tail):
+        t0 = time.perf_counter()
+        out, _ = tiled.decode_tiled(full)
+        total = time.perf_counter() - t0
+    if not np.array_equal(out, img):
+        raise AssertionError("the split tiled decode differs from the frame")
+    ms = {k: 1e3 * v for k, v in split.items()}
+    progress(f"profile: one warm 4K tiled decode, {1e3 * total:.1f} ms "
+             f"(parser threads = {os.cpu_count()} cores): host parse "
+             f"{ms['parse']:.1f} ms, upload {ms['upload']:.1f} ms, batched "
+             f"tails {ms['tails']:.1f} ms, rest (download, mosaic) "
+             f"{1e3 * total - sum(ms.values()):.1f} ms (host clock, "
+             f"synchronised)")
+
+
 def main() -> int:
     import torch
 
@@ -536,11 +843,12 @@ def main() -> int:
 
     path, secs = build.build()
     build.library()
-    progress(f"build: {len(build.sources())} sources, one nvcc call, "
+    progress(f"build: {len(build.sources())} sources, one nvcc process "
+             f"each, in parallel, and a link, "
              f"{secs:.1f} s -> {os.path.relpath(path, ROOT)}")
 
     # 3. e2e: the main paths, with the kernels' launch counts
-    from dwt_tpu_torch.codec import decoder
+    from dwt_tpu_torch.codec import decoder, tiled
     from dwt_tpu_torch.codec.encoder import get_encoder
 
     img = random_image(W, H, C, seed=0)
@@ -576,6 +884,8 @@ def main() -> int:
     K.check_launched("decode", dec_launches)
     launches["hilbert_scatter"] = dec_launches["hilbert_scatter"]
     lossy_decodes(torch, decoder, stream)
+    capacity_encode(K, enc, img, stream, info["tokens"])
+    full = tiled_paths(torch, K, tiled, img)
 
     # 4. kernels against their plain versions, on the main path's inputs
     rows = check_kernels(torch, K, got, launches)
@@ -602,6 +912,7 @@ def main() -> int:
     progress(f"timing: warm 4K decode {', '.join(f'{m:.2f}' for m in mps)} "
              f"MP/s on {card}")
     decode_profile(torch, decoder, stream, img)
+    tiled_timing(torch, tiled, img, full, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -12,9 +12,9 @@ Truncation and reduced-resolution semantics follow decode.c:136-268: the
 output size is that of the deepest level actually decoded; a stream that
 dies inside the root band is a hard error (``ValueError``).
 
-Not ported yet, and refused with ``NotImplementedError``: the tiled
-``.dwtt`` container.  ``decode_batch`` (its only caller is the tiled
-decoder) waits for the same slice.
+``decode_batch`` decodes many same-geometry streams (the tiles of a
+``.dwtt`` container, ``codec/tiled.py``): one parse on the parser's host
+thread pool, then one batched tail per decoded-level group.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..ops.hilbert_gather import engine_supported
 from ..ops.hilbert_scatter import hilbert_scatter
 from ..ops.lifting import cdf53_inv, dwt2d_inv
 from ..runtime import native
-from .encoder import _LATER, _device
+from .encoder import _device
 
 
 def parse_header(stream: bytes) -> tuple:
@@ -75,47 +75,69 @@ class _Tail:
         engine_supported(device)  # the tile engines' probe, once a device
         self.src = torch.as_tensor(scatter_source(self.sub_pyr), device=device)
         # Level of each scan position, shifted by one (root band -> 0) to
-        # index a (C, 17) bias table whose column 0 is 0.
+        # index an (N, C, 17) bias table whose column 0 is 0.
         self.lvl_idx = torch.as_tensor(
             level_of_position(pyr)[:self.n_out] + 1, device=device)
 
     def _bias(self, lin: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
         """Midpoint bias for planes lost to truncation: push nonzero detail
-        coefficients away from zero by 2^(missing-2) (decode.c:50-58)."""
+        coefficients of (N, C, n_out) ``lin`` away from zero by
+        2^(missing-2) (decode.c:50-58)."""
         bias_l = np.where(missing >= 2,
                           np.left_shift(1, np.clip(missing - 2, 0, 30)), 0)
-        table = np.zeros((self.channels, 17), np.int32)
-        table[:, 1:] = bias_l
+        table = np.zeros(missing.shape[:2] + (17,), np.int32)
+        table[..., 1:] = bias_l
         bias = torch.as_tensor(table, device=self.device).index_select(
-            1, self.lvl_idx)
+            2, self.lvl_idx)
         return lin + torch.sign(lin) * bias
 
-    def __call__(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
-        """(C, total >= n_out) int32 coefficients on the device and the
-        parser's (C, 16) missing-plane counts -> (outH, outW, C) uint8."""
-        C, n_out = self.channels, self.n_out
+    def batch(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
+        """(N, C, total >= n_out) int32 coefficients on the device and the
+        parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C)
+        uint8.  The N streams go through one scatter launch as N*C
+        channels."""
+        N, C, n_out = coeffs.shape[0], self.channels, self.n_out
         if self.out_levels == 0:
             # Root-only decode: the reference still runs one inverse lifting
             # pass at root size (decode.c:258 quirk, SURVEY §2.5).
-            x = coeffs[:, :n_out].T.reshape(self.out_h, self.out_w, C)
-            x = cdf53_inv(cdf53_inv(x, axis=0), axis=1)
+            x = coeffs[..., :n_out].transpose(1, 2).reshape(
+                N, self.out_h, self.out_w, C)
+            x = cdf53_inv(cdf53_inv(x, axis=-3), axis=-2)
         else:
             lin = coeffs
-            if (missing[:, :self.out_levels] >= 2).any():
-                lin = self._bias(coeffs[:, :n_out], missing)
-            x = hilbert_scatter(lin, self.src)
+            if (missing[:, :, :self.out_levels] >= 2).any():
+                lin = self._bias(coeffs[..., :n_out], missing)
+            x = hilbert_scatter(lin.reshape(N * C, -1), self.src)
+            x = x.reshape(self.out_h, self.out_w, N, C).permute(
+                2, 0, 1, 3).contiguous()  # a copy only when N > 1
             h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
-            x[:h0, :w0] = lin[:, :h0 * w0].T.reshape(h0, w0, C)
+            x[:, :h0, :w0] = lin[..., :h0 * w0].transpose(1, 2).reshape(
+                N, h0, w0, C)
             x = dwt2d_inv(x, self.sub_pyr)
         if not self.gray:
             x = ycocg_to_rgb(x)
         return x.clamp(0, 255).to(torch.uint8)
+
+    def __call__(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
+        """(C, total >= n_out) int32 coefficients on the device and the
+        parser's (C, 16) missing-plane counts -> (outH, outW, C) uint8."""
+        return self.batch(coeffs[None], missing[None])[0]
 
 
 @functools.lru_cache(maxsize=64)
 def _tail(width: int, height: int, out_levels: int, channels: int,
           gray: bool, device: torch.device) -> _Tail:
     return _Tail(width, height, out_levels, channels, gray, device)
+
+
+def _levels_max(pyr, pixels_max: int) -> int:
+    """The deepest level with at most ``pixels_max`` pixels (all levels
+    when ``pixels_max`` is 0)."""
+    levels_max = pyr.levels
+    if pixels_max > 0:
+        while levels_max > 0 and pyr.pixels[levels_max] > pixels_max:
+            levels_max -= 1
+    return levels_max
 
 
 def _parse(stream: bytes, pixels_max: int, device: torch.device) -> tuple:
@@ -125,30 +147,65 @@ def _parse(stream: bytes, pixels_max: int, device: torch.device) -> tuple:
     W, H, gray = parse_header(stream)
     C = 1 if gray else 3
     pyr = compute_pyramid(W, H)
-    levels_max = pyr.levels
-    if pixels_max > 0:
-        while levels_max > 0 and pyr.pixels[levels_max] > pixels_max:
-            levels_max -= 1
     # The parser ORs bits into a zeroed buffer.
     coeffs = torch.zeros((C, pyr.total), dtype=torch.int32,
                          pin_memory=device.type == "cuda")
     _, missing, level, _ = native.entropy_decode(
-        stream[6:], C, pyr.levels, levels_max, pyr.pixels, coeffs.numpy())
+        stream[6:], C, pyr.levels, _levels_max(pyr, pixels_max), pyr.pixels,
+        coeffs.numpy())
     return W, H, gray, coeffs, missing, level + 1
 
 
 def decode(stream: bytes, pixels_max: int = 0, device=None) -> tuple:
-    """Decode one ``.dwt`` stream; returns (image uint8 (H, W, C), gray).
+    """Decode one ``.dwt`` stream, or a ``.dwtt`` container (the format
+    ``encoder.encode`` routes oversized images to); returns (image uint8
+    (H, W, C), gray).
 
     ``pixels_max > 0`` caps the output at the deepest level with at most
     that many pixels.  ``device`` defaults to the CUDA card; without one
     this raises unless ``device="cpu"`` is passed (the kernels' plain
     PyTorch versions)."""
     if stream[:2] == b"WT":
-        raise NotImplementedError("the tiled .dwtt container " + _LATER)
+        from . import tiled
+
+        return tiled.decode_tiled(stream, pixels_max=pixels_max,
+                                  device=device)
     device = _device(device)
     W, H, gray, coeffs, missing, out_levels = _parse(stream, pixels_max,
                                                      device)
     tail = _tail(W, H, out_levels, 1 if gray else 3, gray, device)
     img = tail(coeffs.to(device, non_blocking=True), missing)
     return img.cpu().numpy(), gray
+
+
+def decode_batch(payloads: list, width: int, height: int, gray: bool,
+                 pixels_max: int = 0, nthreads: int = 0, device=None) -> list:
+    """Decode many same-geometry headerless payloads: one parse on the
+    host thread pool (``nthreads`` 0 = the hardware's concurrency) into a
+    zeroed pinned buffer, one upload, then one batched tail per
+    decoded-level group.
+
+    Returns a list of (H', W', C) uint8 images (the size depends on how far
+    each stream decoded).  Streams that died inside the root band come
+    back as None."""
+    device = _device(device)
+    C = 1 if gray else 3
+    pyr = compute_pyramid(width, height)
+    buf = torch.zeros((len(payloads), C, pyr.total), dtype=torch.int32,
+                      pin_memory=device.type == "cuda")
+    _, missing, level, _, rc = native.entropy_decode_batch(
+        payloads, C, pyr.levels, _levels_max(pyr, pixels_max), pyr.pixels,
+        nthreads, buf.numpy())
+    coeffs = buf.to(device, non_blocking=True)
+    out = [None] * len(payloads)
+    for lv in np.unique(level):
+        idx = np.nonzero((level == lv) & (rc == 0))[0]
+        if idx.size == 0:
+            continue
+        tail = _tail(width, height, int(lv) + 1, C, gray, device)
+        sel = coeffs if idx.size == len(payloads) else coeffs[
+            torch.as_tensor(idx, device=device)]
+        imgs = tail.batch(sel, missing[idx]).cpu().numpy()
+        for j, i in enumerate(idx):
+            out[int(i)] = imgs[j]
+    return out

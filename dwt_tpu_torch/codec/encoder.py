@@ -1,15 +1,17 @@
-"""Single-stream lossless encoder: the entry point of the port's encode path.
+"""Single-stream encoder: the entry point of the port's encode path.
 
 Port of ``dwt_tpu/codec/encoder.py``'s ``Encoder``, ``get_encoder`` and
 ``encode``: stage 1 (codec/stage1.py), the tokens half (codec/tokens.py)
 and the emit half (codec/emit.py), writing the same ``.dwt`` bytes as the
-JAX package and the reference C encoder.  Four CUDA kernels run on the
+JAX package and the reference C encoder.  Five CUDA kernels run on the
 path: the linearization gather (and its one-time probe when an encoder
-is built), compaction kernels A and B and the codeword packer.
+is built), compaction kernels A and B, the VLI scan's transposes and the
+codeword packer.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-approximated: byte-budget truncation (``capacity > 0``) and the tiled
-``.dwtt`` container for images beyond the single-stream envelope.
+A byte budget (``capacity > 0``) masks the schedule steps that start past
+it before stage 2 (``_truncate_schedule``), and ``encode`` routes to the
+tiled ``.dwtt`` container (``codec/tiled.py``) when asked to, or when an
+image does not fit one stream.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ from .tokens import _stage2_tokens
 # Coefficient ceiling of one .dwt stream (as in the JAX package): beyond it
 # the JAX package writes the tiled .dwtt container.
 SINGLE_STREAM_MAX_COEFFS = 1 << 27
-
-_LATER = "is not ported yet (a later slice of the port); use dwt_tpu"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,7 +63,8 @@ def _check_stream_bits(total_bits: int) -> int:
     if total_bits >= 2**31:
         raise ValueError(
             f"stream needs {total_bits} bits; single .dwt streams are "
-            "limited to 2^31 bits — the tiled container " + _LATER)
+            "limited to 2^31 bits — use the tiled container "
+            "(container=True / encode_tiled)")
     return total_bits
 
 
@@ -111,6 +112,142 @@ def _root_bits_host(stats, pix0: int) -> int:
     return bits
 
 
+_TRUNC_STATS_KEYS = ("order", "valid_sched", "nS_sched", "base_sched",
+                     "valid", "nRef", "refrun_ok", "inj_pos", "T",
+                     "root_cnt", "root_base", "planes_base", "planes_max")
+
+# The stats leaves that a schedule cut replaces, with their dtypes.
+_PATCH_DTYPES = {"valid": torch.bool, "refrun_ok": torch.bool,
+                 "inj_pos": torch.int32, "valid_sched": torch.bool,
+                 "nS_sched": torch.int32, "T": torch.int32}
+
+
+def host_stats(stats) -> dict:
+    """Numpy copies of the stats leaves that the schedule cuts read."""
+    return {k: np.asarray(torch.as_tensor(stats[k]).cpu())
+            for k in _TRUNC_STATS_KEYS}
+
+
+def patch_stats(stats, upd: dict) -> dict:
+    """``stats`` with the leaves of a schedule cut (numpy) replaced by
+    tensors on the stats' device, in the stage-1 dtypes."""
+    dev = stats["order"].device
+    return {**stats, **{k: torch.as_tensor(v, dtype=_PATCH_DTYPES[k],
+                                           device=dev)
+                        for k, v in upd.items()}}
+
+
+def _step_lb_bits(sh: dict) -> np.ndarray:
+    """(S,) int64 lower bound on each schedule step's bits: a VLI bit and a
+    sign bit per significant pair, one bit per ref-run token, one bit per
+    refinement bit."""
+    order = sh["order"]
+    nref = np.where(sh["valid"].reshape(-1), sh["nRef"].reshape(-1), 0)
+    rro = sh["refrun_ok"].reshape(-1)[order] & sh["valid_sched"]
+    return (2 * sh["nS_sched"].astype(np.int64) + rro.astype(np.int64)
+            + nref[order].astype(np.int64))
+
+
+def _truncate_schedule(sh: dict, capacity: int, pyr, channels: int):
+    """Budget-bounded work (bytes.h:75-78 as work skipping, not just
+    output slicing): given host copies of the stage-1 stats, mask every
+    schedule step that provably starts at or beyond ``capacity`` bytes and
+    shrink the token count accordingly.  The bits below the budget are
+    untouched (every included token keeps its full-encode rank, VLI order
+    and bit offset), so ``stream[:capacity]`` equals the cut of the full
+    encode, while a deep cut runs stage 2 over a fraction of the tokens.
+
+    Inclusion uses per-step lower bounds on bit cost
+    (:func:`_step_lb_bits`, and the exact root-band bits): a step whose
+    bounded start reaches the budget truly starts past it.
+
+    Returns a dict of replacement stats leaves (numpy), or None when the
+    whole schedule might be needed."""
+    lb_s = _step_lb_bits(sh)
+    pre = _root_bits_host(sh, pyr.pixels[0]) + channels  # + plane VLIs
+    start_lb = pre + np.cumsum(lb_s) - lb_s
+    include = start_lb < capacity * 8
+    if include.all():
+        return None
+    k = int(np.nonzero(include)[0][-1]) if include.any() else -1
+    return _mask_schedule_suffix(sh, k, pyr, channels)
+
+
+def _mask_schedule_suffix(sh: dict, k: int, pyr, channels: int):
+    """Mask every schedule step after index ``k`` (schedule order); the
+    shared tail of :func:`_truncate_schedule` and the tiled layer cap.
+    Returns the replacement stats leaves (numpy), or None if nothing is
+    cut."""
+    order = sh["order"]
+    base_s = sh["base_sched"]
+    S = order.size
+    T_old = int(sh["T"])
+    T_new = int(base_s[k + 1]) + 1 if k + 1 < S else T_old
+    if T_new >= T_old:
+        return None
+    excl = order[k + 1:]
+    shape = (channels, pyr.levels, PMAX)
+    valid_new = sh["valid"].reshape(-1).copy()
+    valid_new[excl] = False
+    rro_new = sh["refrun_ok"].reshape(-1).copy()
+    rro_new[excl] = False
+    inj_new = sh["inj_pos"].reshape(-1).copy()
+    if k >= 0:
+        # The last included step injects its refinement bits at the flush
+        # slot, as the full schedule's final step does.
+        inj_new[order[k]] = T_new - 1
+    vs_new = sh["valid_sched"].copy()
+    vs_new[k + 1:] = False
+    ns_new = sh["nS_sched"].copy()
+    ns_new[k + 1:] = 0
+    return dict(
+        valid=valid_new.reshape(shape),
+        refrun_ok=rro_new.reshape(shape),
+        inj_pos=inj_new.reshape(shape).astype(np.int32),
+        valid_sched=vs_new,
+        nS_sched=ns_new.astype(np.int32),
+        T=np.int32(T_new),
+    )
+
+
+def _schedule_layers_host(sh: dict, pyr, channels: int):
+    """(S,) quality-layer bucket of each schedule step, in schedule order
+    (pre-step = 0; as emit._layer_boundaries buckets them)."""
+    L = pyr.levels
+    order = sh["order"]
+    pm = int(sh["planes_max"])
+    c_s = order // (L * PMAX)
+    l_s = (order // PMAX) % L
+    p_s = order % PMAX
+    layers = np.where(c_s == 0, pm - 2 - p_s + l_s, pm - 1 - p_s + l_s)
+    return np.maximum(layers, -1) + 1
+
+
+def _layer_lb_bytes_host(sh: dict, pyr, channels: int, n_layers: int):
+    """(n_layers,) lower-bound byte cost each quality layer adds to this
+    tile's stream (floor of the bit bound; layer 0 includes the exact
+    root-band and plane-count bits).  True layer costs are >= these, so a
+    budget waterline computed from them includes a superset of the layers
+    the true allocation keeps: masking beyond it is always safe."""
+    lb_s = np.where(sh["valid_sched"], _step_lb_bits(sh), 0)
+    buckets = _schedule_layers_host(sh, pyr, channels)
+    bits = np.zeros(n_layers, np.int64)
+    np.add.at(bits, np.clip(buckets, 0, n_layers - 1), lb_s)
+    bits[0] += _root_bits_host(sh, pyr.pixels[0]) + channels
+    return bits // 8
+
+
+def _truncate_schedule_to_layer(sh: dict, max_layer: int, pyr,
+                                channels: int):
+    """Mask every schedule step of a quality layer beyond ``max_layer``
+    (steps are schedule-ordered, so later layers form a suffix).  Returns
+    replacement stats leaves or None (nothing cut)."""
+    buckets = _schedule_layers_host(sh, pyr, channels)
+    include = (buckets <= max_layer) & sh["valid_sched"]
+    k = int(np.nonzero(include)[0][-1]) if include.any() else -1
+    return _mask_schedule_suffix(sh, k, pyr, channels)
+
+
 def _device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -137,7 +274,8 @@ class Encoder:
             # Kernel A packs (zero-prefix << 1) | sign into one int32.
             raise NotImplementedError(
                 f"{width}x{height}: a detail segment of 2^30 elements or more "
-                "needs the tiled container, which " + _LATER)
+                "is not supported by the single-stream encoder; use the tiled "
+                "container (encode() reroutes such images)")
         engine_supported(self.device)  # the gather's probe, once a device
         self._src = torch.as_tensor(gather_source(self.pyr),
                                     device=self.device)
@@ -153,11 +291,9 @@ class Encoder:
     def encode(self, img: np.ndarray, capacity: int = 0) -> bytes:
         return self.encode_with_stats(img, capacity)[0]
 
-    def encode_with_stats(self, img: np.ndarray, capacity: int = 0) -> tuple:
-        """Returns (stream bytes, info dict) — the structured counterpart of
-        the reference's stderr bit counters (encode.c:176,180,230)."""
-        if capacity > 0:
-            raise NotImplementedError("byte-budget truncation " + _LATER)
+    def stage1(self, img: np.ndarray) -> tuple:
+        """Stage 1 of one (H, W, C) or (H, W) image: (lin, stats) on the
+        encoder's device."""
         img = np.asarray(img)
         if img.ndim == 2:
             img = img[..., None]
@@ -165,21 +301,46 @@ class Encoder:
             raise ValueError(
                 f"image shape {img.shape} does not match the encoder's "
                 f"{(self.pyr.height, self.pyr.width, self.channels)}")
-        pyr, C = self.pyr, self.channels
-        t0 = time.perf_counter()
         lin, stats = _transform_and_stats(
-            torch.as_tensor(img, device=self.device), pyr, C, self.gray,
-            self._src)
-        T = int(stats["T"])
+            torch.as_tensor(img, device=self.device), self.pyr,
+            self.channels, self.gray, self._src)
         _check_planes(int(stats["planes_max"]))
-        padded_T = _bucket(T)
+        return lin, stats
+
+    def emit(self, lin, stats, padded_T: int) -> tuple:
+        """Stage 2 at token bucket ``padded_T`` (>= T).  Returns (payload
+        bytes without the header, total bits, (LMAX,) int32 layer-end bit
+        offsets on the device)."""
+        pyr, C = self.pyr, self.channels
         tv, tr, tf, orders, vmag, com = _stage2_tokens(lin, stats, pyr, C,
                                                        padded_T)
         words, bits_parts, _, layer_ends = _stage2_emit(
             lin, stats, tv, tr, tf, orders, vmag, com, pyr, C, padded_T)
         total_bits = _check_stream_bits(_total_bits_host(bits_parts))
-        stream = self.header() + _stream_words_bytes(words,
-                                                     (total_bits + 7) // 8)
+        return (_stream_words_bytes(words, (total_bits + 7) // 8), total_bits,
+                layer_ends)
+
+    def encode_with_stats(self, img: np.ndarray, capacity: int = 0) -> tuple:
+        """Returns (stream bytes, info dict) — the structured counterpart of
+        the reference's stderr bit counters (encode.c:176,180,230).
+        ``capacity > 0`` cuts the stream to that many bytes, and skips the
+        coding work of every schedule step that starts past it."""
+        pyr = self.pyr
+        t0 = time.perf_counter()
+        lin, stats = self.stage1(img)
+        T = int(stats["T"])
+        if capacity > 0:
+            # Budget-bounded work: mask schedule steps past the byte budget
+            # before stage 2 (encode.c:192-216).
+            upd = _truncate_schedule(host_stats(stats), capacity, pyr,
+                                     self.channels)
+            if upd is not None:
+                stats = patch_stats(stats, upd)
+                T = int(upd["T"])
+        payload, total_bits, layer_ends = self.emit(lin, stats, _bucket(T))
+        stream = self.header() + payload
+        if capacity > 0:
+            stream = stream[:capacity]
         dt = time.perf_counter() - t0
         le = layer_ends.cpu().numpy()
         info = {
@@ -204,21 +365,54 @@ def get_encoder(width: int, height: int, channels: int,
     return Encoder(width, height, channels, device)
 
 
+_warned_container = False
+
+
+def _warn_container(reason: str) -> None:
+    """One warning a process when ``encode`` writes a container that the
+    reference decoder cannot read."""
+    global _warned_container
+    if not _warned_container:
+        import warnings
+
+        warnings.warn(
+            f"dwt_tpu_torch.encode: {reason}; writing a tiled .dwtt "
+            "container instead of a single .dwt stream (dwt_tpu_torch "
+            "decodes it transparently; the reference C decoder cannot).  "
+            "Pass container=False to force a single stream.",
+            UserWarning, stacklevel=3)
+        _warned_container = True
+
+
 def encode(img: np.ndarray, gray: bool | None = None, capacity: int = 0,
            container: bool | None = None, device=None) -> bytes:
-    """Encode to a single .dwt stream.  ``gray`` is implied by the channel
-    count (kept for the JAX package's signature).  ``capacity > 0``,
-    ``container=True`` and images beyond the single-stream envelope raise
-    NotImplementedError: those routes are later slices of the port."""
+    """Encode to a .dwt stream (or a .dwtt container for oversized
+    images).  ``gray`` is implied by the channel count (kept for the JAX
+    package's signature).
+
+    ``container``: None (default) routes images beyond the single-stream
+    envelope to the tiled container with a one-time warning; True forces
+    the container; False forbids it (raises instead)."""
+    from . import tiled
+
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     if container:
-        raise NotImplementedError("the tiled .dwtt container " + _LATER)
+        return tiled.encode_tiled(img, budget=capacity, device=device)
     if h * w * c > SINGLE_STREAM_MAX_COEFFS:
-        raise NotImplementedError(
-            f"{w}x{h}x{c} exceeds the single-stream envelope "
-            f"({SINGLE_STREAM_MAX_COEFFS} coefficients); the tiled .dwtt "
-            "container " + _LATER)
-    return get_encoder(w, h, c, device).encode(img, capacity)
+        if container is False:
+            raise ValueError(
+                f"{w}x{h}x{c} exceeds the single-stream envelope "
+                f"({SINGLE_STREAM_MAX_COEFFS} coefficients); use the tiled "
+                "container (container=True / encode_tiled)")
+        _warn_container(f"{w}x{h}x{c} exceeds the single-stream envelope")
+        return tiled.encode_tiled(img, budget=capacity, device=device)
+    try:
+        return get_encoder(w, h, c, device).encode(img, capacity)
+    except ValueError as e:
+        if "2^31 bits" not in str(e) or container is False:
+            raise
+        _warn_container("stream exceeds 2^31 bits")
+        return tiled.encode_tiled(img, budget=capacity, device=device)

@@ -14,6 +14,7 @@ import torch
 from ..geometry import Pyramid
 from ..ops import compact
 from ..ops.compact import compact_tokens
+from ..ops.transpose import transpose2d
 from .stage1 import NSTATE, PMAX, _Segs, _excl_cumsum, _ilog2, segs_for
 
 _I32 = torch.int32
@@ -211,7 +212,7 @@ def _vli_orders(tok_val, tok_vli, padded_T: int):
     while padded_T % TB:
         TB //= 2
     nblk = padded_T // TB
-    x = _vli_ab(tok_val, tok_vli).reshape(nblk, TB).T  # (TB, nblk)
+    x = transpose2d(_vli_ab(tok_val, tok_vli).reshape(nblk, TB))  # (TB, nblk)
     a_all = ((x - 1) & 31).to(torch.int8)
     b_all = (((x - 1) >> 5) & 31).to(torch.int8)
     act_all = x > 0
@@ -248,7 +249,7 @@ def _vli_orders(tok_val, tok_vli, padded_T: int):
     for t in range(TB):
         orders[t] = s
         s = apply1(s, t)
-    return orders.T.reshape(padded_T).to(_I32)
+    return transpose2d(orders).reshape(padded_T).to(_I32)
 
 
 def _stage2_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):

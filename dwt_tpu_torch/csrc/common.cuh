@@ -1,5 +1,5 @@
 // Shared device helpers of the port's kernels (plain C interface, no
-// PyTorch headers: the whole library builds with one nvcc call).
+// PyTorch headers: each source builds in seconds).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

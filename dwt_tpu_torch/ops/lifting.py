@@ -92,16 +92,17 @@ def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
 
 
 def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
-    """Inverse multi-level 2-D DWT (decode.c:16-30): coarsest level first,
-    columns then rows.  The input is left as it was."""
+    """Inverse multi-level 2-D DWT (decode.c:16-30) on (..., H, W, C):
+    coarsest level first, columns then rows.  Leading axes are a batch.
+    The input is left as it was."""
     out = coeff
     for l in range(1, pyr.levels + 1):
         w, h = pyr.widths[l], pyr.heights[l]
-        sub = cdf53_inv(cdf53_inv(out[:h, :w], axis=0), axis=1)
-        if (h, w) == tuple(out.shape[:2]):
+        sub = cdf53_inv(cdf53_inv(out[..., :h, :w, :], axis=-3), axis=-2)
+        if (h, w) == tuple(out.shape[-3:-1]):
             out = sub
         else:
             if out is coeff:
                 out = coeff.clone()  # the caller's tensor stays as it was
-            out[:h, :w] = sub
+            out[..., :h, :w, :] = sub
     return out

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` goes to ONE ``nvcc`` call that writes one shared
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one shared
 library with a plain ``extern "C"`` interface, loaded with ``ctypes``.
 No PyTorch header is compiled (a source that includes them takes minutes
 to build where this takes seconds), and neither ``ninja`` nor
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dwt_tpu_torch"
 LIB_NAME = "libdwt_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points -> argument types.  Every pointer and the CUDA stream go
@@ -45,6 +46,8 @@ ENTRY_POINTS = {
     "dwt_scatter_refbits": (_P, _P, _P, _I, _I, _I, _L, _P),
     # (widx, c0, c1, c2, words, ntok, nwords, stream)
     "dwt_pack_words": (_P, _P, _P, _P, _P, _L, _L, _P),
+    # (in, out, R, C, elem_bytes, stream)
+    "dwt_transpose": (_P, _P, _L, _L, _I, _P),
 }
 
 
@@ -79,22 +82,38 @@ def nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile every ``csrc/*.cu`` with one nvcc call unless the library
-    for these sources exists.  Returns (library path, seconds spent in
-    nvcc; 0.0 when nothing was built)."""
+    """Compile every ``csrc/*.cu`` (one nvcc process each, in parallel) and
+    link them, unless the library for these sources exists.  Returns
+    (library path, seconds spent in nvcc; 0.0 when nothing was built)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    exe, pid = nvcc(), os.getpid()
+    objs = [out.with_name(f"{src.stem}.{pid}.o") for src in sources()]
+    tmp = out.with_name(f"{LIB_NAME}.{pid}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([exe, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources(), objs)]
+    outputs = [p.communicate() for p in procs]  # waits for every process
+    failed = [(src, p.returncode, o, e) for src, p, (o, e)
+              in zip(sources(), procs, outputs) if p.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run([exe, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
     dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src.name} ({rc}):\n{o}\n{e}" for src, rc, o, e in failed))
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
     return out, dt
 

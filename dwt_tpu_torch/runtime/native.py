@@ -75,6 +75,11 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int64), i32, i32,
         ctypes.POINTER(ctypes.c_int32), i32]
+    lib.dwt_entropy_decode_batch.restype = ctypes.c_int
+    lib.dwt_entropy_decode_batch.argtypes = [
+        ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), i32, i32, i32, i32, i32, ctypes.c_int]
     lib.dwt_zero_i32.restype = None
     lib.dwt_zero_i32.argtypes = [i32, ctypes.c_int64, ctypes.c_int]
     return lib
@@ -86,6 +91,16 @@ def zeroed_i32(shape) -> np.ndarray:
     out = np.empty(shape, np.int32)
     get_lib().dwt_zero_i32(out.reshape(-1), out.size, 0)
     return out
+
+
+def _check_out(out: np.ndarray, shape: tuple, name: str) -> None:
+    if out.shape != shape or out.dtype != np.int32:
+        raise ValueError(f"{name}: out must be {shape} int32, got "
+                         f"{out.shape} {out.dtype}")
+
+
+def _pixels(pixels, levels: int):
+    return (ctypes.c_int64 * (levels + 1))(*[int(p) for p in pixels[:levels + 1]])
 
 
 def entropy_decode(stream: bytes, channels: int, levels: int, levels_max: int,
@@ -102,16 +117,43 @@ def entropy_decode(stream: bytes, channels: int, levels: int, levels_max: int,
     total = int(pixels[levels])
     if out is None:
         out = zeroed_i32((channels, total))
-    elif out.shape != (channels, total) or out.dtype != np.int32:
-        raise ValueError(f"entropy_decode: out must be ({channels}, {total}) "
-                         f"int32, got {out.shape} {out.dtype}")
+    _check_out(out, (channels, total), "entropy_decode")
     missing = np.zeros((channels, 16), np.int32)
     planes = np.zeros(channels, np.int32)
     level = ctypes.c_int32(-1)
-    pix = (ctypes.c_int64 * (levels + 1))(*[int(p) for p in pixels[:levels + 1]])
     rc = lib.dwt_entropy_decode(stream, len(stream), channels, levels,
-                                levels_max, pix, out, missing,
+                                levels_max, _pixels(pixels, levels), out,
+                                missing,
                                 ctypes.byref(level), planes)
     if rc != 0:
         raise ValueError("stream too short for root band")
     return out, missing, int(level.value), planes
+
+
+def entropy_decode_batch(payloads: list, channels: int, levels: int,
+                         levels_max: int, pixels, nthreads: int = 0,
+                         out: np.ndarray | None = None) -> tuple:
+    """Parse many same-geometry headerless streams (the tiles of a
+    ``.dwtt`` container) on the parser's host thread pool; ``nthreads``
+    0 means the hardware's concurrency.
+
+    ``out``, when given, is the zeroed (N, C, pixels[levels]) int32 buffer
+    to fill (a pinned one, say).  Returns (coeffs (N, C, total), missing
+    (N, C, 16), level (N,), planes (N, C), rc (N,)); rc != 0 marks a
+    stream that died inside its root band."""
+    lib = get_lib()
+    n = len(payloads)
+    total = int(pixels[levels])
+    if out is None:
+        out = zeroed_i32((n, channels, total))
+    _check_out(out, (n, channels, total), "entropy_decode_batch")
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum([len(p) for p in payloads], out=offsets[1:])
+    missing = np.zeros((n, channels, 16), np.int32)
+    level = np.full(n, -1, np.int32)
+    planes = np.zeros((n, channels), np.int32)
+    rc = np.zeros(n, np.int32)
+    lib.dwt_entropy_decode_batch(
+        b"".join(payloads), offsets, n, channels, levels, levels_max,
+        _pixels(pixels, levels), out, missing, level, planes, rc, nthreads)
+    return out, missing, level, planes, rc

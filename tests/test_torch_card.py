@@ -146,16 +146,16 @@ def test_gather_kernel_equals_plain(cuda, w, h, c):
                                         (320, 240, 3, "mixed")])
 def test_encoder_on_card_equals_cpu(cuda, w, h, c, kind):
     from dwt_tpu_torch.codec import encoder
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack
+    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
 
     img = random_image(np.random.default_rng(7), w, h, c, kind)
     fns = (hilbert_gather.hilbert_gather, compact.compact_tokens,
-           compact.scatter_refbits, pack.pack_words)
+           compact.scatter_refbits, pack.pack_words, transpose.transpose2d)
     before = [f.launches for f in fns]
     got = encoder.Encoder(w, h, c).encode(img)
     assert got == encoder.Encoder(w, h, c, device="cpu").encode(img)
     moved = [f.launches - b for f, b in zip(fns, before)]
-    assert moved == [1, 1, 1, 1], moved
+    assert moved == [1, 1, 1, 1, 2], moved
 
 
 @pytest.mark.parametrize("w,h,c,sub", [(8, 8, 1, None), (9, 8, 3, None),
@@ -226,3 +226,47 @@ def test_decode_prefix_on_card_equals_cpu(cuda, cap, pixels):
     got, _ = decoder.decode(stream, pixels)
     want, _ = decoder.decode(stream, pixels, device="cpu")
     assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((245760, 128), torch.int32), ((128, 245760), torch.int8),
+    ((40, 256), torch.int32), ((256, 40), torch.int32),
+    ((300, 300), torch.int32), ((384, 512), torch.uint32),
+    ((129, 257), torch.int8), ((1, 1), torch.int32), ((3, 70001), torch.int8),
+    ((0, 5), torch.int32)])
+def test_transpose_kernel_equals_plain(cuda, shape, dtype):
+    """At the 4K VLI scan's shapes (int32 in, int8 out) and at ragged ones
+    (the JAX package's transpose test cases among them)."""
+    from dwt_tpu_torch.ops import transpose
+
+    rng = np.random.default_rng(shape[0])
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    x = torch.as_tensor(x.astype(np.uint32 if dtype == torch.uint32 else
+                                 np.int8 if dtype == torch.int8 else np.int32))
+    x = x.to(cuda)
+    before = transpose.transpose2d.launches
+    got = transpose.transpose2d(x)
+    want = transpose.transpose2d_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == (torch.int8 if dtype == torch.int8 else torch.int32)
+    assert got.shape == shape[::-1] and torch.equal(got, want)
+    assert transpose.transpose2d.launches == before + (x.numel() > 0)
+
+
+@pytest.mark.parametrize("budget_div", [0, 3])
+def test_tiled_on_card_equals_cpu(cuda, budget_div):
+    """A small tiled container (uneven edge tiles), lossless and cut to a
+    budget, encoded and decoded on the card and on the CPU."""
+    from dwt_tpu_torch.codec import tiled
+
+    img = random_image(np.random.default_rng(5), 200, 120, 3, "mixed")
+    full = tiled.encode_tiled(img, tile=(64, 64), device="cpu")
+    budget = len(full) // budget_div if budget_div else 0
+    want = tiled.encode_tiled(img, tile=(64, 64), budget=budget, device="cpu")
+    got = tiled.encode_tiled(img, tile=(64, 64), budget=budget)
+    assert got == want
+    out, _ = tiled.decode_tiled(got)
+    ref, _ = tiled.decode_tiled(got, device="cpu")
+    assert np.array_equal(out, ref)
+    if not budget:
+        assert np.array_equal(out, img)

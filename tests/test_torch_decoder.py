@@ -261,8 +261,8 @@ def test_decode_refusals(monkeypatch):
     from dwt_tpu_torch.codec import decoder
 
     _, stream = _stream(8, 8, 1, "mixed")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        decoder.decode(b"WT" + stream[2:], device="cpu")
+    with pytest.raises(ValueError, match="container version"):
+        decoder.decode(b"WT" + stream[2:], device="cpu")  # read as .dwtt
     with pytest.raises(ValueError, match="bad header"):
         decoder.decode(b"P6" + stream[2:], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``dwt_tpu``, no PyTorch extension
 builder, on the card or anywhere; its entry points use the card unless the
 CPU is asked for; the kernel wrappers take their plain path only for CPU
-tensors; and the routes of later slices refuse rather than approximate."""
+tensors; and what the port does not support is refused, not
+approximated."""
 
 import ast
 import os
@@ -72,16 +73,22 @@ def test_encoder_needs_card_unless_cpu(monkeypatch):
 
 
 def test_later_slices_refuse():
+    """The budget and container routes of the JAX package's ``encode`` are
+    ported (no refusal is left on them); the single-stream encoder still
+    refuses a detail segment of 2^30 elements or more, and a single stream
+    past the envelope is refused when the container is forbidden."""
     from conftest import random_image
     from dwt_tpu_torch.codec import encoder
 
     img = random_image(np.random.default_rng(0), 32, 32, 3, "mixed")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        encoder.encode(img, capacity=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        encoder.encode(img, container=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        encoder.encode(np.zeros((12000, 12000), np.uint8), device="cpu")
+    full = encoder.encode(img, device="cpu")
+    assert encoder.encode(img, capacity=100, device="cpu") == full[:100]
+    assert encoder.encode(img, container=True, device="cpu")[:2] == b"WT"
+    with pytest.raises(ValueError, match="single-stream envelope"):
+        encoder.encode(np.zeros((12000, 12000), np.uint8), container=False,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="2\\^30 elements"):
+        encoder.Encoder(65536, 65536, 1, device="cpu")
 
 
 def test_plain_path_counts_no_launch():
@@ -90,11 +97,12 @@ def test_plain_path_counts_no_launch():
     from conftest import random_image
     from dwt_tpu import specmodel
     from dwt_tpu_torch.codec import decoder, encoder
-    from dwt_tpu_torch.ops import compact, hilbert_gather, hilbert_scatter, pack
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
+                                   pack, transpose)
 
     fns = (hilbert_gather.hilbert_gather, hilbert_gather.engine_supported,
            compact.compact_tokens, compact.scatter_refbits, pack.pack_words,
-           hilbert_scatter.hilbert_scatter)
+           hilbert_scatter.hilbert_scatter, transpose.transpose2d)
     before = [f.launches for f in fns]
     img = random_image(np.random.default_rng(1), 40, 24, 3, "mixed")
     stream = encoder.encode(img, device="cpu")
@@ -169,4 +177,4 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
         "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu", "pack.cu",
-        "runtime.cu"]
+        "runtime.cu", "transpose.cu"]
