@@ -43,10 +43,13 @@ seconds:
 4. kernels — each kernel again on the 4K main paths' inputs, held against
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
-             PyTorch call computes the same function, that call.
+             PyTorch call computes the same function, that call; the
+             wrappers of the pack kernel and kernel A also in their parts
+             (zero fill, order check or unit table, launches).
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
-             and idle share from torch.profiler, three readings); three
+             and idle share from torch.profiler, three readings; the
+             device-to-host and host-to-device copies of one); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
              share of the tail; three warm tiled encodes and decodes in
@@ -242,7 +245,10 @@ class Kernels:
         seen = set()
 
         def keeper(name, fn):
-            def run(*args):
+            # Keeps the positional arguments only: the encoder passes the
+            # pack kernel's order flag by keyword, and a held call checks
+            # the order itself.
+            def run(*args, **kwargs):
                 key = (name,) + tuple((tuple(a.shape), a.dtype)
                                       for a in args if hasattr(a, "shape"))
                 if key not in seen:
@@ -250,7 +256,7 @@ class Kernels:
                     store.setdefault(name, []).append(tuple(
                         a.clone() if hasattr(a, "clone") else a
                         for a in args))
-                return fn(*args)
+                return fn(*args, **kwargs)
             return run
 
         for (mod, name), fn in zip(sites, saved):
@@ -338,6 +344,58 @@ def unit_elements(torch, vmag, meta, E: int) -> int:
                    vmag.numel())
 
 
+def fmt_split(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+
+
+def wrapper_split_a(torch, vmag, meta, npairs, table) -> str:
+    """Kernel A's wrapper in its parts, by CUDA events: the zero fill of
+    the pair buffer, the encoder's unit table (one scatter from flat_ck,
+    recovered here as the table's inverse), the count launch and the
+    place launch (on the kept buffers)."""
+    from dwt_tpu_torch.codec import tokens
+    from dwt_tpu_torch.ops import compact
+
+    flat = table.reshape(-1)
+    flat_ck = torch.empty_like(flat)
+    flat_ck[flat.long()] = torch.arange(flat.numel(), dtype=flat.dtype,
+                                        device=flat.device)
+    if not torch.equal(tokens._kernel_a_table(flat_ck), table):
+        raise AssertionError("kernel A's table is not flat_ck's inverse")
+    out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
+    hist = compact.hist_for(table)
+    return fmt_split(dict(
+        fill=time_ms(torch, lambda: torch.zeros(npairs, dtype=torch.int32,
+                                                device=vmag.device)),
+        table=time_ms(torch, lambda: tokens._kernel_a_table(flat_ck)),
+        count=time_ms(torch, lambda: compact.count(vmag, meta, table, hist)),
+        place=time_ms(torch, lambda: compact.place(vmag, meta, table, hist,
+                                                   out))))
+
+
+def wrapper_split_pack(torch, widx, c0, c1, c2, nwords) -> str:
+    """The pack wrapper in its parts: the zero fill of the word buffer and
+    the kernel launch by CUDA events, and the order check (a read of the
+    kernel's flag, a host sync, which the encoder folds into its copy of
+    the bit counts) by the host clock after a synchronise."""
+    from dwt_tpu_torch.ops import pack
+
+    words = torch.zeros(nwords, dtype=torch.int32, device=widx.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=widx.device)
+    kernel = time_ms(torch, lambda: pack.launch(widx, c0, c1, c2, words,
+                                                flag))
+    reads = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack.check_order(flag)
+        reads.append(1e3 * (time.perf_counter() - t0))
+    return fmt_split(dict(
+        fill=time_ms(torch, lambda: torch.zeros(nwords, dtype=torch.int32,
+                                                device=widx.device)),
+        check=sum(reads) / len(reads), kernel=kernel))
+
+
 def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     """Phase 4: each kernel against its plain version, and its times."""
     from dwt_tpu_torch.codec.stage1 import ALIGN
@@ -402,21 +460,23 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
         time_ms(torch, lambda: (co.reshape(-1, 1)[idx].T.contiguous(),
                                 lin1[:, idx].T.contiguous())))
 
-    # 2. kernel A: reads the elements its live units cover, writes one
-    # pair per newly significant element (meta col 6)
-    vmag, meta, npairs = got["compact_tokens"][0]
-    k = compact.compact_tokens(vmag, meta, npairs)
+    # 2. kernel A: reads the elements its live units cover, its meta and
+    # unit table, and writes its whole pair buffer
+    vmag, meta, npairs, table = got["compact_tokens"][0]
+    k = compact.compact_tokens(vmag, meta, npairs, table)
     p = compact.compact_tokens_plain(vmag, meta, npairs)
     row("compact_tokens", k, p,
-        time_ms(torch, lambda: compact.compact_tokens(vmag, meta, npairs)),
+        time_ms(torch, lambda: compact.compact_tokens(vmag, meta, npairs,
+                                                      table)),
         time_ms(torch, lambda: compact.compact_tokens_plain(vmag, meta,
                                                             npairs), reps=2),
         4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
-             + min(npairs, int(meta[:, 6].clamp(min=0).sum()))), None)
+             + table.numel() + npairs), None)
+    split_a = wrapper_split_a(torch, vmag, meta, npairs, table)
 
-    # 3. pack: 16 B read a token, and the words up to the last token's
-    # third piece written (widx is nondecreasing); three index_add_ on
-    # int64 words are the library yardstick
+    # 3. pack: 16 B read a token, and the whole returned buffer written;
+    # timed as the encoder calls it (the order flag left to the caller);
+    # three index_add_ on int64 words are the library yardstick
     widx, c0, c1, c2, nwords = got["pack_words"][0]
     k = pack.pack_words(widx, c0, c1, c2, nwords)
     p = pack.pack_words_plain(widx, c0, c1, c2, nwords)
@@ -429,11 +489,16 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
 
     lib_ms = time_ms(torch, library_pack, setup=lambda: (torch.zeros(
         nwords + 2, dtype=torch.int64, device=widx.device),))
+    flag = torch.zeros(1, dtype=torch.int32, device=widx.device)
     row("pack_words", k, p,
-        time_ms(torch, lambda: pack.pack_words(widx, c0, c1, c2, nwords)),
+        time_ms(torch, lambda: pack.pack_words(widx, c0, c1, c2, nwords,
+                                               order_flag=flag)),
         time_ms(torch, lambda: pack.pack_words_plain(widx, c0, c1, c2,
                                                      nwords), reps=3),
-        4 * (4 * widx.numel() + min(nwords, int(widx[-1]) + 3)), lib_ms)
+        4 * (4 * widx.numel() + nwords), lib_ms)
+    split_pack = wrapper_split_pack(torch, widx, c0, c1, c2, nwords)
+    progress(f"kernels: wrapper splits, ms: compact_tokens {split_a}; "
+             f"pack_words {split_pack}")
 
     # 4. kernel B (in place on the packed words: a fresh copy each run):
     # reads the elements its live units cover and reads and writes each
@@ -508,6 +573,23 @@ def busy_ms(events, DeviceType) -> float:
     return busy / 1e3
 
 
+def encode_copies(torch, enc, img) -> dict:
+    """The device-to-host ("DtoH") and host-to-device ("HtoD") copies of
+    one warm encode, counted from torch.profiler's device events.  Uses
+    only the encoder's public API, so it can count another tree's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        enc.encode(img)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {d: sum(n.startswith(f"Memcpy {d}") for n in names)
+            for d in ("DtoH", "HtoD")}
+
+
 def profile(torch, enc, img) -> None:
     """Where a warm 4K encode spends its time: host-clock stage times
     (synchronised), then, from torch.profiler, the device's busy time (the
@@ -570,6 +652,9 @@ def profile(torch, enc, img) -> None:
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     progress("profile: device time of three profiled encodes: "
              + "; ".join(readings))
+    copies = encode_copies(torch, enc, img)
+    progress(f"profile: copies in one warm encode: {copies['DtoH']} "
+             f"device-to-host, {copies['HtoD']} host-to-device")
     progress("profile: top device time (last one): " + "; ".join(
         f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
 

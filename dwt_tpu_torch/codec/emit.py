@@ -82,17 +82,19 @@ def _codeword_contribs(stats, tok_val, tok_raw, tok_vli, orders,
 
 
 def _pack_bits(lin, stats, tok_val, tok_raw, tok_vli, orders,
-               pyr: Pyramid, channels: int, padded_T: int, nwords: int):
+               pyr: Pyramid, channels: int, padded_T: int, nwords: int,
+               order_flag=None):
     """Compact-token codewords -> packed stream words (+ offsets), through
     the pack kernel.  Returns (words, bits_parts, wild, off, refstart).
+    ``order_flag``: passed to :func:`pack_words` (the caller checks it).
 
     ``wild`` is always 0: the JAX package's straggler pass for "wild"
     blocks (encoder.py:956-979) exists only for the TPU kernel's window
-    budget, and the CUDA kernel has no windows."""
+    budget, and the CUDA kernel sends pieces past its window to atomics."""
     nbits, nref_step, off, refstart, widx, c0, c1, c2 = _codeword_contribs(
         stats, tok_val, tok_raw, tok_vli, orders, padded_T)
     words = pack_words(widx.contiguous(), _as_i32(c0), _as_i32(c1),
-                            _as_i32(c2), nwords)
+                       _as_i32(c2), nwords, order_flag=order_flag)
     return words, _bit_partials(nbits, nref_step), 0, off, refstart
 
 
@@ -177,15 +179,17 @@ def _stream_words(pyr: Pyramid, channels: int, padded_T: int) -> int:
 
 
 def _stage2_emit(lin, stats, tv, tr, tf, orders, vmag, com, pyr: Pyramid,
-                 channels: int, padded_T: int):
+                 channels: int, padded_T: int, order_flag=None):
     """Stage-2 second half: codeword packing + refinement bits + layer
     boundaries.  ``vmag`` and ``com`` are kernel A's packed elements and
-    unit indexing (from :func:`tokens._stage2_tokens`).  Returns (words,
-    bits_parts, wild, layer_ends)."""
+    unit indexing (from :func:`tokens._stage2_tokens`); ``order_flag`` as
+    in :func:`_pack_bits`.  Returns (words, bits_parts, wild,
+    layer_ends)."""
     C = channels
     nwords = _stream_words(pyr, C, padded_T)
     words, bits_parts, wild, off, refstart = _pack_bits(
-        lin, stats, tv, tr, tf, orders, pyr, C, padded_T, nwords)
+        lin, stats, tv, tr, tf, orders, pyr, C, padded_T, nwords,
+        order_flag)
     words = _ref_bits(words, refstart, vmag, com, stats, pyr, C, padded_T)
     # int32 device total: exact for valid (< 2^31-bit) streams; the host
     # checks the Python-int total of bits_parts before trusting the ends.

@@ -50,11 +50,13 @@ def _check_planes(planes_max: int) -> int:
     return planes_max
 
 
-def _total_bits_host(bits_parts) -> int:
+def _total_bits_host(bits_parts, order_flag) -> int:
     """Exact stream bit count from the int32 partial sums, totaled in
-    Python ints so nothing can wrap."""
-    return int(np.asarray(torch.as_tensor(bits_parts).cpu(),
-                          dtype=np.int64).sum())
+    Python ints so nothing can wrap, after the pack kernel's order check
+    (:func:`pack.check_order`): one device-to-host copy for both."""
+    host = torch.cat([bits_parts, order_flag]).cpu().numpy()
+    pack.check_order(host[-1:])
+    return int(host[:-1].astype(np.int64).sum())
 
 
 def _check_stream_bits(total_bits: int) -> int:
@@ -314,9 +316,12 @@ class Encoder:
         pyr, C = self.pyr, self.channels
         tv, tr, tf, orders, vmag, com = _stage2_tokens(lin, stats, pyr, C,
                                                        padded_T)
+        order_flag = torch.zeros(1, dtype=torch.int32, device=self.device)
         words, bits_parts, _, layer_ends = _stage2_emit(
-            lin, stats, tv, tr, tf, orders, vmag, com, pyr, C, padded_T)
-        total_bits = _check_stream_bits(_total_bits_host(bits_parts))
+            lin, stats, tv, tr, tf, orders, vmag, com, pyr, C, padded_T,
+            order_flag)
+        total_bits = _check_stream_bits(_total_bits_host(bits_parts,
+                                                          order_flag))
         return (_stream_words_bytes(words, (total_bits + 7) // 8), total_bits,
                 layer_ends)
 

@@ -87,6 +87,17 @@ def _kernel_a_meta(stats, segs: _Segs, com, padded_T: int):
     return meta, pairbuf
 
 
+def _kernel_a_table(flat_ck):
+    """(C * nchunk, PMAX) int32 unit table of kernel A's CUDA version: the
+    meta row of each (channel, chunk, plane) unit, i.e. the inverse of the
+    permutation ``flat_ck`` (one scatter on the device, no host sync).
+    Its grid is static for a geometry."""
+    U = flat_ck.shape[0]
+    table = torch.empty(U, dtype=_I32, device=flat_ck.device)
+    table[flat_ck.long()] = torch.arange(U, dtype=_I32, device=flat_ck.device)
+    return table.reshape(-1, PMAX)
+
+
 def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     """Kernel A: each newly significant element's zero-prefix and sign at
     its PAIR rank (step bases are even, so pair rank = token slot / 2).
@@ -95,7 +106,8 @@ def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     com = _unit_common(stats, segs, pyr, channels)
     meta, pairbuf = _kernel_a_meta(stats, segs, com, padded_T)
     vmag = _packed_elems(lin, segs)
-    pairs = compact_tokens(vmag, meta, pairbuf)[: padded_T // 2]
+    pairs = compact_tokens(vmag, meta, pairbuf,
+                           _kernel_a_table(com["flat_ck"]))[: padded_T // 2]
     return pairs >> 1, pairs & 1, vmag, com
 
 

@@ -1,7 +1,7 @@
 // Bitplane compaction kernels A and B.
 //
-// Both walk UNITS: one (schedule step, E-element chunk of the step's
-// detail segment) per CUDA block, described by one row of an (U, 8) int32
+// Both serve UNITS: one (schedule step, E-element chunk of the step's
+// detail segment) each, described by one row of an (U, 8) int32
 // metadata table that the encoder builds (codec/tokens.py:_kernel_a_meta,
 // codec/emit.py:_kernel_b_meta):
 //   0: first element row (elements start at row * sub)   1: valid elements
@@ -15,18 +15,40 @@
 // Replaces dwt_tpu/ops/pallas_compact.py:compact_tokens_pallas (_a_kernel)
 // and scatter_refbits_pallas (_b_kernel).  Those place values with one-hot
 // MXU matmuls inside windows that the sequential TPU grid read-modify-
-// writes; here the blocks run in parallel and every output position is
-// already known from a rank, so a block only needs the ranks: it walks its
-// chunk in tiles of TILE elements, each tile one block-wide exclusive scan
-// of the per-thread flag counts, with the running totals carried from tile
-// to tile in registers.  A block stops as soon as it has placed its
-// unit's count (meta col 6): only a unit's first col-6 outputs are
-// written, and the elements after its last one are never read.  Outputs
-// that fall outside the buffer are dropped.
+// writes; here every output position is known from a rank, so the kernels
+// only need ranks.  Only a unit's first col-6 outputs are written, and
+// outputs that fall outside the buffer are dropped.
 //
-// Bound: bytes.  Each tile reads TILE packed elements once (two 16-byte
-// loads per thread); A writes one int32 per significant element, B does
-// one atomicAdd per refined element whose plane bit is 1.
+// Kernel A is chunk-major.  The units of one chunk (one per plane, a row
+// of the (G, P) unit table: slot q holds the meta row of plane q, or -1)
+// share its elements, and an element's class at every plane follows from
+// one key, its magnitude's bit length b: it is newly significant at plane
+// b - 1 only and a zero at every plane >= b.  So a unit's rank of an
+// element is the count of earlier elements with the same key, and its
+// zero prefix the count of earlier elements with a smaller key.  Two
+// launches over a static grid (G chunks x sub-ranges of SUBLEN elements):
+//   count: each block reads its sub-range once and writes the histogram
+//          of its keys (32 bins: 0 = zero magnitude, 1-30, 31 = padding),
+//          and for each of its warps that of the warps before it;
+//   place: each warp starts from the histograms of the sub-ranges before
+//          its own (at most 15) and of the warps before it, reads its 32
+//          elements at a time and ranks them by ballots of the key bits
+//          (a 5-level descent gives each lane j the lanes with a key
+//          below j), and writes each newly significant element of a live
+//          unit at once.
+// Each launch reads an element once for all the chunk's live planes.
+// Both are bound by integer instructions more than by bytes: about 10 (a
+// match) and 55 (the ballots) per element.
+//
+// Kernel B still walks one unit a block, in tiles of TILE elements, each
+// tile one block-wide exclusive scan of the per-thread flag counts; its
+// refined elements (b > p + 1) fit the same keys and histograms.
+//
+// Bound: bytes.  A reads the elements its live units cover (once for the
+// bound; twice here, one read a launch) and writes its whole pair buffer
+// (the wrapper's zero fill, then one int32 per placed pair); B reads the
+// elements and does one atomicAdd per refined element whose plane bit is
+// 1.
 #include "common.cuh"
 
 namespace {
@@ -53,49 +75,209 @@ __device__ __forceinline__ void load_items(const int* __restrict__ el,
   }
 }
 
-// Kernel A: the j-th newly significant element of the unit gets the pair
-// value (zero-prefix << 1) | sign at pair slot window + offset + j, where
-// zero-prefix counts the zero elements before it (plus the carry).
-__global__ void __launch_bounds__(THREADS)
-compact_tokens_kernel(const int* __restrict__ vmag,
-                      const int* __restrict__ meta, int* __restrict__ pairs,
-                      int sub, int E, int64_t npairs) {
-  __shared__ int warp_sums[32];
-  const int* m = meta + 8 * (int64_t)blockIdx.x;
-  const int nsig = m[6];
-  if (nsig <= 0) return;
-  const int* el = vmag + (int64_t)m[0] * sub;
-  const int len = min(m[1], E), p = m[2];
-  const int64_t base = (int64_t)m[3] + m[4];
-  int placed = 0, zeros = m[5];
-  for (int t0 = 0; t0 < len && placed < nsig; t0 += TILE) {
-    int v[ITEMS];
-    load_items(el, t0, len, v);
-    int ns = 0, nz = 0;
+// ---- Kernel A ---------------------------------------------------------
+constexpr int A_THREADS = 256;
+constexpr int A_ITEMS = 16;                  // elements per thread
+constexpr int A_WARPS = A_THREADS / 32;
+constexpr int A_SEG = 32 * A_ITEMS;          // elements per warp
+constexpr int SUBLEN = A_THREADS * A_ITEMS;  // elements per sub-range
+constexpr int NBIN = 32;
+constexpr int PAD_KEY = 31;
+// Histogram rows of a (chunk, sub-range): the sub-range's key counts, then
+// for each warp the counts of the warps before it.
+constexpr int HROWS = 1 + A_WARPS;
+
+// Bit length of an element's magnitude (0 for a zero magnitude, at most
+// 30), PAD_KEY for padding.
+__device__ __forceinline__ int elem_key(int v) {
+  return v < 0 ? PAD_KEY : 32 - __clz(v & MAGMASK);
+}
+
+// The units of group g, one a lane of warp 0: lane b gets the meta row of
+// table slot b - 1 (the unit of plane b - 1) in m, with m[6] <= 0 where
+// there is none or it has no outputs.  Sets the chunk's first element and
+// valid length from the first live unit (every unit of a group has the
+// same), length 0 if no unit is live.
+__device__ __forceinline__ void group_units(const int* __restrict__ meta,
+                                            const int* __restrict__ table,
+                                            int g, int P, int U, int sub,
+                                            int E, int m[8], int64_t* el0,
+                                            int* len) {
+  const int bin = threadIdx.x & 31;
+  const int r = bin >= 1 && bin <= P ? __ldg(table + (int64_t)g * P + bin - 1)
+                                     : -1;
+  int4 lo = make_int4(0, 0, 0, 0), hi = make_int4(0, 0, 0, 0);
+  if (r >= 0 && r < U) {
+    lo = __ldg(reinterpret_cast<const int4*>(meta + 8 * (int64_t)r));
+    hi = __ldg(reinterpret_cast<const int4*>(meta + 8 * (int64_t)r + 4));
+  }
+  m[0] = lo.x; m[1] = lo.y; m[2] = lo.z; m[3] = lo.w;
+  m[4] = hi.x; m[5] = hi.y; m[6] = hi.z; m[7] = hi.w;
+  const unsigned live = __ballot_sync(0xffffffffu, m[6] > 0);
+  *len = 0;
+  *el0 = 0;
+  if (live) {
+    const int first = __ffs(live) - 1;
+    *el0 = (int64_t)__shfl_sync(0xffffffffu, m[0], first) * sub;
+    *len = max(0, min(__shfl_sync(0xffffffffu, m[1], first), E));
+  }
+}
+
+// Count launch: the key histograms of sub-range s of group g's chunk,
+// into hist[((g * nsub + s) * HROWS + row) * NBIN + key]: row 0 for the
+// sub-range, row 1 + w for its warps before warp w.
+__global__ void __launch_bounds__(A_THREADS)
+compact_count_kernel(const int* __restrict__ vmag,
+                     const int* __restrict__ meta,
+                     const int* __restrict__ table, int* __restrict__ hist,
+                     int P, int U, int sub, int E, int nsub) {
+  __shared__ int64_t s_el0;
+  __shared__ int s_len;
+  __shared__ int s_cnt[A_WARPS][NBIN];
+  const int g = blockIdx.x, s = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int m[8], len;
+    int64_t el0;
+    group_units(meta, table, g, P, U, sub, E, m, &el0, &len);
+    if (lane == 0) s_el0 = el0, s_len = len;
+  }
+  __syncthreads();
+  const int len = s_len;
+  if (s * SUBLEN >= len) return;
+  const int* el = vmag + s_el0;
+  s_cnt[warp][lane] = 0;
+  __syncwarp();
+  // Thread t reads elements [i0, i0 + A_ITEMS) of the chunk; the first
+  // lane of each set of lanes with one key adds the set's size.
+  const int i0 = s * SUBLEN + threadIdx.x * A_ITEMS;
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const int sh = (v[k] & MAGMASK) >> p;
-      ns += v[k] >= 0 && sh == 1;
-      nz += v[k] >= 0 && sh == 0;
-    }
-    // Both counts in one scan: a tile holds < 2^16 of each.
-    int total;
-    const int pre = block_excl_scan(ns | (nz << 16), warp_sums, &total);
-    int r = placed + (pre & 0xffff), z = zeros + (pre >> 16);
+  for (int q = 0; q < A_ITEMS; q += 4) {
+    int v[4];
+    if (i0 + q + 4 <= len) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(el + i0 + q));
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    } else {
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      if (v[k] < 0) continue;
-      const int sh = (v[k] & MAGMASK) >> p;
-      if (sh == 1) {
-        const int64_t slot = base + r;
-        if (r++ < nsig && slot >= 0 && slot < npairs)
-          pairs[slot] = (z << 1) | ((v[k] >> 30) & 1);
-      } else if (sh == 0) {
-        ++z;
-      }
+      for (int k = 0; k < 4; ++k)
+        v[k] = i0 + q + k < len ? __ldg(el + i0 + q + k) : -1;
     }
-    placed += total & 0xffff;
-    zeros += total >> 16;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int key = elem_key(v[k]);
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      if (!(peers & ((1u << lane) - 1u)))
+        atomicAdd(&s_cnt[warp][key], __popc(peers));
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int* h = hist + ((int64_t)g * nsub + s) * HROWS * NBIN + lane;
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < A_WARPS; ++w) {
+      h[(1 + w) * NBIN] = sum;
+      sum += s_cnt[w][lane];
+    }
+    h[0] = sum;
+  }
+}
+
+// Place launch: the j-th newly significant element of a unit gets the
+// pair value (zero-prefix << 1) | sign at pair slot col3 + col4 + j, where
+// zero-prefix is col5 plus the zeros before it in the unit.
+__global__ void __launch_bounds__(A_THREADS)
+compact_place_kernel(const int* __restrict__ vmag,
+                     const int* __restrict__ meta,
+                     const int* __restrict__ table,
+                     const int* __restrict__ hist, int* __restrict__ pairs,
+                     int P, int U, int sub, int E, int nsub,
+                     int64_t npairs) {
+  // Per key b (the unit of plane b - 1): first pair slot, zero carry,
+  // output count (0: no live unit), and the elements of key b in the
+  // sub-ranges before this one.
+  __shared__ int64_t s_base[NBIN];
+  __shared__ int s_zc[NBIN], s_cnt[NBIN], s_before[NBIN];
+  __shared__ int64_t s_el0;
+  __shared__ int s_len, s_work;
+  const int g = blockIdx.x, s = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* h = hist + (int64_t)g * nsub * HROWS * NBIN + lane;
+  if (warp == 0) {
+    // Rows of hist past the chunk's length are never written; their sum
+    // is not used then.
+    int before = 0;
+#pragma unroll 4
+    for (int t = 0; t < s; ++t) before += __ldg(h + t * HROWS * NBIN);
+    int m[8], len;
+    int64_t el0;
+    group_units(meta, table, g, P, U, sub, E, m, &el0, &len);
+    const int cnt = max(m[6], 0);
+    s_base[lane] = (int64_t)m[3] + m[4];
+    s_zc[lane] = m[5];
+    s_cnt[lane] = cnt;
+    s_before[lane] = before;
+    // Work is left if some live unit has not placed all its outputs.
+    const unsigned open = __ballot_sync(0xffffffffu, before < cnt);
+    if (lane == 0) s_el0 = el0, s_len = len, s_work = open != 0;
+  }
+  __syncthreads();
+  const int len = s_len;
+  if (s * SUBLEN >= len || !s_work) return;
+  const int* el = vmag + s_el0;
+
+  // Warp w walks the elements [e0, e0 + A_SEG) of the chunk, 32 at a
+  // time (lane l takes element e0 + 32 * it + l).  Lane j keeps `below`,
+  // the elements before the current 32 (in the unit) with a key < j,
+  // starting from the earlier sub-ranges and the earlier warps.
+  const int e0 = s * SUBLEN + warp * A_SEG;
+  int v[A_ITEMS];
+#pragma unroll
+  for (int it = 0; it < A_ITEMS; ++it) {
+    const int i = e0 + 32 * it + lane;
+    v[it] = i < len ? __ldg(el + i) : -1;
+  }
+  int below = s_before[lane] + __ldg(h + (s * HROWS + 1 + warp) * NBIN);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {  // inclusive scan over the keys
+    const int y = __shfl_up_sync(0xffffffffu, below, d);
+    if (lane >= d) below += y;
+  }
+  below = __shfl_up_sync(0xffffffffu, below, 1);  // ... made exclusive
+  if (lane == 0) below = 0;
+  unsigned jbit[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) jbit[i] = (lane >> i) & 1 ? ~0u : 0u;
+  const unsigned before_me = (1u << lane) - 1u;
+#pragma unroll
+  for (int it = 0; it < A_ITEMS; ++it) {
+    const int key = elem_key(v[it]);
+    // Lane j: the lanes whose key is below j, from the top bit down
+    // (jeq: the lanes equal to j in the bits so far).
+    unsigned jeq = 0xffffffffu, jlt = 0;
+#pragma unroll
+    for (int i = 4; i >= 0; --i) {
+      const unsigned B = __ballot_sync(0xffffffffu, (key >> i) & 1);
+      jlt |= jeq & ~B & jbit[i];
+      jeq &= ~(B ^ jbit[i]);
+    }
+    // This element's key k: lanes below k and below k + 1, and the
+    // elements before these 32 likewise.
+    const int k1 = min(key + 1, 31);
+    const unsigned lt = __shfl_sync(0xffffffffu, jlt, key);
+    const unsigned le = __shfl_sync(0xffffffffu, jlt, k1);
+    const int lo = __shfl_sync(0xffffffffu, below, key);
+    const int hi = __shfl_sync(0xffffffffu, below, k1);
+    below += __popc(jlt);
+    const int cnt = s_cnt[key];  // 0 for key 0 and padding
+    if (cnt <= 0) continue;
+    const int rank = hi - lo + __popc(le & ~lt & before_me);
+    const int64_t slot = s_base[key] + rank;
+    if (rank < cnt && slot >= 0 && slot < npairs) {
+      const unsigned zeros =
+          (unsigned)s_zc[key] + lo + __popc(lt & before_me);
+      pairs[slot] = (int)((zeros << 1) | ((v[it] >> 30) & 1));
+    }
   }
 }
 
@@ -143,12 +325,28 @@ scatter_refbits_kernel(const int* __restrict__ vmag,
 
 }  // namespace
 
-extern "C" int dwt_compact_tokens(const void* vmag, const void* meta,
-                                  void* pairs, int units, int sub, int E,
-                                  int64_t npairs, void* stream) {
-  if (units > 0)
-    compact_tokens_kernel<<<units, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)vmag, (const int*)meta, (int*)pairs, sub, E, npairs);
+extern "C" int dwt_compact_count(const void* vmag, const void* meta,
+                                 const void* table, void* hist, int groups,
+                                 int P, int U, int sub, int E, int nsub,
+                                 void* stream) {
+  if (groups > 0 && nsub > 0)
+    compact_count_kernel<<<dim3(groups, nsub), A_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        (const int*)vmag, (const int*)meta, (const int*)table, (int*)hist, P,
+        U, sub, E, nsub);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dwt_compact_place(const void* vmag, const void* meta,
+                                 const void* table, const void* hist,
+                                 void* pairs, int groups, int P, int U,
+                                 int sub, int E, int nsub, int64_t npairs,
+                                 void* stream) {
+  if (groups > 0 && nsub > 0)
+    compact_place_kernel<<<dim3(groups, nsub), A_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        (const int*)vmag, (const int*)meta, (const int*)table,
+        (const int*)hist, (int*)pairs, P, U, sub, E, nsub, npairs);
   return (int)cudaGetLastError();
 }
 

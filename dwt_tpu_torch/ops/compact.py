@@ -15,12 +15,18 @@ only its first col-6 outputs; outputs outside the buffer are dropped.
 * Kernel A (:func:`compact_tokens`): the j-th newly significant element
   of a unit gets the pair value ``(zero-prefix << 1) | sign`` at pair slot
   ``col3 + col4 + j`` (zero-prefix = col5 + zeros before it in the unit).
+  The CUDA version is chunk-major: a (G, P) unit table (:func:`unit_table`,
+  or the encoder's ``tokens._kernel_a_table``) groups the units that
+  share a chunk of elements, slot q holding the meta row of plane q (-1:
+  none), and two launches over G chunks x SUBLEN-element sub-ranges count
+  and then place, reading each element once a launch for all its planes.
 * Kernel B (:func:`scatter_refbits`): the j-th refined element adds its
   plane bit ``sh & 1`` at stream bit ``32 * col3 + col4 + j``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..runtime import build
@@ -34,6 +40,10 @@ SUBB = 1024      # the same rows, read by kernel B
 WTOK_BIG = E + 256        # pair-buffer slack past the last pair
 WREF = E // 32 + 256      # word-window size bounding kernel B's windows
 MAGMASK = (1 << 30) - 1
+SUBLEN = 4096    # elements of a sub-range of kernel A (csrc/compact.cu)
+HROWS = 9        # its histogram rows: the sub-range's, one a warp
+PLANES = 30      # planes that can hold a newly significant element
+NBIN = 32        # key bins of kernel A's histograms
 
 _UNITS = 256  # units per batch of the plain versions (bounds their memory)
 
@@ -58,8 +68,9 @@ def _excl(mask):
 
 
 def compact_tokens_plain(vmag: torch.Tensor, meta: torch.Tensor,
-                         npairs: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`compact_tokens`."""
+                         npairs: int, table=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`compact_tokens` (``table`` is
+    accepted for the same signature and not needed)."""
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
     for m, v in _unit_elements(vmag, meta, SUBA):
         sh = (v & MAGMASK) >> m[:, 2:3]
@@ -74,24 +85,85 @@ def compact_tokens_plain(vmag: torch.Tensor, meta: torch.Tensor,
     return out
 
 
-def compact_tokens(vmag: torch.Tensor, meta: torch.Tensor,
-                   npairs: int) -> torch.Tensor:
+def unit_table(meta: torch.Tensor) -> torch.Tensor:
+    """(G, PLANES) int32 unit table of the live units of ``meta`` (col 6 >
+    0, a valid length > 0, a plane below PLANES): the units with one first
+    row and valid length form a group, slot q holds the row of plane q,
+    and a second unit of the same group and plane opens another group.
+    Groups are ordered by first row.  Built on the host (one copy of
+    ``meta``); the encoder builds its table on the device instead."""
+    m = meta.cpu().numpy().astype(np.int64)
+    ln = np.minimum(m[:, 1], E)
+    rows = np.nonzero((m[:, 6] > 0) & (ln > 0) & (m[:, 2] < PLANES))[0]
+    if (m[rows, 2] < 0).any():
+        raise ValueError("compact_tokens: a live unit has a negative plane")
+    k0, k1, p = m[rows, 0], ln[rows], m[rows, 2]
+    o = np.lexsort((rows, p, k1, k0))
+    rows, k0, k1, p = rows[o], k0[o], k1[o], p[o]
+    n = rows.shape[0]
+    new = np.ones(n, bool)
+    new[1:] = (k0[1:] != k0[:-1]) | (k1[1:] != k1[:-1]) | (p[1:] != p[:-1])
+    dup = np.arange(n) - np.maximum.accumulate(np.where(new, np.arange(n), 0))
+    keys, gid = np.unique(np.stack([k0, k1, dup], 1), axis=0,
+                          return_inverse=True)
+    table = np.full((keys.shape[0], PLANES), -1, np.int32)
+    table[gid.reshape(-1), p] = rows
+    return torch.as_tensor(table, device=meta.device)
+
+
+def hist_for(table: torch.Tensor) -> torch.Tensor:
+    """Kernel A's scratch for the histograms of the count launch."""
+    return torch.empty((table.shape[0], -(-E // SUBLEN), HROWS, NBIN),
+                       dtype=torch.int32, device=table.device)
+
+
+def count(vmag, meta, table, hist) -> None:
+    """Kernel A's count launch: each sub-range's key histograms into
+    ``hist`` (:func:`hist_for`)."""
+    lib = build.library()
+    build.check(lib.dwt_compact_count(
+        vmag.data_ptr(), meta.data_ptr(), table.data_ptr(), hist.data_ptr(),
+        table.shape[0], table.shape[1], meta.shape[0], SUBA, E,
+        hist.shape[1], build.stream_of(vmag)), "compact_tokens (count)")
+
+
+def place(vmag, meta, table, hist, out) -> None:
+    """Kernel A's place launch: every pair into ``out`` (zeroed)."""
+    lib = build.library()
+    build.check(lib.dwt_compact_place(
+        vmag.data_ptr(), meta.data_ptr(), table.data_ptr(), hist.data_ptr(),
+        out.data_ptr(), table.shape[0], table.shape[1], meta.shape[0], SUBA,
+        E, hist.shape[1], out.shape[0], build.stream_of(vmag)),
+        "compact_tokens (place)")
+
+
+def compact_tokens(vmag: torch.Tensor, meta: torch.Tensor, npairs: int,
+                   table: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel A: significance-token pair values into a new (npairs,)
     int32 buffer (zero where no pair lands).  ``vmag``: (NR, SUBA) int32
     packed rows with at least E elements past every unit's start; ``meta``:
-    (U, 8) int32."""
+    (U, 8) int32; ``table``: the (G, P <= PLANES) int32 unit table of the
+    CUDA kernel, whose groups' live units share a first row and valid
+    length, slot q of plane q (built by :func:`unit_table` when not
+    given).  The table does not change the function."""
     need("compact_tokens vmag", vmag, torch.int32, 2)
     need("compact_tokens meta", meta, torch.int32, 2)
     if vmag.shape[1] != SUBA or meta.shape[1] != 8:
         raise ValueError("compact_tokens: vmag must be (NR, SUBA), meta (U, 8)")
-    if not on_card("compact_tokens", vmag, meta):
+    if table is not None:
+        need("compact_tokens table", table, torch.int32, 2)
+        if table.shape[1] > PLANES:
+            raise ValueError(f"compact_tokens: the table has more than "
+                             f"{PLANES} planes")
+    if not on_card("compact_tokens", vmag, meta,
+                   *(() if table is None else (table,))):
         return compact_tokens_plain(vmag, meta, npairs)
+    if table is None:
+        table = unit_table(meta)
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
-    lib = build.library()
-    build.check(lib.dwt_compact_tokens(vmag.data_ptr(), meta.data_ptr(),
-                                       out.data_ptr(), meta.shape[0], SUBA,
-                                       E, npairs, build.stream_of(vmag)),
-                "compact_tokens")
+    hist = hist_for(table)
+    count(vmag, meta, table, hist)
+    place(vmag, meta, table, hist, out)
     compact_tokens.launches += 1
     return out
 

@@ -40,12 +40,16 @@ ENTRY_POINTS = {
     "dwt_hilbert_gather": (_P, _P, _P, _L, _I, _P),
     # (lin, src, out, npix, L, C, stream)
     "dwt_hilbert_scatter": (_P, _P, _P, _L, _L, _I, _P),
-    # (vmag, meta, pairs, units, sub, E, npairs, stream)
-    "dwt_compact_tokens": (_P, _P, _P, _I, _I, _I, _L, _P),
+    # (vmag, meta, table, hist, groups, P, U, sub, E, nsub, stream)
+    "dwt_compact_count": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (vmag, meta, table, hist, pairs, groups, P, U, sub, E, nsub, npairs,
+    #  stream)
+    "dwt_compact_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                          _P),
     # (vmag, meta, words, units, sub, E, nwords, stream)
     "dwt_scatter_refbits": (_P, _P, _P, _I, _I, _I, _L, _P),
-    # (widx, c0, c1, c2, words, ntok, nwords, stream)
-    "dwt_pack_words": (_P, _P, _P, _P, _P, _L, _L, _P),
+    # (widx, c0, c1, c2, words, flag, ntok, nwords, stream)
+    "dwt_pack_words": (_P, _P, _P, _P, _P, _P, _L, _L, _P),
     # (in, out, R, C, elem_bytes, stream)
     "dwt_transpose": (_P, _P, _L, _L, _I, _P),
 }

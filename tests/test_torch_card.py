@@ -72,21 +72,114 @@ def test_compact_kernels_equal_plain(cuda):
     assert torch.equal(got, want) and not torch.equal(got, words)
 
 
-@pytest.mark.parametrize("n", [1, 31, 12345, 1 << 20])
-def test_pack_kernel_equals_plain(cuda, n):
+def _shared_meta(rng, vmag, E, sub, nchunk, planes=10):
+    """Units of planes 0..planes-1 sharing each of nchunk chunks, rows
+    shuffled as the schedule order gives them: ragged valid lengths (col 1
+    < E) on odd chunks, non-zero zero carries, counts below the true count
+    on a third of the units, chunk 2 with no live unit.  Returns (meta,
+    pair-buffer size)."""
+    flat = vmag.reshape(-1).cpu().numpy()
+    units = []
+    for k in range(nchunk):
+        elen = E - int(rng.integers(1, 3000)) if k % 2 else E
+        el = flat[k * E:k * E + elen]
+        for p in range(planes):
+            cnt = int(((el >= 0) & (((el & ((1 << 30) - 1)) >> p) == 1)).sum())
+            if k == 2:
+                cnt = 0
+            elif cnt and rng.random() < 0.3:
+                cnt = int(rng.integers(0, cnt))
+            units.append([k * E // sub, elen, p, 0, 0,
+                          int(rng.integers(0, 1 << 20)), cnt, 0])
+    rows, base = [units[i] for i in rng.permutation(len(units))], 0
+    for r in rows:
+        base += int(rng.integers(0, 300))
+        r[3], r[4] = base & ~127, base & 127
+        base += r[6]
+    return torch.as_tensor(np.asarray(rows, np.int32)), base + 512
+
+
+@pytest.mark.parametrize("case", ["shared", "pairs cut short", "table given"])
+def test_compact_tokens_shared_chunks_equal_plain(cuda, case):
+    """Kernel A where units share chunks (the encoder's grouping): planes
+    0-9 of a chunk in shuffled rows, counts below the true count, zero
+    carries, col 1 < E, a chunk with no live unit; slots past npairs; and
+    a unit table given in another group order, which changes nothing."""
+    from dwt_tpu_torch.ops import compact
+
+    rng = np.random.default_rng(41)
+    E, nchunk = compact.E, 6
+    vmag = torch.as_tensor(_elements(rng, (nchunk + 1) * E)).reshape(
+        -1, compact.SUBA).to(cuda)
+    meta, npairs = _shared_meta(rng, vmag, E, compact.SUBA, nchunk)
+    meta = meta.to(cuda)
+    table = None
+    if case == "pairs cut short":
+        npairs //= 2
+    if case == "table given":
+        table = compact.unit_table(meta).flip(0).contiguous()
+        assert table.shape[0] == nchunk - 1
+    before = compact.compact_tokens.launches
+    got = compact.compact_tokens(vmag, meta, npairs, table)
+    want = compact.compact_tokens_plain(vmag, meta, npairs)
+    torch.cuda.synchronize()
+    assert compact.compact_tokens.launches == before + 1
+    assert torch.equal(got, want) and int((want != 0).sum()) > 20000
+
+
+@pytest.mark.parametrize("n,kind", [
+    (1, "steps"), (31, "steps"), (12345, "steps"), (1 << 20, "steps"),
+    (2047, "steps"), (2048, "steps"), (2049, "steps"), (1, "one word"),
+    (50000, "jumps past the window"), (50000, "one word"),
+    (50000, "nwords below the last word"), (50000, "27x nwords"),
+    (50000, "negative words first")])
+def test_pack_kernel_equals_plain(cuda, n, kind):
+    """At ragged sizes (a tile is 2048 tokens), across widx jumps larger
+    than the shared window, with every token on one word, with nwords
+    below widx[-1] + 3 and 27 times it (the encoder's ratio), and with
+    negative word indices, whose pieces are dropped."""
     from dwt_tpu_torch.ops import pack
 
     rng = np.random.default_rng(n)
     steps = rng.integers(0, 4, n)
     steps[rng.random(n) < 0.001] += 5000  # injection-like jumps
-    widx = torch.as_tensor(np.cumsum(steps).astype(np.int32)).to(cuda)
+    if kind == "jumps past the window":
+        steps[rng.random(n) < 0.0005] += 100_000
+    if kind == "one word":
+        steps[:] = 0
+    widx = np.cumsum(steps) - steps[0]
+    if kind == "negative words first":
+        widx -= 3000
+    widx = torch.as_tensor(widx.astype(np.int32)).to(cuda)
     cs = [torch.as_tensor(rng.integers(-2**31, 2**31, n, dtype=np.int64)
                           .astype(np.int32)).to(cuda) for _ in range(3)]
     nwords = int(widx[-1]) + 3
+    if kind == "nwords below the last word":
+        nwords -= 200
+    if kind == "27x nwords":
+        nwords *= 27
     got = pack.pack_words(widx, *cs, nwords)
     want = pack.pack_words_plain(widx, *cs, nwords)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_pack_kernel_sets_the_order_flag(cuda):
+    """With ``order_flag`` the kernel's order check is left to the caller:
+    no host read, the flag set, the launch counted."""
+    from dwt_tpu_torch.ops import pack
+
+    c = torch.ones(9000, dtype=torch.int32, device=cuda)
+    widx = torch.arange(9000, dtype=torch.int32, device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = pack.pack_words.launches
+    pack.pack_words(widx, c, c, c, 9010, order_flag=flag)
+    assert int(flag) == 0
+    widx[2048] = 0  # a tile's first token
+    pack.pack_words(widx, c, c, c, 9010, order_flag=flag)
+    assert int(flag) == 1 and pack.pack_words.launches == before + 2
+    with pytest.raises(ValueError, match="nondecreasing"):
+        pack.check_order(flag)
 
 
 def test_pack_kernel_rejects_unsorted_widx(cuda):
