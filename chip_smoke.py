@@ -44,8 +44,12 @@ seconds:
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
              PyTorch call computes the same function, that call; the
-             wrappers of the pack kernel and kernel A also in their parts
-             (zero fill, order check or unit table, launches).
+             wrappers of the pack kernel and kernels A and B also in their
+             parts (zero fill, order check or unit table, launches);
+             kernel B also with its own count launch and unit table, and
+             its refinement bits, 1-bits and block runs counted; the
+             tile engines' probe as its one host call, and one cold
+             ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
              and idle share from torch.profiler, three readings; the
@@ -195,12 +199,12 @@ class Kernels:
             ("hilbert_gather", hilbert_gather.hilbert_gather,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
              "dwt_tpu/ops/pallas_hilbert.py:284", ENCODE_PATHS),
-            # The probe's count lives on engine_supported, which launches
-            # the gather kernel (engine_probe) and the scatter kernel
-            # (scatter_probe) once per device, when the first encoder or
+            # The probe's count lives on engine_supported, whose one host
+            # call (engine_probe) launches the gather, the scatter and a
+            # compare kernel once per device, when the first encoder or
             # decoder tail is built: in this script, the encoder.
             ("engine_supported", hilbert_gather.engine_supported,
-             "dwt_tpu_torch/csrc/hilbert_gather.cu",
+             "dwt_tpu_torch/csrc/probe.cu",
              "dwt_tpu/ops/pallas_hilbert.py:107", ("encode",)),
             ("compact_tokens", compact.compact_tokens,
              "dwt_tpu_torch/csrc/compact.cu",
@@ -396,6 +400,58 @@ def wrapper_split_pack(torch, widx, c0, c1, c2, nwords) -> str:
         check=sum(reads) / len(reads), kernel=kernel))
 
 
+def wrapper_split_b(torch, vmag, meta, words, table, hist) -> str:
+    """Kernel B's wrapper in its parts, by CUDA events: the unit table it
+    derives on the host when it is given none, the count launch it runs
+    when it is given no histograms, and the scatter launch (on the kept
+    buffers; the encoder passes kernel A's table and histograms)."""
+    from dwt_tpu_torch.ops import compact
+
+    own = compact.hist_for(table)
+    return fmt_split(dict(
+        table=time_ms(torch, lambda: compact.unit_table(meta)),
+        count=time_ms(torch, lambda: compact.count(vmag, meta, table, own)),
+        scatter=time_ms(torch, compact.scatter, setup=lambda: (
+            vmag, meta, table, hist, words.clone()))))
+
+
+def refbit_counts(torch, vmag, meta, words, table, hist) -> str:
+    """Kernel B's refinement bits, how many of them are 1 (each was one
+    global atomic of a kernel that adds bit by bit), and its block runs
+    (a (chunk, sub-range, plane) with a bit to write: at most two global
+    atomics each), from the same histograms as the kernel."""
+    from dwt_tpu_torch.ops import compact
+
+    live = meta[:, 6] > 0
+    nref = int(meta[live, 6].long().sum())
+    ones = compact.scatter_refbits(vmag, meta, torch.zeros_like(words),
+                                   table, hist).long() & 0xFFFFFFFF
+    nones = 0
+    for i in range(32):
+        nones += int(((ones >> i) & 1).sum())
+    # Lane b of a group: the unit of table slot b - 1 (refined: key > b).
+    G, P = table.shape
+    rows = table.long()
+    ok = (rows >= 0) & (rows < meta.shape[0])
+    m = meta.long()[rows.clamp(0, meta.shape[0] - 1)]     # (G, P, 8)
+    cnt = torch.where(ok, m[..., 6], 0)                     # (G, P)
+    first = torch.argmax((cnt > 0).int(), dim=1)            # first live
+    ln = m[torch.arange(G, device=m.device), first, 1].clamp(0, compact.E)
+    ln = torch.where((cnt > 0).any(1), ln, 0)
+    nsub = hist.shape[1]
+    inside = (torch.arange(nsub, device=m.device)[None, :]
+              * compact.SUBLEN) < ln[:, None]               # (G, nsub)
+    h = torch.where(inside[..., None], hist[:, :, 0, :31].long(), 0)
+    above = h.flip(-1).cumsum(-1).flip(-1)                   # keys >= j
+    nrun = torch.cat([above[..., 1:], torch.zeros_like(above[..., :1])],
+                     dim=-1)[..., 1:P + 1]                   # keys > b
+    rank0 = torch.cumsum(nrun, dim=1) - nrun
+    ncap = torch.minimum((cnt[:, None, :] - rank0).clamp(min=0), nrun)
+    runs = int(((ncap > 0) & inside[..., None]).sum())
+    return (f"{nref} refinement bits, {nones} of them 1; {runs} block runs "
+            f"(at most {2 * runs} global atomics)")
+
+
 def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     """Phase 4: each kernel against its plain version, and its times."""
     from dwt_tpu_torch.codec.stage1 import ALIGN
@@ -437,32 +493,41 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                 reps=3),
         4 * (src.numel() + co.numel() + k.numel()), lib_ms)
 
-    # 1b. the tile engines' probe: one 32x32 tile through the gather and
-    # the scatter kernel (as engine_supported runs them)
-    co, src = hilbert_gather.probe_tile(co.device)
-    lin1, src2 = co.reshape(1, -1), src.reshape(hilbert_gather.TS, -1)
-
-    def probe(gather, scatter):
-        return torch.cat([gather(co, src).reshape(-1),
-                          scatter(lin1, src2).reshape(-1)])
-
-    k = probe(hilbert_gather.engine_probe, hilbert_gather.scatter_probe)
-    p = probe(hilbert_gather.hilbert_gather_plain,
-              hilbert_scatter.hilbert_scatter_plain)
-    idx = src.long()
-    row("engine_supported", k, p,
-        time_ms(torch, lambda: (hilbert_gather.engine_probe(co, src),
-                                hilbert_gather.scatter_probe(lin1, src2))),
-        time_ms(torch, lambda: (
-            hilbert_gather.hilbert_gather_plain(co, src),
-            hilbert_scatter.hilbert_scatter_plain(lin1, src2))),
-        4 * 2 * (src.numel() + co.numel() + co.numel()),
-        time_ms(torch, lambda: (co.reshape(-1, 1)[idx].T.contiguous(),
-                                lin1[:, idx].T.contiguous())))
+    # 1b. the tile engines' probe: one host call sends one 32x32 tile
+    # through the gather and the scatter kernel and counts the wrong
+    # values on the card (as engine_supported runs it); timed without the
+    # read of the counts, over 200 runs, as its yardstick: both are tens
+    # of microseconds of host latency, whose spread 10 runs do not
+    # average out.  It reads the tile and its index and writes both
+    # results and the two counts.
+    tile, idx, res, bad = hilbert_gather.probe_buffers(co.device)
+    hilbert_gather.engine_probe(tile, idx, res, bad)
+    k = torch.cat([res, bad])
+    p_res, p_bad = torch.empty_like(res), torch.empty_like(bad)
+    hilbert_gather.engine_probe_plain(tile, idx, p_res, p_bad)
+    if bad.tolist() != [0, 0]:
+        raise AssertionError(f"engine_supported: the probe counts {bad}")
+    co1, src1, lin1 = tile.reshape(-1, 1), idx.long(), tile.reshape(1, -1)
+    row("engine_supported", k, torch.cat([p_res, p_bad]),
+        time_ms(torch, lambda: hilbert_gather.engine_probe(tile, idx, res,
+                                                           bad), reps=200),
+        time_ms(torch, lambda: hilbert_gather.engine_probe_plain(
+            tile, idx, p_res, p_bad), reps=200),
+        4 * (2 * idx.numel() + res.numel() + bad.numel()),
+        time_ms(torch, lambda: (co1[src1].T.contiguous(),
+                                lin1[:, src1].T.contiguous()), reps=200))
+    hilbert_gather._PROBED.clear()
+    hilbert_gather._BUFFERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hilbert_gather.engine_supported(co.device)
+    progress(f"kernels: one cold engine_supported (buffers made, one host "
+             f"call, the counts read) {1e3 * (time.perf_counter() - t0):.3f}"
+             f" ms wall")
 
     # 2. kernel A: reads the elements its live units cover, its meta and
     # unit table, and writes its whole pair buffer
-    vmag, meta, npairs, table = got["compact_tokens"][0]
+    vmag, meta, npairs, table, _ = got["compact_tokens"][0]
     k = compact.compact_tokens(vmag, meta, npairs, table)
     p = compact.compact_tokens_plain(vmag, meta, npairs)
     row("compact_tokens", k, p,
@@ -497,26 +562,36 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
                                                      nwords), reps=3),
         4 * (4 * widx.numel() + nwords), lib_ms)
     split_pack = wrapper_split_pack(torch, widx, c0, c1, c2, nwords)
-    progress(f"kernels: wrapper splits, ms: compact_tokens {split_a}; "
-             f"pack_words {split_pack}")
 
     # 4. kernel B (in place on the packed words: a fresh copy each run):
     # reads the elements its live units cover and reads and writes each
-    # word that holds one of their refinement bits
-    vmag, meta, words = got["scatter_refbits"][0]
+    # word that holds one of their refinement bits; timed as the encoder
+    # calls it, over kernel A's unit table and histograms (one launch),
+    # and held also with its own count launch and its own unit table
+    vmag, meta, words, table, hist = got["scatter_refbits"][0]
     live = meta[meta[:, 6] > 0].long()
     bit0 = 32 * live[:, 3] + live[:, 4]
     ref_words = covered(torch, bit0 >> 5, ((bit0 + live[:, 6] - 1) >> 5) + 1,
                         words.numel())
-    k = compact.scatter_refbits(vmag, meta, words.clone())
     p = compact.scatter_refbits_plain(vmag, meta, words.clone())
+    for extra in ((table,), ()):
+        if max_abs_err("scatter_refbits", compact.scatter_refbits(
+                vmag, meta, words.clone(), *extra), p):
+            raise AssertionError("scatter_refbits with its own count launch "
+                                 "differs from its plain version")
+    k = compact.scatter_refbits(vmag, meta, words.clone(), table, hist)
     row("scatter_refbits", k, p,
         time_ms(torch, compact.scatter_refbits,
-                setup=lambda: (vmag, meta, words.clone())),
+                setup=lambda: (vmag, meta, words.clone(), table, hist)),
         time_ms(torch, compact.scatter_refbits_plain,
                 setup=lambda: (vmag, meta, words.clone()), reps=2),
         4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
              + 2 * ref_words), None)
+    split_b = wrapper_split_b(torch, vmag, meta, words, table, hist)
+    progress(f"kernels: wrapper splits, ms: compact_tokens {split_a}; "
+             f"pack_words {split_pack}; scatter_refbits {split_b}")
+    progress("kernels: scatter_refbits at 4K: "
+             + refbit_counts(torch, vmag, meta, words, table, hist))
 
     # 5. inverse scatter (decode): reads its index and C coefficients for
     # each pixel off the root band, and writes the (H, W, C) plane; one

@@ -138,11 +138,12 @@ def _kernel_b_meta(stats, segs: _Segs, com, refstart, pyr: Pyramid,
 
 def _ref_bits(words, refstart, vmag, com, stats, pyr: Pyramid,
               channels: int, padded_T: int):
-    """Kernel B: add the refinement bits into the stream words (in place)."""
+    """Kernel B: add the refinement bits into the stream words (in place),
+    over kernel A's unit table and key histograms (``com``)."""
     segs = segs_for(pyr, words.device)
     meta = _kernel_b_meta(stats, segs, com, refstart, pyr, padded_T,
                           words.shape[0])
-    return scatter_refbits(vmag, meta, words)
+    return scatter_refbits(vmag, meta, words, com["table"], com["hist"])
 
 
 def _layer_boundaries(stats, off, total_bits, pyr: Pyramid, channels: int):

@@ -101,13 +101,19 @@ def _kernel_a_table(flat_ck):
 def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     """Kernel A: each newly significant element's zero-prefix and sign at
     its PAIR rank (step bases are even, so pair rank = token slot / 2).
-    Returns (zero-prefixes, signs, packed elements, unit indexing)."""
+    Returns (zero-prefixes, signs, packed elements, unit indexing); the
+    unit indexing also holds kernel A's unit table ("table") and the key
+    histograms of its count launch ("hist"), which kernel B reuses: B's
+    meta rows come in the same order, and every group live for B has a
+    live A unit (ops/compact.py:scatter_refbits)."""
     segs = segs_for(pyr, lin.device)
     com = _unit_common(stats, segs, pyr, channels)
     meta, pairbuf = _kernel_a_meta(stats, segs, com, padded_T)
     vmag = _packed_elems(lin, segs)
-    pairs = compact_tokens(vmag, meta, pairbuf,
-                           _kernel_a_table(com["flat_ck"]))[: padded_T // 2]
+    com["table"] = _kernel_a_table(com["flat_ck"])
+    com["hist"] = compact.hist_for(com["table"])
+    pairs = compact_tokens(vmag, meta, pairbuf, com["table"],
+                           com["hist"])[: padded_T // 2]
     return pairs >> 1, pairs & 1, vmag, com
 
 

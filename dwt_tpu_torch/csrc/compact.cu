@@ -40,40 +40,48 @@
 // Both are bound by integer instructions more than by bytes: about 10 (a
 // match) and 55 (the ballots) per element.
 //
-// Kernel B still walks one unit a block, in tiles of TILE elements, each
-// tile one block-wide exclusive scan of the per-thread flag counts; its
-// refined elements (b > p + 1) fit the same keys and histograms.
+// Kernel B is chunk-major over the same table, keys and histograms.  An
+// element of key b is refined exactly at the planes p < b - 1, so its
+// rank in the unit of plane p is the count of earlier elements with a key
+// in [p + 2, 30]: a suffix of the same histograms.  Launches over the
+// same grid:
+//   count:   as A's, on B's meta; the encoder skips it and hands B the
+//            histograms of A's count launch (every group live for B has a
+//            live A unit: an element refined at plane p is newly
+//            significant at a plane above p of the same chunk and
+//            channel, which the schedule puts earlier, so a cut that keeps
+//            p keeps it; tests/test_torch_refbits_plan.py checks this on
+//            lossless, capacity and tiled encodes);
+//   scatter: each thread reads 16 consecutive elements once and, for
+//            each of the chunk's live planes below the warp's largest key,
+//            packs the plane bits of its refined elements into one word
+//            (at most 16 consecutive stream bits, so at most two words);
+//            a warp scan of the counts places them in the block's run of
+//            that plane in shared memory; the words strictly inside a run
+//            are then added to the stream with a plain read-modify-write,
+//            the two edge words with a global atomicAdd.
+// Launches, bytes and atomics of B (the 4K encode: 408 groups x 16
+// sub-ranges): on the encoder's path one launch, the scatter, which reads
+// each covered element once (4 B), its group's table row and meta rows
+// (32 B a plane), its histogram rows (at most 16 + 1 of 128 B), and reads
+// and writes each word that holds a refinement bit once (4 + 4 B); it
+// issues at most two global atomicAdds a (block, live plane) run and at
+// most two shared atomicOrs a (thread, live plane).  Called
+// without histograms, the wrapper adds the count launch: the covered
+// elements read once more, 1,152 B of histograms written a (chunk,
+// sub-range).  One block a unit, as the TPU kernel's grid has it, would
+// read each element once a live plane (4-10 times at 4K).
 //
 // Bound: bytes.  A reads the elements its live units cover (once for the
 // bound; twice here, one read a launch) and writes its whole pair buffer
 // (the wrapper's zero fill, then one int32 per placed pair); B reads the
-// elements and does one atomicAdd per refined element whose plane bit is
-// 1.
+// elements its live units cover once and reads and writes each word that
+// holds one of their refinement bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ITEMS = 8;  // consecutive elements per thread and tile
-constexpr int TILE = THREADS * ITEMS;
 constexpr int MAGMASK = (1 << 30) - 1;
-
-// This thread's ITEMS elements of the tile starting at element t0 of the
-// unit; -1 (padding) past the unit's valid length.
-__device__ __forceinline__ void load_items(const int* __restrict__ el,
-                                           int t0, int len, int v[ITEMS]) {
-  const int i0 = t0 + threadIdx.x * ITEMS;
-  if (i0 + ITEMS <= len) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(el + i0));
-    const int4 b = __ldg(reinterpret_cast<const int4*>(el + i0 + 4));
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k)
-      v[k] = i0 + k < len ? __ldg(el + i0 + k) : -1;
-  }
-}
 
 // ---- Kernel A ---------------------------------------------------------
 constexpr int A_THREADS = 256;
@@ -281,45 +289,183 @@ compact_place_kernel(const int* __restrict__ vmag,
   }
 }
 
-// Kernel B: the j-th refined element of the unit owns stream bit
-// 32 * window + offset + j and adds its plane bit there.  The stream words
-// already hold the token codewords, whose bits are disjoint from these, so
-// the add is an OR; it is an add so that the kernel computes the TPU
-// kernel's function (which adds) on any input.
-__global__ void __launch_bounds__(THREADS)
-scatter_refbits_kernel(const int* __restrict__ vmag,
+// ---- Kernel B ---------------------------------------------------------
+// Shared words a block can assemble: its runs hold at most SUBLEN * 29
+// bits (an element of key b is refined at the b - 1 <= 29 planes below
+// b - 1), and each run adds at most 2 words of alignment.
+constexpr int B_WORDS = SUBLEN * 29 / 32 + 2 * NBIN;
+
+// Inclusive sum over the warp's lanes.
+__device__ __forceinline__ int warp_incl_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// Lane b: the count of x over the lanes (keys) above b, i.e. keys > b.
+__device__ __forceinline__ int keys_above(int x) {
+  const int incl = warp_incl_scan(x);
+  return __shfl_sync(0xffffffffu, incl, 31) - incl;
+}
+
+// Scatter launch: the refined elements of sub-range s of group g's chunk,
+// every live plane at once.  Lane b of a warp stands for the unit of
+// plane b - 1 (table slot b - 1), whose refined elements are those of key
+// > b; their rank is a count of earlier keys > b, so the count launch's
+// histograms give each warp and the block their starting ranks.  A
+// thread reads A_ITEMS consecutive elements once and, for each live plane
+// below its largest key, packs the plane bits of its refined elements
+// into one word in order (at most A_ITEMS bits); a warp scan of the
+// counts places each thread's bits after the earlier threads'.  The
+// block's refined elements at one plane form one run of consecutive
+// stream bits, which it assembles in shared memory; the words strictly
+// inside a run belong to this block alone (distinct units own disjoint
+// bit ranges, and the other blocks of the unit own the ranks before and
+// after the run) and are added with a plain read-modify-write, the <= 2
+// edge words with a global atomicAdd.  Six blocks an SM (at most 40
+// registers a thread) measured faster than the five that 44 allow.
+__global__ void __launch_bounds__(A_THREADS, 6)
+refbits_scatter_kernel(const int* __restrict__ vmag,
                        const int* __restrict__ meta,
-                       unsigned int* __restrict__ words, int sub, int E,
-                       int64_t nwords) {
-  __shared__ int warp_sums[32];
-  const int* m = meta + 8 * (int64_t)blockIdx.x;
-  const int nref = m[6];
-  if (nref <= 0) return;
-  const int* el = vmag + (int64_t)m[0] * sub;
-  const int len = min(m[1], E), p = m[2];
-  const int64_t bit0 = 32 * (int64_t)m[3] + m[4];
-  int done = 0;
-  for (int t0 = 0; t0 < len && done < nref; t0 += TILE) {
-    int v[ITEMS];
-    load_items(el, t0, len, v);
-    int nr = 0;
+                       const int* __restrict__ table,
+                       const int* __restrict__ hist,
+                       unsigned int* __restrict__ words, int P, int U,
+                       int sub, int E, int nsub, int64_t nwords) {
+  __shared__ unsigned int s_words[B_WORDS];
+  // Per lane b (plane b - 1): the run's first global word, the bit of its
+  // first element in that word, its length after the unit's cap (0: no
+  // bit to write), and its first word and word count in s_words.
+  __shared__ int64_t s_w0[NBIN];
+  __shared__ int s_a[NBIN], s_ncap[NBIN], s_seg[NBIN], s_nw[NBIN];
+  __shared__ int s_part[A_WARPS][NBIN];
+  __shared__ int s_tot;
+  __shared__ unsigned int s_live;
+  const int g = blockIdx.x, s = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* h = hist + (int64_t)g * nsub * HROWS * NBIN + lane;
+  // Every warp reads the group's units itself, so its element loads need
+  // not wait for the block's plan.
+  int m[8], len;
+  int64_t el0;
+  group_units(meta, table, g, P, U, sub, E, m, &el0, &len);
+  // Rows of hist past the chunk's length are never written.
+  if (s * SUBLEN >= len) return;
+  for (int i = threadIdx.x; i < B_WORDS; i += A_THREADS) s_words[i] = 0;
+  const int* el = vmag + el0;
+
+  // Thread t takes the A_ITEMS consecutive elements from i0, so warp w
+  // reads [w * A_SEG, (w + 1) * A_SEG) of the sub-range, as the count
+  // launch counted it.  Magnitudes only, 0 for padding: an element is
+  // refined at plane b - 1 when mag >> (b - 1) > 1.
+  const int i0 = s * SUBLEN + threadIdx.x * A_ITEMS;
+  unsigned int mag[A_ITEMS], most = 0;
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k)
-      nr += v[k] >= 0 && ((v[k] & MAGMASK) >> p) > 1;
-    int total;
-    int r = done + block_excl_scan(nr, warp_sums, &total);
+  for (int q = 0; q < A_ITEMS; q += 4) {
+    int x[4];
+    if (i0 + q + 4 <= len) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(el + i0 + q));
+      x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+    } else {
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      if (v[k] < 0) continue;
-      const int sh = (v[k] & MAGMASK) >> p;
-      if (sh > 1) {
-        const int64_t bit = bit0 + r;
-        const int64_t w = bit >> 5;
-        if (r++ < nref && (sh & 1) && w >= 0 && w < nwords)
-          atomicAdd(words + w, 1u << (bit & 31));
-      }
+      for (int k = 0; k < 4; ++k)
+        x[k] = i0 + q + k < len ? __ldg(el + i0 + q + k) : -1;
     }
-    done += total;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      mag[q + k] = x[k] < 0 ? 0u : (unsigned int)(x[k] & MAGMASK);
+      most = max(most, mag[q + k]);
+    }
+  }
+  // Warp w sums the key histograms of sub-ranges w and w + A_WARPS before
+  // s, and lane b keeps rank, the warp's next rank in the block's run of
+  // plane b - 1 (refined: key > b).
+  int part = 0, rank = 0;
+  if (lane != PAD_KEY) {
+    for (int t = warp; t < s; t += A_WARPS) part += __ldg(h + t * HROWS * NBIN);
+    rank = __ldg(h + (s * HROWS + 1 + warp) * NBIN);
+  }
+  s_part[warp][lane] = part;
+  rank = keys_above(rank);
+  __syncthreads();
+  if (warp == 0) {
+    int before = 0;
+#pragma unroll
+    for (int w = 0; w < A_WARPS; ++w) before += s_part[w][lane];
+    const int cur = lane == PAD_KEY ? 0 : __ldg(h + s * HROWS * NBIN);
+    const int rank0 = keys_above(before);  // the unit's ranks before s
+    const int nrun = keys_above(cur);      // its refined elements in s
+    int ncap = m[6] > 0 ? min(max(m[6] - rank0, 0), nrun) : 0;
+    const int64_t bit = 32 * (int64_t)m[3] + m[4] + rank0;
+    const int64_t w0 = bit >> 5;
+    int nw = ncap > 0 ? (int)(((bit + ncap - 1) >> 5) - w0 + 1) : 0;
+    const int end = warp_incl_scan(nw);
+    if (end > B_WORDS) ncap = nw = 0;  // only with histograms of other data
+    s_w0[lane] = w0;
+    s_a[lane] = (int)(bit & 31);
+    s_ncap[lane] = ncap;
+    s_seg[lane] = end - nw;
+    s_nw[lane] = nw;
+    const unsigned int live = __ballot_sync(0xffffffffu, ncap > 0);
+    const int tot = __reduce_max_sync(0xffffffffu, ncap > 0 ? end : 0);
+    if (lane == 0) s_live = live, s_tot = tot;
+  }
+  const int kt = 32 - __clz(most);  // this thread's largest key
+  const int km = __reduce_max_sync(0xffffffffu, kt);
+  __syncthreads();
+  const unsigned int live = s_live;
+  if (!live) return;
+  // The live planes b - 1 at which some element of the warp is refined.
+  for (unsigned int todo = live & ((1u << km) - 1u); todo; todo &= todo - 1) {
+    const int b = __ffs(todo) - 1;
+    // This thread's refined elements at plane b - 1, in order: cnt of
+    // them, their plane bits packed from bit 0 (shifted in from the right,
+    // then reversed).
+    unsigned int bits = 0;
+    int cnt = 0;
+    if (b < kt) {
+#pragma unroll
+      for (int k = 0; k < A_ITEMS; ++k) {
+        const unsigned int t = mag[k] >> (b - 1);
+        if (t > 1) bits = 2 * bits + (t & 1u), ++cnt;
+      }
+      bits = __brev(bits) >> (32 - max(cnt, 1));
+    }
+    const int incl = warp_incl_scan(cnt);
+    const int r0 = __shfl_sync(0xffffffffu, rank, b) + incl - cnt;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == b) rank += total;
+    // Ranks r0 ... r0 + cnt - 1 of the run, capped at the unit's count:
+    // at most A_ITEMS consecutive bits, in at most two words.
+    const int ncap = s_ncap[b];
+    if (r0 >= ncap) continue;
+    if (ncap - r0 < cnt) bits &= (1u << (ncap - r0)) - 1u;
+    if (!bits) continue;
+    const int pos = s_a[b] + r0, sh = pos & 31;
+    unsigned int* w = s_words + s_seg[b] + (pos >> 5);
+    atomicOr(w, bits << sh);
+    if (sh && bits >> (32 - sh)) atomicOr(w + 1, bits >> (32 - sh));
+  }
+  __syncthreads();
+  // Word i of s_words belongs to the run of the live lane b whose words
+  // s_seg[b] ... s_seg[b] + s_nw[b] - 1 hold it.
+  for (int i = threadIdx.x; i < s_tot; i += A_THREADS) {
+    unsigned int todo = live;
+    int b = __ffs(todo) - 1;
+    while (i >= s_seg[b] + s_nw[b]) {
+      todo &= todo - 1;
+      b = __ffs(todo) - 1;
+    }
+    const unsigned int x = s_words[i];
+    const int64_t w = s_w0[b] + i - s_seg[b];
+    if (!x || w < 0 || w >= nwords) continue;
+    if (i == s_seg[b] || i == s_seg[b] + s_nw[b] - 1)
+      atomicAdd(words + w, x);
+    else
+      words[w] += x;
   }
 }
 
@@ -350,12 +496,15 @@ extern "C" int dwt_compact_place(const void* vmag, const void* meta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int dwt_scatter_refbits(const void* vmag, const void* meta,
-                                   void* words, int units, int sub, int E,
-                                   int64_t nwords, void* stream) {
-  if (units > 0)
-    scatter_refbits_kernel<<<units, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)vmag, (const int*)meta, (unsigned int*)words, sub, E,
-        nwords);
+extern "C" int dwt_refbits_scatter(const void* vmag, const void* meta,
+                                   const void* table, const void* hist,
+                                   void* words, int groups, int P, int U,
+                                   int sub, int E, int nsub, int64_t nwords,
+                                   void* stream) {
+  if (groups > 0 && nsub > 0)
+    refbits_scatter_kernel<<<dim3(groups, nsub), A_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const int*)vmag, (const int*)meta, (const int*)table,
+        (const int*)hist, (unsigned int*)words, P, U, sub, E, nsub, nwords);
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,11 @@ only its first col-6 outputs; outputs outside the buffer are dropped.
   none), and two launches over G chunks x SUBLEN-element sub-ranges count
   and then place, reading each element once a launch for all its planes.
 * Kernel B (:func:`scatter_refbits`): the j-th refined element adds its
-  plane bit ``sh & 1`` at stream bit ``32 * col3 + col4 + j``.
+  plane bit ``sh & 1`` at stream bit ``32 * col3 + col4 + j``.  The CUDA
+  version is chunk-major over the same table: an element of key b is
+  refined at the planes below b - 1, so its rank is a count of earlier
+  keys above p + 1 from the same histograms (the encoder passes kernel
+  A's), and one launch reads each element once for all its planes.
 """
 
 from __future__ import annotations
@@ -68,9 +72,9 @@ def _excl(mask):
 
 
 def compact_tokens_plain(vmag: torch.Tensor, meta: torch.Tensor,
-                         npairs: int, table=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`compact_tokens` (``table`` is
-    accepted for the same signature and not needed)."""
+                         npairs: int, table=None, hist=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`compact_tokens` (``table`` and
+    ``hist`` are accepted for the same signature and not needed)."""
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
     for m, v in _unit_elements(vmag, meta, SUBA):
         sh = (v & MAGMASK) >> m[:, 2:3]
@@ -111,20 +115,25 @@ def unit_table(meta: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(table, device=meta.device)
 
 
+def _hist_shape(table):
+    return (table.shape[0], -(-E // SUBLEN), HROWS, NBIN)
+
+
 def hist_for(table: torch.Tensor) -> torch.Tensor:
-    """Kernel A's scratch for the histograms of the count launch."""
-    return torch.empty((table.shape[0], -(-E // SUBLEN), HROWS, NBIN),
-                       dtype=torch.int32, device=table.device)
+    """Scratch for the histograms of the count launch (kernels A and B)."""
+    return torch.empty(_hist_shape(table), dtype=torch.int32,
+                       device=table.device)
 
 
 def count(vmag, meta, table, hist) -> None:
-    """Kernel A's count launch: each sub-range's key histograms into
-    ``hist`` (:func:`hist_for`)."""
+    """The count launch of kernels A and B: each sub-range's key
+    histograms into ``hist`` (:func:`hist_for`), for the groups of
+    ``table`` that have a live unit in ``meta``."""
     lib = build.library()
     build.check(lib.dwt_compact_count(
         vmag.data_ptr(), meta.data_ptr(), table.data_ptr(), hist.data_ptr(),
-        table.shape[0], table.shape[1], meta.shape[0], SUBA, E,
-        hist.shape[1], build.stream_of(vmag)), "compact_tokens (count)")
+        table.shape[0], table.shape[1], meta.shape[0], vmag.shape[1], E,
+        hist.shape[1], build.stream_of(vmag)), "compact (count)")
 
 
 def place(vmag, meta, table, hist, out) -> None:
@@ -137,31 +146,45 @@ def place(vmag, meta, table, hist, out) -> None:
         "compact_tokens (place)")
 
 
+def _check_table(name, table, hist):
+    if table is not None:
+        need(f"{name} table", table, torch.int32, 2)
+        if table.shape[1] > PLANES:
+            raise ValueError(f"{name}: the table has more than {PLANES} "
+                             "planes")
+    if hist is not None:
+        if table is None:
+            raise ValueError(f"{name}: hist needs the table it was made for")
+        need(f"{name} hist", hist, torch.int32, 4)
+        if hist.shape != _hist_shape(table):
+            raise ValueError(f"{name}: hist does not fit the table")
+    return tuple(t for t in (table, hist) if t is not None)
+
+
 def compact_tokens(vmag: torch.Tensor, meta: torch.Tensor, npairs: int,
-                   table: torch.Tensor | None = None) -> torch.Tensor:
+                   table: torch.Tensor | None = None,
+                   hist: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel A: significance-token pair values into a new (npairs,)
     int32 buffer (zero where no pair lands).  ``vmag``: (NR, SUBA) int32
     packed rows with at least E elements past every unit's start; ``meta``:
     (U, 8) int32; ``table``: the (G, P <= PLANES) int32 unit table of the
     CUDA kernel, whose groups' live units share a first row and valid
     length, slot q of plane q (built by :func:`unit_table` when not
-    given).  The table does not change the function."""
+    given).  The table does not change the function.  ``hist``: the count
+    launch's scratch (:func:`hist_for` of ``table``), given to keep the
+    histograms for kernel B; on CPU tensors it is left as it is."""
     need("compact_tokens vmag", vmag, torch.int32, 2)
     need("compact_tokens meta", meta, torch.int32, 2)
     if vmag.shape[1] != SUBA or meta.shape[1] != 8:
         raise ValueError("compact_tokens: vmag must be (NR, SUBA), meta (U, 8)")
-    if table is not None:
-        need("compact_tokens table", table, torch.int32, 2)
-        if table.shape[1] > PLANES:
-            raise ValueError(f"compact_tokens: the table has more than "
-                             f"{PLANES} planes")
-    if not on_card("compact_tokens", vmag, meta,
-                   *(() if table is None else (table,))):
+    extra = _check_table("compact_tokens", table, hist)
+    if not on_card("compact_tokens", vmag, meta, *extra):
         return compact_tokens_plain(vmag, meta, npairs)
     if table is None:
         table = unit_table(meta)
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
-    hist = hist_for(table)
+    if hist is None:
+        hist = hist_for(table)
     count(vmag, meta, table, hist)
     place(vmag, meta, table, hist, out)
     compact_tokens.launches += 1
@@ -172,8 +195,11 @@ compact_tokens.launches = 0
 
 
 def scatter_refbits_plain(vmag: torch.Tensor, meta: torch.Tensor,
-                          words: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`scatter_refbits` (in place)."""
+                          words: torch.Tensor, table=None,
+                          hist=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_refbits` (in place;
+    ``table`` and ``hist`` are accepted for the same signature and not
+    needed)."""
     nwords = words.shape[0]
     acc = words.long() & 0xFFFFFFFF
     for m, v in _unit_elements(vmag, meta, SUBB):
@@ -190,23 +216,44 @@ def scatter_refbits_plain(vmag: torch.Tensor, meta: torch.Tensor,
     return words
 
 
+def scatter(vmag, meta, table, hist, words) -> None:
+    """Kernel B's scatter launch: every refinement bit into ``words``, with
+    the key histograms of :func:`count` in ``hist``."""
+    lib = build.library()
+    build.check(lib.dwt_refbits_scatter(
+        vmag.data_ptr(), meta.data_ptr(), table.data_ptr(), hist.data_ptr(),
+        words.data_ptr(), table.shape[0], table.shape[1], meta.shape[0],
+        SUBB, E, hist.shape[1], words.shape[0], build.stream_of(vmag)),
+        "scatter_refbits")
+
+
 def scatter_refbits(vmag: torch.Tensor, meta: torch.Tensor,
-                    words: torch.Tensor) -> torch.Tensor:
+                    words: torch.Tensor, table: torch.Tensor | None = None,
+                    hist: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel B: add every refinement bit into ``words`` in place and
-    return it.  ``words``: (nwords,) int32 holding uint32 bit patterns."""
+    return it.  ``words``: (nwords,) int32 holding uint32 bit patterns.
+    ``table`` as in :func:`compact_tokens` (built by :func:`unit_table`
+    when not given; it does not change the function).  ``hist``: key
+    histograms of ``vmag`` counted over ``table`` for every group with a
+    live unit in ``meta`` (the encoder passes those of kernel A's count
+    launch, which counted every such group); without it the wrapper runs
+    the count launch first.  The CUDA kernel adds the words strictly
+    inside a unit's bit range with plain stores, so the live units' bit
+    ranges must be disjoint, as the encoder's are."""
     need("scatter_refbits vmag", vmag, torch.int32, 2)
     need("scatter_refbits meta", meta, torch.int32, 2)
     need("scatter_refbits words", words, torch.int32, 1)
     if vmag.shape[1] != SUBB or meta.shape[1] != 8:
         raise ValueError("scatter_refbits: vmag must be (NR, SUBB), meta (U, 8)")
-    if not on_card("scatter_refbits", vmag, meta, words):
+    extra = _check_table("scatter_refbits", table, hist)
+    if not on_card("scatter_refbits", vmag, meta, words, *extra):
         return scatter_refbits_plain(vmag, meta, words)
-    lib = build.library()
-    build.check(lib.dwt_scatter_refbits(vmag.data_ptr(), meta.data_ptr(),
-                                        words.data_ptr(), meta.shape[0],
-                                        SUBB, E, words.shape[0],
-                                        build.stream_of(vmag)),
-                "scatter_refbits")
+    if table is None:
+        table = unit_table(meta)
+    if hist is None:
+        hist = hist_for(table)
+        count(vmag, meta, table, hist)
+    scatter(vmag, meta, table, hist, words)
     scatter_refbits.launches += 1
     return words
 

@@ -9,8 +9,9 @@ band, which stay 0: the caller writes the root raster crop).
 :func:`engine_supported` is the port of ``pallas_hilbert.engine_supported``:
 a one-time probe, per device, that the gather and scatter kernels (the
 two tile engines of the JAX package) are built and right before an
-encoder or a decoder uses them.  It raises where the JAX package would
-fall back.
+encoder or a decoder uses them: one host call (``csrc/probe.cu``) runs
+both on one tile and counts the wrong values on the card.  It raises
+where the JAX package would fall back.
 """
 
 from __future__ import annotations
@@ -29,23 +30,17 @@ def hilbert_gather_plain(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.where((src >= 0)[:, None], g, 0).T.contiguous()
 
 
-def _launch(co: torch.Tensor, src: torch.Tensor, name: str) -> torch.Tensor:
-    C, nlin = co.shape[2], src.shape[0]
-    out = torch.empty((C, nlin), dtype=torch.int32, device=co.device)
-    lib = build.library()
-    build.check(lib.dwt_hilbert_gather(co.data_ptr(), src.data_ptr(),
-                                       out.data_ptr(), nlin, C,
-                                       build.stream_of(co)), name)
-    return out
-
-
 def hilbert_gather(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """(H, W, C) int32, (nlin,) int32 source indices -> (C, nlin) int32."""
     need("hilbert_gather co", co, torch.int32, 3)
     need("hilbert_gather src", src, torch.int32, 1)
     if not on_card("hilbert_gather", co, src):
         return hilbert_gather_plain(co, src)
-    out = _launch(co, src, "hilbert_gather")
+    C, nlin = co.shape[2], src.shape[0]
+    out = torch.empty((C, nlin), dtype=torch.int32, device=co.device)
+    build.check(build.library().dwt_hilbert_gather(
+        co.data_ptr(), src.data_ptr(), out.data_ptr(), nlin, C,
+        build.stream_of(co)), "hilbert_gather")
     hilbert_gather.launches += 1
     return out
 
@@ -54,6 +49,7 @@ hilbert_gather.launches = 0
 
 TS = 32  # the JAX engine's tile side: the probe is one TS x TS tile
 _PROBED: set = set()
+_BUFFERS: dict = {}
 
 
 def probe_tile(device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,50 +59,69 @@ def probe_tile(device) -> tuple[torch.Tensor, torch.Tensor]:
     return ar.reshape(TS, TS, 1), ar
 
 
-def engine_probe(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """The probe's launch: the gather kernel on the tile of
-    :func:`probe_tile` (any CUDA tensors of those shapes)."""
-    need("engine_probe co", co, torch.int32, 3)
-    need("engine_probe src", src, torch.int32, 1)
-    if not on_card("engine_probe", co, src):
-        return hilbert_gather_plain(co, src)
-    out = _launch(co, src, "engine_probe")
-    engine_supported.launches += 1
-    return out
+def _indexed(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
-def scatter_probe(lin: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """The probe's launch of the scatter kernel: the tile of
-    :func:`probe_tile` as a (1, TS*TS) row and a (TS, TS) index."""
-    need("scatter_probe lin", lin, torch.int32, 2)
-    need("scatter_probe src", src, torch.int32, 2)
-    if not on_card("scatter_probe", lin, src):
-        return _hs.hilbert_scatter_plain(lin, src)
-    out = _hs._launch(lin, src, "scatter_probe")
-    engine_supported.launches += 1
-    return out
+def probe_buffers(device) -> tuple:
+    """(tile, idx, out, bad) of the probe on ``device``, made once: the
+    tile and index of :func:`probe_tile` (flat), a (2 * TS * TS,) int32
+    output and a (2,) int32 mismatch count."""
+    device = _indexed(device)
+    if device not in _BUFFERS:
+        co, src = probe_tile(device)
+        _BUFFERS[device] = (
+            co.reshape(-1), src,
+            torch.empty(2 * TS * TS, dtype=torch.int32, device=device),
+            torch.empty(2, dtype=torch.int32, device=device))
+    return _BUFFERS[device]
+
+
+def engine_probe_plain(tile, idx, out, bad) -> None:
+    """Plain PyTorch version of :func:`engine_probe`."""
+    n = idx.numel()
+    out[:n] = hilbert_gather_plain(tile.reshape(TS, TS, 1), idx).reshape(-1)
+    out[n:] = _hs.hilbert_scatter_plain(
+        tile.reshape(1, -1), idx.reshape(TS, TS)).reshape(-1)
+    want = torch.arange(n, dtype=out.dtype, device=out.device)
+    bad.copy_((out.reshape(2, n) != want).sum(dim=1).to(bad.dtype))
+
+
+def engine_probe(tile, idx, out, bad) -> None:
+    """The probe's one host call, on the buffers of :func:`probe_buffers`:
+    the gather kernel writes ``tile`` gathered through ``idx`` into
+    ``out[:TS*TS]``, the scatter kernel the tile scattered through the
+    (TS, TS) index into ``out[TS*TS:]``, and a compare kernel the count of
+    values in each half that differ from ``arange`` into ``bad`` (three
+    launches, issued from C).  On CPU tensors, the plain version.  The
+    buffers are the probe's own, so nothing is checked here."""
+    if not tile.is_cuda:
+        return engine_probe_plain(tile, idx, out, bad)
+    build.check(build.library().dwt_engine_probe(
+        tile.data_ptr(), idx.data_ptr(), out.data_ptr(), bad.data_ptr(),
+        TS * TS, build.stream_of(tile)), "engine_supported")
+    engine_supported.launches += 3
 
 
 def engine_supported(device) -> bool:
     """Once per CUDA device: send one 32x32 ``arange`` tile through the
-    gather kernel and through the scatter kernel, and hold each result to
-    ``arange``.  Returns True, or raises when a kernel cannot launch or
-    gives a wrong result (an encoder or decoder never falls back to
-    another path).  On the CPU there is no kernel to probe."""
-    device = torch.device(device)
+    gather kernel and through the scatter kernel and count the values that
+    differ from ``arange`` on the card, in one host call
+    (:func:`engine_probe`), then read the two counts.  Returns True, or
+    raises when a kernel cannot launch or gives a wrong result (an encoder
+    or decoder never falls back to another path).  On the CPU there is no
+    kernel to probe."""
+    device = _indexed(device)
     if device.type != "cuda":
         return True
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     if device not in _PROBED:
-        co, src = probe_tile(device)
-        for kind, got in (
-                ("gather", engine_probe(co, src)),
-                ("scatter", scatter_probe(co.reshape(1, -1),
-                                          src.reshape(TS, TS)))):
-            got = got.reshape(-1)
-            if not torch.equal(got, src):
-                bad = int((got != src).sum())
+        bufs = probe_buffers(device)
+        engine_probe(*bufs)
+        for kind, bad in zip(("gather", "scatter"), bufs[3].tolist()):
+            if bad:
                 raise RuntimeError(
                     f"engine_supported: the {kind} kernel on {device} got "
                     f"{bad} of {TS * TS} probe values wrong")

@@ -8,8 +8,8 @@ arrives as a precomputed (H, W) source index per pixel
 and 0 where the index lies outside [0, L) (``-1`` marks the root band,
 whose raster crop the caller writes).
 
-``hilbert_gather.scatter_probe`` launches the same kernel for the
-one-time probe ``hilbert_gather.engine_supported``.
+The one-time probe ``hilbert_gather.engine_supported`` launches the same
+kernel from C (``csrc/probe.cu``).
 """
 
 from __future__ import annotations
@@ -29,16 +29,6 @@ def hilbert_scatter_plain(lin: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, g, 0).T.reshape(H, W, C).contiguous()
 
 
-def _launch(lin: torch.Tensor, src: torch.Tensor, name: str) -> torch.Tensor:
-    (C, L), (H, W) = lin.shape, src.shape
-    out = torch.empty((H, W, C), dtype=torch.int32, device=lin.device)
-    lib = build.library()
-    build.check(lib.dwt_hilbert_scatter(lin.data_ptr(), src.data_ptr(),
-                                        out.data_ptr(), H * W, L, C,
-                                        build.stream_of(lin)), name)
-    return out
-
-
 def hilbert_scatter(lin: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """(C, L) int32 coefficients, (H, W) int32 source indices -> (H, W, C)
     int32."""
@@ -46,7 +36,11 @@ def hilbert_scatter(lin: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     need("hilbert_scatter src", src, torch.int32, 2)
     if not on_card("hilbert_scatter", lin, src):
         return hilbert_scatter_plain(lin, src)
-    out = _launch(lin, src, "hilbert_scatter")
+    (C, L), (H, W) = lin.shape, src.shape
+    out = torch.empty((H, W, C), dtype=torch.int32, device=lin.device)
+    build.check(build.library().dwt_hilbert_scatter(
+        lin.data_ptr(), src.data_ptr(), out.data_ptr(), H * W, L, C,
+        build.stream_of(lin)), "hilbert_scatter")
     hilbert_scatter.launches += 1
     return out
 

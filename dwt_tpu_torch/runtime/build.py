@@ -46,12 +46,16 @@ ENTRY_POINTS = {
     #  stream)
     "dwt_compact_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                           _P),
-    # (vmag, meta, words, units, sub, E, nwords, stream)
-    "dwt_scatter_refbits": (_P, _P, _P, _I, _I, _I, _L, _P),
+    # (vmag, meta, table, hist, words, groups, P, U, sub, E, nsub, nwords,
+    #  stream)
+    "dwt_refbits_scatter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                            _P),
     # (widx, c0, c1, c2, words, flag, ntok, nwords, stream)
     "dwt_pack_words": (_P, _P, _P, _P, _P, _P, _L, _L, _P),
     # (in, out, R, C, elem_bytes, stream)
     "dwt_transpose": (_P, _P, _L, _L, _I, _P),
+    # (tile, idx, out, bad, n, stream)
+    "dwt_engine_probe": (_P, _P, _P, _P, _I, _P),
 }
 
 
@@ -143,8 +147,11 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch: {msg}")
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device, for a launch."""
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, for a launch: the
+    raw handle, as PyTorch's own kernel launchers read it, without the
+    Python stream object that ``torch.cuda.current_stream`` builds (host
+    time is what the small launches cost)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -127,6 +127,98 @@ def test_compact_tokens_shared_chunks_equal_plain(cuda, case):
     assert torch.equal(got, want) and int((want != 0).sum()) > 20000
 
 
+def _shared_meta_b(rng, vmag, E, sub, nchunk, cut, planes=10):
+    """Kernel B's units of planes 0..planes-1 sharing each of nchunk
+    chunks, rows shuffled: ragged valid lengths on odd chunks, chunk 2
+    with no live unit, counts equal to the true refined count or, with
+    ``cut``, below it on a third of the units; each unit's bits after the
+    last one's at a random gap and word offset.  Returns (meta, the bit
+    after the last unit's)."""
+    flat = vmag.reshape(-1).cpu().numpy()
+    units = []
+    for k in range(nchunk):
+        elen = E - int(rng.integers(1, 3000)) if k % 2 else E
+        el = flat[k * E:k * E + elen]
+        for p in range(planes):
+            cnt = int(((el >= 0) & (((el & ((1 << 30) - 1)) >> p) > 1)).sum())
+            if k == 2:
+                cnt = 0
+            elif cut and cnt and rng.random() < 0.3:
+                cnt = int(rng.integers(0, cnt))
+            units.append([k * E // sub, elen, p, 0, 0, 0, cnt, 0])
+    rows, bit = [units[i] for i in rng.permutation(len(units))], 37
+    for r in rows:
+        r[3] = (bit >> 5) & ~127
+        r[4] = bit - 32 * r[3]
+        bit += r[6] + int(rng.integers(0, 300))
+    return torch.as_tensor(np.asarray(rows, np.int32)), bit
+
+
+@pytest.mark.parametrize("case", ["shared", "counts cut short",
+                                  "table given", "histograms given",
+                                  "words near the end"])
+def test_scatter_refbits_shared_chunks_equal_plain(cuda, case):
+    """Kernel B where units share chunks (the encoder's grouping): planes
+    0-9 of a chunk in shuffled rows, counts below the true count, col 1 <
+    E, a chunk with no live unit, random prior words; a unit table given
+    in another group order and histograms from a count launch over it,
+    which change nothing; and a buffer that ends inside the last units'
+    bits, whose words past it are dropped."""
+    from dwt_tpu_torch.ops import compact
+
+    rng = np.random.default_rng(43)
+    E, nchunk = compact.E, 6
+    vmag = torch.as_tensor(_elements(rng, (nchunk + 1) * E)).reshape(
+        -1, compact.SUBB).to(cuda)
+    meta, end = _shared_meta_b(rng, vmag, E, compact.SUBB, nchunk,
+                               cut=case == "counts cut short")
+    meta = meta.to(cuda)
+    nwords = end // 32 + 512
+    if case == "words near the end":
+        nwords = end // 32 - 1000
+    words = torch.as_tensor(rng.integers(-2**31, 2**31, nwords)
+                            .astype(np.int32)).to(cuda)
+    extra = ()
+    if case in ("table given", "histograms given"):
+        extra = (compact.unit_table(meta).flip(0).contiguous(),)
+        assert extra[0].shape[0] == nchunk - 1
+    if case == "histograms given":
+        hist = compact.hist_for(extra[0])
+        compact.count(vmag, meta, extra[0], hist)
+        extra += (hist,)
+    before = compact.scatter_refbits.launches
+    got = compact.scatter_refbits(vmag, meta, words.clone(), *extra)
+    want = compact.scatter_refbits_plain(vmag, meta, words.clone())
+    torch.cuda.synchronize()
+    assert compact.scatter_refbits.launches == before + 1
+    assert torch.equal(got, want) and int((want != words).sum()) > 20000
+
+
+def test_scatter_refbits_on_a_tile_geometry(cuda, monkeypatch):
+    """Kernel B as the encoder calls it (kernel A's table and histograms)
+    on a 256x112 tile, the bottom-right tile of a 4K frame in 512x512
+    tiles: equal to its plain version, and with its own count launch and
+    unit table."""
+    from dwt_tpu_torch.codec import emit, encoder
+    from dwt_tpu_torch.ops import compact
+
+    img = random_image(np.random.default_rng(9), 256, 112, 3, "mixed")
+    want_stream = encoder.Encoder(256, 112, 3, device="cpu").encode(img)
+    calls = []
+    real = emit.scatter_refbits
+    monkeypatch.setattr(emit, "scatter_refbits", lambda v, m, w, *r: (
+        calls.append((v, m, w.clone(), *r)), real(v, m, w, *r))[1])
+    assert encoder.Encoder(256, 112, 3).encode(img) == want_stream
+    (vmag, meta, words, table, hist), = calls
+    assert vmag.is_cuda
+    want = compact.scatter_refbits_plain(vmag, meta, words.clone())
+    for extra in ((table, hist), (table,), ()):
+        out = compact.scatter_refbits(vmag, meta, words.clone(), *extra)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert not torch.equal(want, words)
+
+
 @pytest.mark.parametrize("n,kind", [
     (1, "steps"), (31, "steps"), (12345, "steps"), (1 << 20, "steps"),
     (2047, "steps"), (2048, "steps"), (2049, "steps"), (1, "one word"),
@@ -195,24 +287,41 @@ def test_pack_kernel_rejects_unsorted_widx(cuda):
 
 
 def test_engine_probe_launches_once_a_device(cuda, monkeypatch):
-    """The probe sends its tile through the gather and the scatter kernel,
-    once a device: two launches on its count."""
+    """The probe sends its tile through the gather and the scatter kernel
+    and counts the wrong values on the card, once a device, in one host
+    call: three launches on its count."""
     from dwt_tpu_torch.ops import hilbert_gather as hg
-    from dwt_tpu_torch.ops import hilbert_scatter as hs
 
     hg._PROBED.clear()
     calls = []
-    real = hg.scatter_probe
-    monkeypatch.setattr(hg, "scatter_probe",
+    real = hg.engine_probe
+    monkeypatch.setattr(hg, "engine_probe",
                         lambda *a: calls.append(a) or real(*a))
     before = hg.engine_supported.launches
     assert hg.engine_supported(cuda) and hg.engine_supported(cuda)
-    assert hg.engine_supported.launches == before + 2 and len(calls) == 1
-    co, src = hg.probe_tile(cuda)
-    assert torch.equal(hg.engine_probe(co, src),
-                       hg.hilbert_gather_plain(co, src))
-    lin, idx = co.reshape(1, -1), src.reshape(hg.TS, hg.TS)
-    assert torch.equal(real(lin, idx), hs.hilbert_scatter_plain(lin, idx))
+    assert hg.engine_supported.launches == before + 3 and len(calls) == 1
+    tile, idx, out, bad = hg.probe_buffers(cuda)
+    want_out, want_bad = out.clone(), bad.clone()
+    hg.engine_probe_plain(tile, idx, want_out, want_bad)
+    assert torch.equal(out, want_out) and torch.equal(bad, want_bad)
+    assert bad.tolist() == [0, 0]
+
+
+def test_engine_probe_raises_on_a_wrong_value(cuda):
+    """A corrupted probe index makes both kernels give a wrong value; the
+    compare counts it and engine_supported raises (no fallback)."""
+    from dwt_tpu_torch.ops import hilbert_gather as hg
+
+    tile, idx, out, bad = hg.probe_buffers(cuda)
+    hg._PROBED.clear()
+    idx[5] = 7
+    try:
+        with pytest.raises(RuntimeError, match="gather kernel"):
+            hg.engine_supported(cuda)
+        assert bad.tolist() == [1, 1]
+    finally:
+        idx[5] = 5
+    assert hg.engine_supported(cuda)
 
 
 @pytest.mark.parametrize("w,h,c", [(321, 239, 3), (64, 48, 1), (8, 8, 3)])

@@ -149,17 +149,26 @@ def test_pack_words_rejects_unsorted_widx():
 def test_engine_probe_on_cpu():
     """The tile engines' probe: on the CPU there is no kernel to probe, and
     the probe tile through the plain gather and scatter gives back
-    ``arange``."""
+    ``arange`` with no value counted wrong, also on a second call on the
+    buffers made once; a corrupted index is counted."""
     from dwt_tpu_torch.ops import hilbert_gather as hg
 
     before = hg.engine_supported.launches
     assert hg.engine_supported("cpu") is True
     co, src = hg.probe_tile("cpu")
     assert co.shape == (hg.TS, hg.TS, 1)
-    assert torch.equal(hg.engine_probe(co, src).reshape(-1),
-                       torch.arange(hg.TS * hg.TS, dtype=torch.int32))
-    assert torch.equal(hg.scatter_probe(co.reshape(1, -1),
-                                     src.reshape(hg.TS, hg.TS)), co)
+    bufs = hg.probe_buffers("cpu")
+    assert hg.probe_buffers("cpu") is bufs
+    tile, idx, out, bad = bufs
+    ar = torch.arange(hg.TS * hg.TS, dtype=torch.int32)
+    for _ in range(2):
+        hg.engine_probe(*bufs)
+        assert torch.equal(out, torch.cat([ar, ar]))
+        assert bad.tolist() == [0, 0]
+    idx = idx.clone()
+    idx[5] = 7
+    hg.engine_probe(tile, idx, out, bad)
+    assert bad.tolist() == [1, 1]
     assert hg.engine_supported.launches == before
 
 
@@ -177,4 +186,4 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
         "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu", "pack.cu",
-        "runtime.cu", "transpose.cu"]
+        "probe.cu", "runtime.cu", "transpose.cu"]
