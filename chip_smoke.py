@@ -26,14 +26,16 @@ seconds:
              (which must leave planes missing, so the midpoint bias runs)
              and a reduced decode capped at 960x540 (``pixels_max=518400``),
              whose shapes and pixels' SHA-256 must equal the JAX package's
-             (constants below).  Then a capacity encode (1,000,000 bytes),
-             which must equal the lossless stream's prefix with fewer
-             tokens.  Then the tiled paths: ``encode_tiled`` of the frame
-             in 512x512 tiles (40 tiles, 4 geometries), lossless and cut to
-             a third of its size, both held to the JAX package's container
-             digests, and ``decode_tiled`` of each container: the lossless
-             one must give the frame back, the budgeted one the JAX
-             package's pixels.  The capacity encode and each tiled path
+             (constants below), each with its launch counts and its
+             scatter call held to the plain version.  Then a capacity
+             encode (1,000,000 bytes), which must equal the lossless
+             stream's prefix with fewer tokens.  Then the tiled paths:
+             ``encode_tiled`` of the frame in 512x512 tiles (40 tiles, 4
+             geometries), lossless and cut to a third of its size, both
+             held to the JAX package's container digests, and
+             ``decode_tiled`` of each container: the lossless one must
+             give the frame back, the budgeted one the JAX package's
+             pixels.  The capacity encode and each tiled path
              also run with the launch counts reset before and read after
              (each kernel of the path must be > 0) and with their kernel
              inputs kept: one call of each kernel for each distinct set of
@@ -47,8 +49,13 @@ seconds:
              wrappers of the pack kernel and kernels A and B also in their
              parts (zero fill, order check or unit table, launches);
              kernel B also with its own count launch and unit table, and
-             its refinement bits, 1-bits and block runs counted; the
-             tile engines' probe as its one host call, and one cold
+             its refinement bits, 1-bits and block runs counted; kernel 5
+             with the run table the decoder keeps and with the one its
+             wrapper derives, the table's size, and kernel 5 at the tiled
+             decode's kept calls, held also at other channel groups; the
+             transposes with the bytes a thread moves, the int8 one held
+             also by the element kernel; the tile engines' probe as its
+             one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
@@ -60,6 +67,12 @@ seconds:
              MP/s, and one ``decode_tiled`` split, by timers wrapped
              around its own calls, into the thread-pooled host parse, the
              upload, the batched tails and the rest (download, mosaic).
+6. device  — the device time of kernels 5 and 6 by torch.profiler,
+             beside their bounds: kernel 5 at 4K and at the tiled
+             decode's calls (there also at other channel groups), each
+             transpose of the VLI scan (the int8 one also by the element
+             kernel).  Last, so that no profiler session runs before the
+             timing phase.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -325,6 +338,27 @@ def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
     return total / reps
 
 
+def kernel_ms(torch, fn, match: str, n: int = 10) -> float:
+    """Device time of the kernels whose name holds ``match`` in one
+    ``fn()``, from torch.profiler over ``n`` calls: the card's own time,
+    without the host's launch time that ``time_ms`` includes.  NaN (not
+    measured) when the profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name)
+    return us / 1e3 / n if us > 0 else float("nan")
+
+
 def u32(t):
     return t.long() & 0xFFFFFFFF
 
@@ -452,8 +486,103 @@ def refbit_counts(torch, vmag, meta, words, table, hist) -> str:
             f"(at most {2 * runs} global atomics)")
 
 
-def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
-    """Phase 4: each kernel against its plain version, and its times."""
+def scatter_bytes(lin, src, sq_ptr, runs) -> int:
+    """The bytes kernel 5 must move: its index, the run table and the
+    coefficients of the valid pixels read once, the plane written once."""
+    valid = int(((src >= 0) & (src < lin.shape[1])).sum())
+    return 4 * (src.numel() + sq_ptr.numel() + runs.numel()
+                + lin.shape[0] * (valid + src.numel()))
+
+
+SCATTER_NAME = "hilbert_scatter_kernel"
+SCATTER_GROUPS = (3, 6, 12, 24)  # channel groups timed on the tile shapes
+
+
+def scatter_at_tiles(torch, calls: list) -> None:
+    """Kernel 5 at the tiled decode's kept calls (one a tile geometry, N
+    tiles as N*C channels), as the tail calls it, beside its bound; each
+    call also held to the plain version at every channel group of
+    ``SCATTER_GROUPS`` (``hilbert_scatter.GROUP`` is the wrapper's)."""
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+
+    for lin, src, sq_ptr, runs in calls:
+        p = hs.hilbert_scatter_plain(lin, src)
+        out = torch.empty_like(p)
+        for g in SCATTER_GROUPS:
+            out.fill_(-1)
+            hs.launch(lin, src, sq_ptr, runs, out, g)
+            if max_abs_err("hilbert_scatter", out, p):
+                raise AssertionError(f"hilbert_scatter with channel group "
+                                     f"{g} differs from its plain version")
+        ms = time_ms(torch, lambda: hs.hilbert_scatter(lin, src, sq_ptr,
+                                                       runs))
+        bound = scatter_bytes(lin, src, sq_ptr, runs) / HBM_BYTES_PER_S * 1e3
+        progress(f"kernels: hilbert_scatter tiled {tuple(lin.shape)} -> "
+                 f"{tuple(p.shape)} equal to its plain version at channel "
+                 f"groups {SCATTER_GROUPS}; {ms:.4f} ms (group {hs.GROUP}), "
+                 f"bound {bound:.4f} ms, share {bound / ms:.2f}")
+
+
+def transpose_routes(torch, x, want) -> None:
+    """The int8 transpose of ``x`` by both kernels of ``csrc/transpose.cu``:
+    the byte kernel (16 bytes a thread) and the element kernel (one byte a
+    thread: the int8 kernel before the byte kernel), each held to
+    ``want``."""
+    from dwt_tpu_torch.ops import transpose
+
+    for vec in sorted({transpose.vector_bytes(x), 1}, reverse=True):
+        out = torch.zeros_like(want)
+        transpose.launch(x, out, vec)
+        if max_abs_err("transpose2d", out, want):
+            raise AssertionError(f"transpose2d at {vec} bytes a thread "
+                                 f"differs from its plain version")
+
+
+def device_times(torch, scatter_4k, tiled_scatter, transposes) -> None:
+    """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
+    card's own time, without the host's launch time that the kernels
+    phase's CUDA events include), beside their bounds: kernel 5 at 4K and
+    at the tiled decode's calls, there also at each channel group of
+    ``SCATTER_GROUPS``; each VLI scan transpose, the int8 one also by the
+    element kernel.  Run last, so that no profiler session comes before
+    the timing phase that a parent's script would not run either."""
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+    from dwt_tpu_torch.ops import transpose
+
+    for i, (lin, src, sq_ptr, runs) in enumerate([scatter_4k]
+                                                 + tiled_scatter):
+        out = torch.empty((*src.shape, lin.shape[0]), dtype=torch.int32,
+                          device=lin.device)
+        groups = ", ".join(
+            f"{g}: " + format(kernel_ms(torch, lambda g=g: hs.launch(
+                lin, src, sq_ptr, runs, out, g), SCATTER_NAME), ".4f")
+            for g in (SCATTER_GROUPS if i else ()))
+        dev = kernel_ms(torch, lambda: hs.hilbert_scatter(lin, src, sq_ptr,
+                                                          runs), SCATTER_NAME)
+        bound = scatter_bytes(lin, src, sq_ptr, runs) / HBM_BYTES_PER_S * 1e3
+        progress(f"device: hilbert_scatter {'tiled ' if i else '4K '}"
+                 f"{tuple(lin.shape)} -> {tuple(out.shape)}: {dev:.4f} ms "
+                 f"(group {hs.GROUP}), bound {bound:.4f} ms, share "
+                 f"{bound / dev:.2f}"
+                 + (f"; by channel group, ms: {groups}" if groups else ""))
+    for x in transposes:
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        routes = []
+        for vec in sorted({transpose.vector_bytes(x), 1}, reverse=True):
+            out = torch.empty(x.shape[::-1], dtype=x.dtype, device=x.device)
+            ms = kernel_ms(torch, lambda: transpose.launch(x, out, vec),
+                           "transpose")
+            routes.append(f"{vec} bytes a thread {ms:.4f} ms, share "
+                          f"{bound / ms:.2f}")
+        progress(f"device: transpose2d {tuple(x.shape)} {x.dtype}, bound "
+                 f"{bound:.4f} ms: {'; '.join(routes)} (1 byte a thread: "
+                 f"the element kernel)")
+
+
+def check_kernels(torch, K: Kernels, got: dict, launches: dict,
+                  tiled_scatter: list) -> list:
+    """Phase 4: each kernel against its plain version, and its times
+    (kernel 5 also at the tiled decode's kept calls)."""
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
@@ -593,22 +722,39 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
     progress("kernels: scatter_refbits at 4K: "
              + refbit_counts(torch, vmag, meta, words, table, hist))
 
-    # 5. inverse scatter (decode): reads its index and C coefficients for
-    # each pixel off the root band, and writes the (H, W, C) plane; one
+    # 5. inverse scatter (decode), as the decoder's tail calls it (with the
+    # run table it keeps): reads its index, the run table and C
+    # coefficients for each pixel off the root band, and writes the (H, W,
+    # C) plane; held also with the table derived by the wrapper; one
     # gather through the full inverse permutation is the library yardstick
-    lin, src = got["hilbert_scatter"][0]
-    k = hilbert_scatter.hilbert_scatter(lin, src)
+    lin, src, sq_ptr, runs = got["hilbert_scatter"][0]
+    k = hilbert_scatter.hilbert_scatter(lin, src, sq_ptr, runs)
     p = hilbert_scatter.hilbert_scatter_plain(lin, src)
+    if max_abs_err("hilbert_scatter", hilbert_scatter.hilbert_scatter(
+            lin, src), p):
+        raise AssertionError("hilbert_scatter with the table it derives "
+                             "differs from its plain version")
     inv = torch.as_tensor(reconstruction_perm(compute_pyramid(W, H)),
                           device=lin.device).long()
     lib_ms = time_ms(torch, lambda: lin[:, inv].T.reshape(H, W, C)
                      .contiguous())
+    table_bytes = 4 * (sq_ptr.numel() + runs.numel())
     row("hilbert_scatter", k, p,
-        time_ms(torch, lambda: hilbert_scatter.hilbert_scatter(lin, src)),
+        time_ms(torch, lambda: hilbert_scatter.hilbert_scatter(
+            lin, src, sq_ptr, runs)),
         time_ms(torch, lambda: hilbert_scatter.hilbert_scatter_plain(lin,
                                                                      src),
                 reps=3),
-        4 * (C * int((src >= 0).sum()) + src.numel() + k.numel()), lib_ms)
+        scatter_bytes(lin, src, sq_ptr, runs), lib_ms)
+    derive_ms = time_ms(torch, lambda: hilbert_scatter.hilbert_scatter(
+        lin, src), reps=3)
+    nruns = np.bincount(np.diff(sq_ptr.cpu().numpy()))
+    progress(f"kernels: hilbert_scatter at 4K: run table of "
+             f"{sq_ptr.numel() - 1} squares, {runs.shape[0]} runs, "
+             f"{table_bytes} bytes (squares by runs: "
+             f"{dict((i, int(n)) for i, n in enumerate(nruns) if n)}); "
+             f"the wrapper deriving it on the host {derive_ms:.3f} ms")
+    scatter_at_tiles(torch, tiled_scatter)
 
     # 6. the VLI scan's two transposes (int32 (nblk, TB) in, int8 (TB,
     # nblk) out): each held to its plain version and timed alone; the row
@@ -625,10 +771,14 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict) -> list:
             time_ms(torch, lambda: transpose.transpose2d_plain(x)),
             2 * x.numel() * x.element_size(),
             time_ms(torch, lambda: x.T.contiguous())))
-        progress(f"kernels: transpose2d {tuple(x.shape)} {x.dtype}: "
-                 f"{parts[-1][0]:.3f} ms (plain {parts[-1][1]:.3f} ms, "
-                 f"library {parts[-1][3]:.3f} ms, bound "
-                 f"{parts[-1][2] / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        bound = parts[-1][2] / HBM_BYTES_PER_S * 1e3
+        if x.dtype == torch.int8:
+            transpose_routes(torch, x, p)
+        progress(f"kernels: transpose2d {tuple(x.shape)} {x.dtype} "
+                 f"({transpose.vector_bytes(x)} bytes a thread): "
+                 f"{parts[-1][0]:.4f} ms (plain {parts[-1][1]:.3f} ms, "
+                 f"library {parts[-1][3]:.3f} ms, bound {bound:.4f} ms, "
+                 f"share {bound / parts[-1][0]:.2f})")
     row("transpose2d", torch.cat(ks), torch.cat(ps),
         *(sum(t[i] for t in parts) for i in range(4)))
     return out
@@ -738,16 +888,22 @@ def sha256_pixels(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
 
 
-def lossy_decodes(torch, decoder, stream: bytes) -> None:
-    """Phase 3's two lossy decodes, held to the JAX package's pixels."""
+def lossy_decodes(torch, K: Kernels, decoder, stream: bytes) -> None:
+    """Phase 3's two lossy decodes, held to the JAX package's pixels; each
+    runs with the launch counts reset before and read after, and its
+    scatter call is held against the plain version."""
     prefix = stream[:PREFIX_BYTES]
     for name, s, px, shape, want in (
             ("prefix", prefix, 0, PREFIX_SHAPE, PREFIX_SHA256),
             ("reduced", stream, REDUCED_PIXELS, REDUCED_SHAPE,
              REDUCED_SHA256)):
         missing = decoder._parse(s, px, torch.device("cuda"))[4]
-        out, _ = decoder.decode(s, px)
+        store, counts = {}, {}
+        with K.path("decode", store, counts):
+            out, _ = decoder.decode(s, px)
         digest = sha256_pixels(out)
+        progress(f"e2e: {name} decode kernels equal to their plain "
+                 f"versions: {held_line(K.hold(store))}")
         progress(f"e2e: {name} decode ({len(s)} bytes, pixels_max={px}) "
                  f"-> {out.shape}, sha256 {digest[:16]}; most planes "
                  f"missing at a level {int(missing.max())}")
@@ -806,7 +962,7 @@ def decode_profile(torch, decoder, stream: bytes, img: np.ndarray) -> None:
     busy = busy_ms(events, DeviceType)
     sc = sum(e.time_range.elapsed_us() for e in events
              if e.device_type == DeviceType.CUDA
-             and "hilbert_scatter_kernel" in e.name) / 1e3
+             and SCATTER_NAME in e.name) / 1e3
     if 0 < busy <= wall and sc > 0:
         progress(f"profile: decode tail under torch.profiler: device busy "
                  f"{busy:.2f} ms of {wall:.2f} ms wall; scatter kernel "
@@ -840,13 +996,14 @@ def capacity_encode(K: Kernels, enc, img, stream: bytes,
              f"{held_line(K.hold(store))}")
 
 
-def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> bytes:
+def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     """Phase 3's tiled paths: the lossless and the budgeted container held
     to the JAX package's digests, then the lossless container decoded back
     to the frame and the budgeted one to the JAX package's pixels.  Each
     path runs with the launch counts reset before and read after, and
     each kernel call it kept (one for each set of input shapes) is held
-    against its plain version."""
+    against its plain version.  Returns the lossless container and the
+    scatter calls its decode kept."""
     def run(name, fn):
         store, counts = {}, {}
         t0 = time.perf_counter()
@@ -884,6 +1041,7 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> bytes:
 
     (out, gray), secs, counts, store = run(
         "tiled decode", lambda: tiled.decode_tiled(full))
+    tiled_scatter = store["hilbert_scatter"]
     progress(f"e2e: tiled decode -> {out.shape} gray={gray}, {secs:.2f} s; "
              f"launches {counts}")
     if gray or not np.array_equal(out, img):
@@ -899,7 +1057,7 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> bytes:
         raise AssertionError(f"budgeted tiled decode differs from the JAX "
                              f"package's: {out.shape} sha256 {digest}")
     held("budgeted tiled decode", store)
-    return full
+    return full, tiled_scatter
 
 
 @contextlib.contextmanager
@@ -1043,13 +1201,15 @@ def main() -> int:
         raise AssertionError("the lossless decode differs from the frame")
     K.check_launched("decode", dec_launches)
     launches["hilbert_scatter"] = dec_launches["hilbert_scatter"]
-    lossy_decodes(torch, decoder, stream)
+    lossy_decodes(torch, K, decoder, stream)
     capacity_encode(K, enc, img, stream, info["tokens"])
-    full = tiled_paths(torch, K, tiled, img)
+    full, tiled_scatter = tiled_paths(torch, K, tiled, img)
 
     # 4. kernels against their plain versions, on the main path's inputs
-    rows = check_kernels(torch, K, got, launches)
-    del got
+    rows = check_kernels(torch, K, got, launches, tiled_scatter)
+    device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
+                     [x for (x,) in got["transpose2d"]])
+    del got, tiled_scatter
     torch.cuda.empty_cache()
 
     # 5. timing: warm encodes
@@ -1073,6 +1233,10 @@ def main() -> int:
              f"MP/s on {card}")
     decode_profile(torch, decoder, stream, img)
     tiled_timing(torch, tiled, img, full, card)
+
+    # 6. device times of kernels 5 and 6 (torch.profiler)
+    device_times(torch, *device_inputs)
+    del device_inputs
 
     print(json.dumps({"kernels": rows}))
     print(card)

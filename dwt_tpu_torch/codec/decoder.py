@@ -28,7 +28,7 @@ from ..geometry import compute_pyramid
 from ..hilbert import level_of_position, reconstruction_perm
 from ..ops.color import ycocg_to_rgb
 from ..ops.hilbert_gather import engine_supported
-from ..ops.hilbert_scatter import hilbert_scatter
+from ..ops.hilbert_scatter import hilbert_scatter, square_runs
 from ..ops.lifting import cdf53_inv, dwt2d_inv
 from ..runtime import native
 from .encoder import _device
@@ -54,9 +54,9 @@ def scatter_source(pyr) -> np.ndarray:
 class _Tail:
     """The inverse tail for one (geometry, decoded levels, channels)
     combination on one device.  Its static tables (the scatter's source
-    index and the level of each scan position) are built once and kept on
-    the device, so a warm decode uploads only the coefficients and the
-    (C, 16) ``missing`` table."""
+    index and its run table, and the level of each scan position) are
+    built once and kept on the device, so a warm decode uploads only the
+    coefficients and the (C, 16) ``missing`` table."""
 
     def __init__(self, width: int, height: int, out_levels: int,
                  channels: int, gray: bool, device: torch.device):
@@ -73,7 +73,10 @@ class _Tail:
         self.sub_pyr = compute_pyramid(self.out_w, self.out_h)
         assert self.sub_pyr.levels == out_levels
         engine_supported(device)  # the tile engines' probe, once a device
-        self.src = torch.as_tensor(scatter_source(self.sub_pyr), device=device)
+        src = scatter_source(self.sub_pyr)
+        self.src = torch.as_tensor(src, device=device)
+        self.runs = tuple(torch.as_tensor(a, device=device)
+                          for a in square_runs(src))  # (sq_ptr, runs)
         # Level of each scan position, shifted by one (root band -> 0) to
         # index an (N, C, 17) bias table whose column 0 is 0.
         self.lvl_idx = torch.as_tensor(
@@ -107,7 +110,8 @@ class _Tail:
             lin = coeffs
             if (missing[:, :, :self.out_levels] >= 2).any():
                 lin = self._bias(coeffs[..., :n_out], missing)
-            x = hilbert_scatter(lin.reshape(N * C, -1), self.src)
+            x = hilbert_scatter(lin.reshape(N * C, -1), self.src,
+                                *self.runs)
             x = x.reshape(self.out_h, self.out_w, N, C).permute(
                 2, 0, 1, 3).contiguous()  # a copy only when N > 1
             h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]

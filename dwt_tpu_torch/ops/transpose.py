@@ -7,6 +7,12 @@ patterns; ``torch.uint32`` has no arithmetic on the CPU, so the port
 carries such words as int32 anyway).  The VLI order scan
 (``codec/tokens.py:_vli_orders``) runs it twice a stream, int32 in and
 int8 out.
+
+The CUDA source has two kernels: one element a thread through a 32x32
+shared tile (int32, and int8 shapes whose sides are not multiples of 16),
+and, for int8 with both sides multiples of 16 (the VLI scan's), 128x128
+byte tiles moved in 16-byte words and turned with byte permutes in
+registers.  :func:`vector_bytes` picks one from the shape.
 """
 
 from __future__ import annotations
@@ -31,6 +37,25 @@ def transpose2d_plain(x: torch.Tensor) -> torch.Tensor:
     return _as_out_dtype(x).T.contiguous()
 
 
+def vector_bytes(x: torch.Tensor) -> int:
+    """Bytes a thread of the CUDA source moves at once for ``x`` (as
+    returned by ``_as_out_dtype``): 16 (the byte kernel: int8 with both
+    sides multiples of 16), else 1 (the element kernel)."""
+    R, C = x.shape
+    return 16 if x.dtype == torch.int8 and R % 16 == 0 and C % 16 == 0 \
+        else 1
+
+
+def launch(x: torch.Tensor, out: torch.Tensor, vec: int) -> None:
+    """The kernel alone: ``x`` (as returned by ``_as_out_dtype``) into the
+    contiguous (C, R) ``out``, by the byte kernel (``vec`` 16) or by the
+    element kernel (``vec`` 1)."""
+    R, C = x.shape
+    build.check(build.library().dwt_transpose(
+        x.data_ptr(), out.data_ptr(), R, C, x.element_size(), vec,
+        build.stream_of(x)), "transpose2d")
+
+
 def transpose2d(x: torch.Tensor) -> torch.Tensor:
     """(R, C) int32/uint32/int8 -> contiguous (C, R) int32/int32/int8."""
     x = _as_out_dtype(x)
@@ -40,10 +65,7 @@ def transpose2d(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((C, R), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    lib = build.library()
-    build.check(lib.dwt_transpose(x.data_ptr(), out.data_ptr(), R, C,
-                                  x.element_size(), build.stream_of(x)),
-                "transpose2d")
+    launch(x, out, vector_bytes(x))
     transpose2d.launches += 1
     return out
 

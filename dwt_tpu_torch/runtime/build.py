@@ -38,8 +38,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ENTRY_POINTS = {
     # (co, src, out, nlin, C, stream)
     "dwt_hilbert_gather": (_P, _P, _P, _L, _I, _P),
-    # (lin, src, out, npix, L, C, stream)
-    "dwt_hilbert_scatter": (_P, _P, _P, _L, _L, _I, _P),
+    # (lin, src, sq_ptr, runs, out, H, W, L, C, nruns, group, stream)
+    "dwt_hilbert_scatter": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I,
+                            _P),
     # (vmag, meta, table, hist, groups, P, U, sub, E, nsub, stream)
     "dwt_compact_count": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (vmag, meta, table, hist, pairs, groups, P, U, sub, E, nsub, npairs,
@@ -52,8 +53,8 @@ ENTRY_POINTS = {
                             _P),
     # (widx, c0, c1, c2, words, flag, ntok, nwords, stream)
     "dwt_pack_words": (_P, _P, _P, _P, _P, _P, _L, _L, _P),
-    # (in, out, R, C, elem_bytes, stream)
-    "dwt_transpose": (_P, _P, _L, _L, _I, _P),
+    # (in, out, R, C, elem_bytes, vec, stream)
+    "dwt_transpose": (_P, _P, _L, _L, _I, _I, _P),
     # (tile, idx, out, bad, n, stream)
     "dwt_engine_probe": (_P, _P, _P, _P, _I, _P),
 }

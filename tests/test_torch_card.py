@@ -385,6 +385,51 @@ def test_scatter_kernel_equals_plain(cuda, w, h, c, sub):
     assert got.shape == (pyr.height, pyr.width, c) and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("table", [True, False])
+@pytest.mark.parametrize("w,h,c,sub", [(512, 512, 84, None),
+                                       (256, 512, 12, None),
+                                       (512, 112, 21, None),
+                                       (256, 112, 3, None),
+                                       (320, 240, 3, (160, 120)),
+                                       (321, 239, 3, (41, 30))])
+def test_scatter_kernel_with_run_table(cuda, w, h, c, sub, table):
+    """At the 4K tiled decode's four (geometry, N * C channels) shapes
+    (512x112 has squares of three runs) and on reduced sub-pyramids whose
+    coefficient row is the full image's, with the run table given, as the
+    decoder's tail gives it, and derived by the wrapper."""
+    from dwt_tpu_torch.codec.decoder import scatter_source
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+
+    rng = np.random.default_rng(w + h + c)
+    lin = torch.as_tensor(rng.integers(-2**20, 2**20, (c, w * h))
+                          .astype(np.int32)).to(cuda)
+    pyr = compute_pyramid(*(sub or (w, h)))
+    src = torch.as_tensor(scatter_source(pyr)).to(cuda)
+    extra = hs.run_table(src) if table else ()
+    before = hs.hilbert_scatter.launches
+    got = hs.hilbert_scatter(lin, src, *extra)
+    want = hs.hilbert_scatter_plain(lin, src)
+    torch.cuda.synchronize()
+    assert hs.hilbert_scatter.launches == before + 1
+    assert got.shape == (pyr.height, pyr.width, c) and torch.equal(got, want)
+
+
+def test_scatter_kernel_on_any_index(cuda):
+    """A random index (repeats, -1, indices past L) makes squares of many
+    runs, more than one round of the kernel's 32."""
+    from dwt_tpu_torch.ops import hilbert_scatter as hs
+
+    rng = np.random.default_rng(5)
+    src = torch.as_tensor(rng.integers(-1, 3040, (70, 45))
+                          .astype(np.int32)).to(cuda)
+    lin = torch.as_tensor(rng.integers(-2**20, 2**20, (3, 3000))
+                          .astype(np.int32)).to(cuda)
+    got = hs.hilbert_scatter(lin, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hs.hilbert_scatter_plain(lin, src))
+
+
 def _port_stream(w, h, c, kind):
     from dwt_tpu_torch.codec import encoder
 
@@ -453,6 +498,28 @@ def test_transpose_kernel_equals_plain(cuda, shape, dtype):
     assert got.dtype == (torch.int8 if dtype == torch.int8 else torch.int32)
     assert got.shape == shape[::-1] and torch.equal(got, want)
     assert transpose.transpose2d.launches == before + (x.numel() > 0)
+
+
+@pytest.mark.parametrize("shape,vec", [
+    ((128, 7680), 16), ((128, 245760), 16), ((144, 400), 16),
+    ((128, 7684), 1), ((132, 260), 1), ((129, 257), 1), ((3, 5), 1),
+    ((257, 129), 1)])
+def test_int8_transpose_routes(cuda, shape, vec):
+    """The int8 transpose at the VLI scan's shapes (the byte kernel, 16
+    bytes a thread) and at sides that are not multiples of 16 (the
+    element kernel): one launch each."""
+    from dwt_tpu_torch.ops import transpose
+
+    rng = np.random.default_rng(shape[1])
+    x = torch.as_tensor(rng.integers(-128, 128, shape).astype(np.int8))
+    x = x.to(cuda)
+    assert transpose.vector_bytes(x) == vec
+    before = transpose.transpose2d.launches
+    got = transpose.transpose2d(x)
+    want = transpose.transpose2d_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert transpose.transpose2d.launches == before + 1
 
 
 @pytest.mark.parametrize("budget_div", [0, 3])
