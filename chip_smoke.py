@@ -71,8 +71,29 @@ seconds:
              beside their bounds: kernel 5 at 4K and at the tiled
              decode's calls (there also at other channel groups), each
              transpose of the VLI scan (the int8 one also by the element
-             kernel).  Last, so that no profiler session runs before the
-             timing phase.
+             kernel).  After the timing phase, so that no profiler session
+             runs before it.
+7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
+             size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
+             ``tcp://127.0.0.1`` port), so their all-gathers and
+             all-reduces go through NCCL on the card.  Each route runs
+             inside ``Kernels.path`` (launch counts reset and read, kernel
+             inputs kept and held against the plain versions) and is held
+             to the gates of its single-device twin: ``ShardedEncoder`` to
+             the stream's length and digest ("sharded encode"),
+             ``ShardedDecoder`` of the stream to the frame and of the
+             1,000,000-byte prefix to the prefix's shape and digest
+             ("sharded decode"), and ``encode_tiled_sharded`` lossless and
+             at a third of its size to the two container digests ("sharded
+             tiled encode", "budgeted sharded tiled encode").  Then warm
+             rates of the three, each beside its single-device twin's in
+             turns.  With two cards or more, two ranks (``cuda:0``,
+             ``cuda:1``) in spawned processes run the same routes and
+             gates; with one card a line says that this did not run.
+
+``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
+the two-rank run of phase 7 (it needs two cards), and prints no result
+lines.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -161,8 +182,10 @@ def random_image(w: int, h: int, c: int, seed: int) -> np.ndarray:
 
 
 ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
-                "budgeted tiled encode")
-DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode")
+                "budgeted tiled encode", "sharded encode",
+                "sharded tiled encode", "budgeted sharded tiled encode")
+DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
+                "sharded decode")
 
 
 def max_abs_err(name: str, kernel_out, plain_out) -> int:
@@ -189,11 +212,14 @@ class Kernels:
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
         from dwt_tpu_torch.ops import (compact, hilbert_gather,
                                        hilbert_scatter, pack, transpose)
+        from dwt_tpu_torch.parallel import encode as sharded
 
-        # The codec modules call the kernel wrappers by these names.
+        # The codec modules call the kernel wrappers by these names (the
+        # sharded encoder its gather through the composed halo index).
         self.sites = [(stage1, "hilbert_gather"), (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
-                      (decoder, "hilbert_scatter"), (tokens, "transpose2d")]
+                      (decoder, "hilbert_scatter"), (tokens, "transpose2d"),
+                      (sharded, "hilbert_gather")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "hilbert_gather": (hilbert_gather.hilbert_gather,
@@ -1140,9 +1166,229 @@ def tiled_timing(torch, tiled, img: np.ndarray, full: bytes,
              f"synchronised)")
 
 
-def main() -> int:
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def traffic() -> str:
+    """The collectives logged by ``hosts`` since it was last cleared, by
+    kind: count and bytes."""
+    from dwt_tpu_torch.parallel import hosts
+
+    kinds: dict = {}
+    for op, nbytes in hosts.comm_log:
+        n, b = kinds.get(op, (0, 0))
+        kinds[op] = (n + 1, b + nbytes)
+    hosts.comm_log.clear()
+    return ", ".join(f"{op} x{n} {b} B" for op, (n, b) in kinds.items()) \
+        or "none"
+
+
+def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
+                   stream: bytes) -> tuple:
+    """Phase 7's routes on ``mesh``, each in ``Kernels.path`` (its kernels
+    held against their plain versions) and held to the gates of its
+    single-device twin; raises on any difference.  Returns the sharded
+    encoder and decoder."""
+    from dwt_tpu_torch.parallel import encode as sharded
+
+    tag = f"rank {mesh.rank}/{mesh.size} on {mesh.device}"
+
+    def run(name, fn):
+        store, counts = {}, {}
+        t0 = time.perf_counter()
+        with K.path(name, store, counts):
+            result = fn()
+        secs = time.perf_counter() - t0
+        progress(f"sharded: {tag}: {name} {secs:.2f} s; launches {counts}; "
+                 f"collectives {traffic()}; kernels equal to their plain "
+                 f"versions: {held_line(K.hold(store))}")
+        return result
+
+    enc = sharded.ShardedEncoder(W, H, C, mesh)
+    s = run("sharded encode", lambda: enc.encode(img))
+    digest = hashlib.sha256(s).hexdigest()
+    if (len(s), digest) != (REF_BYTES, REF_SHA256):
+        raise AssertionError(f"{tag}: the sharded stream differs from the "
+                             f"JAX package's: {len(s)} bytes, sha256 {digest}")
+    dec = sharded.ShardedDecoder(W, H, C, mesh)
+    out = run("sharded decode", lambda: dec.decode(stream))
+    if not np.array_equal(out, img):
+        raise AssertionError(f"{tag}: the sharded decode differs from the "
+                             f"frame")
+    out = run("sharded decode", lambda: dec.decode(stream[:PREFIX_BYTES]))
+    if out.shape != PREFIX_SHAPE or sha256_pixels(out) != PREFIX_SHA256:
+        raise AssertionError(f"{tag}: the sharded prefix decode differs from "
+                             f"the JAX package's: {out.shape} sha256 "
+                             f"{sha256_pixels(out)}")
+    for name, budget, want in (
+            ("sharded tiled encode", 0, (TILED_BYTES, TILED_SHA256)),
+            ("budgeted sharded tiled encode", TILED_BYTES // 3,
+             (TILED_CUT_BYTES, TILED_CUT_SHA256))):
+        s = run(name, lambda: sharded.encode_tiled_sharded(
+            img, mesh, tile=TILE, budget=budget))
+        got = (len(s), hashlib.sha256(s).hexdigest())
+        if got != want:
+            raise AssertionError(f"{tag}: {name} differs from the JAX "
+                                 f"package's container: {got}")
+    progress(f"sharded: {tag}: every route equal to its gate (stream, frame, "
+             f"prefix pixels, both containers)")
+    return enc, dec
+
+
+def sharded_timing(torch, mesh, enc, dec, img: np.ndarray, stream: bytes,
+                   card: str) -> None:
+    """Warm rates of the sharded routes at world size 1, each in turns
+    with its single-device twin (MP/s of 3840x2160 pixels by the host
+    clock, three of each)."""
+    from dwt_tpu_torch.codec import decoder, tiled
+    from dwt_tpu_torch.codec.encoder import get_encoder
+    from dwt_tpu_torch.parallel import encode as sharded
+
+    single = get_encoder(W, H, C)
+    pairs = (
+        ("encode", lambda: single.encode(img), lambda: enc.encode(img)),
+        ("decode", lambda: decoder.decode(stream)[0],
+         lambda: dec.decode(stream)),
+        ("tiled encode", lambda: tiled.encode_tiled(img, tile=TILE),
+         lambda: sharded.encode_tiled_sharded(img, mesh, tile=TILE)))
+    parts = []
+    for name, one, shard in pairs:
+        rates = {"single": [], "sharded": []}
+        for _ in range(3):
+            for kind, fn in (("single", one), ("sharded", shard)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rates[kind].append(W * H / 1e6 / (time.perf_counter() - t0))
+        sharded_mps, single_mps = (", ".join(f"{m:.2f}" for m in rates[k])
+                                   for k in ("sharded", "single"))
+        parts.append(f"{name} sharded {sharded_mps} (single {single_mps})")
+    progress(f"timing: warm 4K sharded routes at world size {mesh.size} on "
+             f"NCCL, MP/s: {'; '.join(parts)} on {card}")
+
+
+@contextlib.contextmanager
+def timed_calls(torch, targets, spent: dict):
+    """Within the block, time each ``getattr(obj, name)`` call of
+    ``targets`` (a list of (obj, name)) by the host clock with a
+    synchronise on each side, summed into ``spent[name]`` (ms)."""
+    def timer(name):
+        def wrap(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[name] = spent.get(name, 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+                return result
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for obj, name in targets:
+            stack.enter_context(wrapped(obj, name, timer(name)))
+        yield
+
+
+def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes) -> None:
+    """Where one warm sharded encode and one warm sharded decode spend
+    their time, by timers around their own calls (host clock,
+    synchronised); the rest is what the timers do not cover."""
+    from dwt_tpu_torch.codec import decoder
+    from dwt_tpu_torch.parallel import encode as sharded
+
+    for what, fn, targets, rest in (
+            ("encode", lambda: enc.encode(img),
+             [(sharded, "rank_rows"), (sharded, "rgb_to_ycocg"),
+              (sharded, "halo_dwt2d_fwd"), (sharded, "hilbert_gather"),
+              (sharded, "_stats_from_lin"), (enc._enc, "emit")],
+             "the fine buffer's all-gather, the coarse placement"),
+            ("decode", lambda: dec.decode(stream),
+             [(decoder, "_parse"), (decoder._Tail, "pyramid"),
+              (sharded, "dwt2d_inv"), (sharded, "halo_dwt2d_inv")],
+             "upload, scatter into the halo layout, all-gather, colour, "
+             "download")):
+        spent: dict = {}
+        with timed_calls(torch, targets, spent):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = 1e3 * (time.perf_counter() - t0)
+        progress(f"profile: one warm 4K sharded {what}, {total:.1f} ms: "
+                 + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+                 + f", rest ({rest}) {total - sum(spent.values()):.1f} ms "
+                 f"(host clock, synchronised)")
+
+
+def two_rank_worker(rank: int, port: int) -> None:
+    """One of two ranks on NCCL (``cuda:0``, ``cuda:1``): the sharded routes
+    and their gates on this rank's card (the frame and stream made here)."""
+    import torch
+    import torch.distributed as dist
+
+    from dwt_tpu_torch.codec.encoder import get_encoder
+    from dwt_tpu_torch.parallel import hosts
+
+    hosts.initialize(f"127.0.0.1:{port}", 2, rank)
+    try:
+        mesh = hosts.global_mesh()
+        img = random_image(W, H, C, seed=0)
+        stream = get_encoder(W, H, C, mesh.device).encode(img)
+        sharded_routes(torch, Kernels(), mesh, img, stream)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(torch) -> None:
+    """Two ranks on NCCL in spawned processes (``cuda:0``, ``cuda:1``), each
+    running the sharded routes and their gates (``two_rank_worker``)."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(two_rank_worker, args=(free_port(),), nprocs=2, join=True)
+    progress("sharded: two ranks on NCCL (cuda:0, cuda:1): every route "
+             "equal to its gate on both")
+
+
+def sharded_phase(torch, K: Kernels, img: np.ndarray, stream: bytes,
+                  card: str) -> None:
+    """Phase 7: the sharded routes at world size 1 on NCCL, their gates,
+    rates and split; then two ranks where there are two cards."""
+    import torch.distributed as dist
+
+    from dwt_tpu_torch.parallel import hosts
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = hosts.global_mesh()
+        progress(f"sharded: NCCL process group of {mesh.size} rank, rank "
+                 f"{mesh.rank} on {mesh.device}")
+        enc, dec = sharded_routes(torch, K, mesh, img, stream)
+        sharded_timing(torch, mesh, enc, dec, img, stream, card)
+        sharded_profile(torch, enc, dec, img, stream)
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() < 2:
+        progress("sharded: the two-rank phase needs two cards; this machine "
+                 f"has {torch.cuda.device_count()}, so it did not run")
+        return
+    two_ranks(torch)
+
+
+def main(argv: list) -> int:
     import torch
 
+    if argv not in ([], ["--two-ranks"]):
+        print("usage: python3 chip_smoke.py [--two-ranks]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1164,6 +1410,11 @@ def main() -> int:
     progress(f"build: {len(build.sources())} sources, one nvcc process "
              f"each, in parallel, and a link, "
              f"{secs:.1f} s -> {os.path.relpath(path, ROOT)}")
+    if argv:
+        if torch.cuda.device_count() < 2:
+            raise RuntimeError("--two-ranks needs two cards")
+        two_ranks(torch)
+        return 0
 
     # 3. e2e: the main paths, with the kernels' launch counts
     from dwt_tpu_torch.codec import decoder, tiled
@@ -1238,6 +1489,9 @@ def main() -> int:
     device_times(torch, *device_inputs)
     del device_inputs
 
+    # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
+    sharded_phase(torch, K, img, stream, card)
+
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1247,4 +1501,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -94,6 +94,26 @@ class _Tail:
             2, self.lvl_idx)
         return lin + torch.sign(lin) * bias
 
+    def pyramid(self, coeffs: torch.Tensor,
+                missing: np.ndarray) -> torch.Tensor:
+        """(N, C, total >= n_out) int32 coefficients on the device and the
+        parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C) int32
+        coefficients in the deinterleaved pyramid layout, midpoint bias
+        applied (``out_levels`` > 0).  The N streams go through one scatter
+        launch as N*C channels; the root band is written as a raster
+        crop."""
+        N, C = coeffs.shape[0], self.channels
+        lin = coeffs
+        if (missing[:, :, :self.out_levels] >= 2).any():
+            lin = self._bias(coeffs[..., :self.n_out], missing)
+        x = hilbert_scatter(lin.reshape(N * C, -1), self.src, *self.runs)
+        x = x.reshape(self.out_h, self.out_w, N, C).permute(
+            2, 0, 1, 3).contiguous()  # a copy only when N > 1
+        h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
+        x[:, :h0, :w0] = lin[..., :h0 * w0].transpose(1, 2).reshape(
+            N, h0, w0, C)
+        return x
+
     def batch(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
         """(N, C, total >= n_out) int32 coefficients on the device and the
         parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C)
@@ -107,17 +127,7 @@ class _Tail:
                 N, self.out_h, self.out_w, C)
             x = cdf53_inv(cdf53_inv(x, axis=-3), axis=-2)
         else:
-            lin = coeffs
-            if (missing[:, :, :self.out_levels] >= 2).any():
-                lin = self._bias(coeffs[..., :n_out], missing)
-            x = hilbert_scatter(lin.reshape(N * C, -1), self.src,
-                                *self.runs)
-            x = x.reshape(self.out_h, self.out_w, N, C).permute(
-                2, 0, 1, 3).contiguous()  # a copy only when N > 1
-            h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
-            x[:, :h0, :w0] = lin[..., :h0 * w0].transpose(1, 2).reshape(
-                N, h0, w0, C)
-            x = dwt2d_inv(x, self.sub_pyr)
+            x = dwt2d_inv(self.pyramid(coeffs, missing), self.sub_pyr)
         if not self.gray:
             x = ycocg_to_rgb(x)
         return x.clamp(0, 255).to(torch.uint8)

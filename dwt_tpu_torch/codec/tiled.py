@@ -67,10 +67,12 @@ class BatchEncoder:
         return [[self.enc.stage1(im) for im in imgs[s:s + chunk]]
                 for s in range(0, imgs.shape[0], chunk)]
 
-    def emit_batch(self, batch: list) -> tuple:
-        """Stage 2 of one sub-batch at its shared token bucket (that of
-        its largest T) -> (payloads, (n, LMAX) int64 layer byte ends)."""
-        padded_T = _enc._bucket(max(int(st["T"]) for _, st in batch))
+    def emit_batch(self, batch: list, padded_T: int = 0) -> tuple:
+        """Stage 2 of one sub-batch at a shared token bucket (that of its
+        largest T, unless ``padded_T`` gives one) -> (payloads, (n, LMAX)
+        int64 layer byte ends)."""
+        padded_T = padded_T or _enc._bucket(max(int(st["T"])
+                                                for _, st in batch))
         payloads, ends = [], []
         for lin, stats in batch:
             payload, _, layer_ends = self.enc.emit(lin, stats, padded_T)
@@ -160,6 +162,40 @@ def _budget_work(groups: dict, C: int, budget: int, n_tiles: int,
     return payloads, layer_bytes
 
 
+def group_tiles(img: np.ndarray, tile: tuple) -> tuple:
+    """The tiles of an (H, W, C) image grouped by their true (edge tiles:
+    smaller) shape: ({(hh, ww): [(tile index, (hh, ww, C) view)]}, number
+    of tiles), tile indices in row-major grid order."""
+    th, tw = tile
+    groups: dict = {}
+    n_tiles = 0
+    for y0, hh in _tile_spans(img.shape[0], th):
+        for x0, ww in _tile_spans(img.shape[1], tw):
+            groups.setdefault((hh, ww), []).append(
+                (n_tiles, img[y0:y0 + hh, x0:x0 + ww]))
+            n_tiles += 1
+    return groups, n_tiles
+
+
+def write_container(shape: tuple, tile: tuple, payloads: list,
+                    layer_bytes: list, budget: int) -> bytes:
+    """The ``.dwtt`` bytes of an (H, W, C) image from its tiles' payloads
+    and (LMAX,) cumulative layer byte ends, in tile order, cut to
+    ``budget`` bytes by :func:`allocate_budget` when it is > 0."""
+    H, W, C = shape
+    th, tw = tile
+    if budget > 0:
+        lb = np.stack(layer_bytes)  # (ntiles, LMAX) cumulative byte ends
+        per_layer = np.diff(lb, axis=1, prepend=0)
+        cuts = allocate_budget(per_layer,
+                               max(budget - _head_bytes(len(payloads)), 0))
+        payloads = [p[:int(n)] for p, n in zip(payloads, cuts)]
+    head = MAGIC + struct.pack("<BBIIHH", VERSION, 0 if C == 3 else 1,
+                               W, H, tw, th)
+    table = np.array([len(p) for p in payloads], "<u4").tobytes()
+    return head + table + b"".join(payloads)
+
+
 def encode_tiled(img: np.ndarray, tile: tuple = (512, 512), budget: int = 0,
                  device=None) -> bytes:
     """Encode into the tiled container, with an optional global byte
@@ -168,17 +204,8 @@ def encode_tiled(img: np.ndarray, tile: tuple = (512, 512), budget: int = 0,
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
-    H, W, C = img.shape
-    th, tw = tile
-
-    # Tiles grouped by shape; ``order`` is the tile-grid order.
-    groups: dict = {}
-    n_tiles = 0
-    for y0, hh in _tile_spans(H, th):
-        for x0, ww in _tile_spans(W, tw):
-            groups.setdefault((hh, ww), []).append(
-                (n_tiles, img[y0:y0 + hh, x0:x0 + ww]))
-            n_tiles += 1
+    C = img.shape[2]
+    groups, n_tiles = group_tiles(img, tile)
     ids = [i for items in groups.values() for i, _ in items]
 
     if budget > 0:
@@ -194,18 +221,7 @@ def encode_tiled(img: np.ndarray, tile: tuple = (512, 512), budget: int = 0,
     layer_bytes = [None] * n_tiles
     for i, p, lb in zip(ids, pls, lbs):
         payloads[i], layer_bytes[i] = p, lb
-
-    if budget > 0:
-        lb = np.stack(layer_bytes)  # (ntiles, LMAX) cumulative byte ends
-        per_layer = np.diff(lb, axis=1, prepend=0)
-        cuts = allocate_budget(per_layer,
-                               max(budget - _head_bytes(n_tiles), 0))
-        payloads = [p[:int(n)] for p, n in zip(payloads, cuts)]
-
-    head = MAGIC + struct.pack("<BBIIHH", VERSION, 0 if C == 3 else 1,
-                               W, H, tw, th)
-    table = np.array([len(p) for p in payloads], "<u4").tobytes()
-    return head + table + b"".join(payloads)
+    return write_container(img.shape, tile, payloads, layer_bytes, budget)
 
 
 def decode_tiled(data: bytes, nthreads: int = 0, pixels_max: int = 0,

@@ -539,3 +539,42 @@ def test_tiled_on_card_equals_cpu(cuda, budget_div):
     assert np.array_equal(out, ref)
     if not budget:
         assert np.array_equal(out, img)
+
+
+def test_sharded_world1_nccl_equals_single(cuda):
+    """The sharded routes at world size 1 on NCCL (rank 0 on the card, a
+    free local port): the stream equals ``Encoder``'s, the collectives go
+    through NCCL, the sharded decode gives the image back and a prefix the
+    single-stream decode's pixels, and the tile-parallel container equals
+    ``encode_tiled``'s."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dwt_tpu_torch.codec import decoder, encoder, tiled
+    from dwt_tpu_torch.parallel import encode, hosts
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = hosts.global_mesh()
+        assert (mesh.size, mesh.rank, mesh.device) == (
+            1, 0, torch.device("cuda", 0))
+        img = random_image(np.random.default_rng(5), 200, 120, 3, "mixed")
+        hosts.comm_log.clear()
+        stream = encode.ShardedEncoder(200, 120, 3, mesh).encode(img)
+        assert stream == encoder.Encoder(200, 120, 3, device=cuda).encode(img)
+        assert [op for op, _ in hosts.comm_log] == ["all_gather"] * 2
+        dec = encode.ShardedDecoder(200, 120, 3, mesh)
+        np.testing.assert_array_equal(dec.decode(stream), img)
+        cut = stream[:len(stream) * 3 // 4]
+        np.testing.assert_array_equal(dec.decode(cut),
+                                      decoder.decode(cut)[0])
+        assert encode.encode_tiled_sharded(img, mesh, tile=(64, 64)) == \
+            tiled.encode_tiled(img, tile=(64, 64))
+    finally:
+        dist.destroy_process_group()

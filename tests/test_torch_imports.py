@@ -72,6 +72,31 @@ def test_encoder_needs_card_unless_cpu(monkeypatch):
     assert encoder.Encoder(64, 48, 3, device="cpu").device.type == "cpu"
 
 
+def test_sharded_modules_are_checked():
+    """The multi-GPU modules are among the files the import checks read."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"dwt_tpu_torch/parallel/{m}.py"
+            for m in ("hosts", "tiled", "encode")} <= names
+
+
+def test_sharded_entry_points_need_card_unless_cpu(monkeypatch):
+    """The sharded entry points take the card's mesh unless a mesh on the
+    CPU is given; with no card they raise."""
+    from dwt_tpu_torch.parallel import encode, hosts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((48, 64, 3), np.uint8)
+    for make in (lambda: encode.ShardedEncoder(64, 48, 3),
+                 lambda: encode.ShardedDecoder(64, 48, 3),
+                 lambda: encode.encode_tiled_sharded(img, tile=(32, 32)),
+                 hosts.global_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    mesh = hosts.global_mesh("cpu")
+    assert encode.ShardedEncoder(64, 48, 3, mesh).mesh.device.type == "cpu"
+    assert encode.encode_tiled_sharded(img, mesh, tile=(32, 32))[:2] == b"WT"
+
+
 def test_later_slices_refuse():
     """The budget and container routes of the JAX package's ``encode`` are
     ported (no refusal is left on them); the single-stream encoder still
