@@ -35,7 +35,8 @@ seconds:
              held to the JAX package's container digests, and
              ``decode_tiled`` of each container: the lossless one must
              give the frame back, the budgeted one the JAX package's
-             pixels.  The capacity encode and each tiled path
+             pixels (its line counts the tiles that the budgeted encode
+             emitted again unmasked).  The capacity encode and each tiled path
              also run with the launch counts reset before and read after
              (each kernel of the path must be > 0) and with their kernel
              inputs kept: one call of each kernel for each distinct set of
@@ -63,8 +64,8 @@ seconds:
              device-to-host and host-to-device copies of one); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
-             share of the tail; three warm tiled encodes and decodes in
-             MP/s, and one ``decode_tiled`` split, by timers wrapped
+             share of the tail; three warm tiled encodes (lossless and at
+             a third) and decodes in MP/s, and one ``decode_tiled`` split, by timers wrapped
              around its own calls, into the thread-pooled host parse, the
              upload, the batched tails and the rest (download, mosaic).
 6. device  — the device time of kernels 5 and 6 by torch.profiler,
@@ -90,6 +91,19 @@ seconds:
              turns.  With two cards or more, two ranks (``cuda:0``,
              ``cuda:1``) in spawned processes run the same routes and
              gates; with one card a line says that this did not run.
+8. entry points — ``python -m dwt_tpu_torch.cli`` in processes of its
+             own: ``encode`` of the frame (written as PNM), whose stream
+             must have the JAX package's digest; ``decode`` of it, which
+             must give the frame back; ``tiled-encode`` in 512x512 tiles
+             at a third of the lossless container, which must have the
+             JAX package's budgeted digest; one encode under
+             ``DWT_SELFCHECK=1``; one encode of a 512x512 crop under
+             ``DWT_TRACE``, whose trace must name the gather and pack
+             kernels.  Then ``python -m dwt_tpu_torch.selftest``, every
+             configuration of which must be ok.  Last, the budgeted tiled
+             encode on small cases (``BUDGET_CASES``): ``encode_tiled`` on
+             the card must equal ``encode_tiled_sharded`` at world size 1
+             on NCCL (lossless, then cut).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
 the two-rank run of phase 7 (it needs two cards), and prints no result
@@ -109,6 +123,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1053,12 +1068,16 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     held("tiled encode", store)
 
     budget = len(full) // 3
-    cut, secs, counts, store = run(
-        "budgeted tiled encode",
-        lambda: tiled.encode_tiled(img, tile=TILE, budget=budget))
+    reemitted = []
+    with wrapped(tiled, "_reemit", counted(reemitted)):
+        cut, secs, counts, store = run(
+            "budgeted tiled encode",
+            lambda: tiled.encode_tiled(img, tile=TILE, budget=budget))
     digest = hashlib.sha256(cut).hexdigest()
     progress(f"e2e: tiled encode, budget {budget} -> {len(cut)} bytes, "
-             f"sha256 {digest[:16]}, {secs:.2f} s; launches {counts}")
+             f"sha256 {digest[:16]}, {secs:.2f} s; {len(reemitted)} of "
+             f"{tiled.group_tiles(img, TILE)[1]} tiles emitted again "
+             f"unmasked; launches {counts}")
     if (len(cut), digest) != (TILED_CUT_BYTES, TILED_CUT_SHA256):
         raise AssertionError(f"budgeted tiled container differs from the "
                              f"JAX package's: {len(cut)} bytes, sha256 "
@@ -1097,10 +1116,15 @@ def wrapped(obj, name: str, wrap):
         setattr(obj, name, fn)
 
 
+def counted(calls: list):
+    """A wrap for :func:`wrapped` that notes each call in ``calls``."""
+    return lambda fn: lambda *a: (calls.append(1), fn(*a))[1]
+
+
 def tiled_timing(torch, tiled, img: np.ndarray, full: bytes,
                  card: str) -> None:
-    """Phase 5's tiled rates: three warm tiled encodes and decodes of the
-    frame, then one ``decode_tiled`` split by timers wrapped around its own
+    """Phase 5's tiled rates: three warm tiled encodes, lossless and cut to
+    a third, and decodes of the frame, then one ``decode_tiled`` split by timers wrapped around its own
     calls (host clock): the thread-pooled host parse
     (``native.entropy_decode_batch``), the upload (from the parse's return
     to the synchronised start of the batched tail that follows it), the
@@ -1109,7 +1133,7 @@ def tiled_timing(torch, tiled, img: np.ndarray, full: bytes,
     from dwt_tpu_torch.codec import decoder
     from dwt_tpu_torch.runtime import native
 
-    enc_mps, dec_mps = [], []
+    enc_mps, cut_mps, dec_mps = [], [], []
     for _ in range(3):
         t0 = time.perf_counter()
         s = tiled.encode_tiled(img, tile=TILE)
@@ -1118,12 +1142,21 @@ def tiled_timing(torch, tiled, img: np.ndarray, full: bytes,
             raise AssertionError("a warm tiled encode differs from the first")
     for _ in range(3):
         t0 = time.perf_counter()
+        s = tiled.encode_tiled(img, tile=TILE, budget=len(full) // 3)
+        cut_mps.append(W * H / 1e6 / (time.perf_counter() - t0))
+        if hashlib.sha256(s).hexdigest() != TILED_CUT_SHA256:
+            raise AssertionError("a warm budgeted tiled encode differs from "
+                                 "the JAX package's container")
+    for _ in range(3):
+        t0 = time.perf_counter()
         out, _ = tiled.decode_tiled(full)
         dec_mps.append(W * H / 1e6 / (time.perf_counter() - t0))
         if not np.array_equal(out, img):
             raise AssertionError("a warm tiled decode differs from the frame")
     progress(f"timing: warm 4K tiled encode "
-             f"{', '.join(f'{m:.2f}' for m in enc_mps)} MP/s, decode "
+             f"{', '.join(f'{m:.2f}' for m in enc_mps)} MP/s, budgeted "
+             f"tiled encode (a third) "
+             f"{', '.join(f'{m:.2f}' for m in cut_mps)} MP/s, decode "
              f"{', '.join(f'{m:.2f}' for m in dec_mps)} MP/s on {card}")
 
     split = dict(parse=0.0, upload=0.0, tails=0.0)
@@ -1383,6 +1416,141 @@ def sharded_phase(torch, K: Kernels, img: np.ndarray, stream: bytes,
     two_ranks(torch)
 
 
+def run_module(module: str, args: list, env: dict | None = None,
+               timeout: int = 600) -> tuple:
+    """``python -m module *args`` from the checkout's root, in a process of
+    its own; raises unless it exits 0.  Returns (stdout bytes, stderr
+    text, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                       env={**os.environ, **(env or {})},
+                       capture_output=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    err = r.stderr.decode(errors="replace")
+    if r.returncode != 0:
+        raise AssertionError(f"{module} {args} exited {r.returncode}:\n"
+                             f"{err[-3000:]}")
+    return r.stdout, err, secs
+
+
+def sha256_file(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def entry_points(img: np.ndarray) -> None:
+    """Phase 8, the command line: ``python -m dwt_tpu_torch.cli`` on the
+    card, each command a cold process (kernel library loaded from the
+    build), held to the JAX package's stream and container digests and to
+    the frame; one encode under ``DWT_SELFCHECK=1``; one encode of a
+    512x512 crop under ``DWT_TRACE``, whose trace must name the gather and
+    pack kernels; then ``python -m dwt_tpu_torch.selftest``, every
+    configuration of which must be ok."""
+    from dwt_tpu_torch.io import pnm
+
+    cli = "dwt_tpu_torch.cli"
+    with tempfile.TemporaryDirectory() as tmp:
+        frame, dwt, back, dwtt = (os.path.join(tmp, n) for n in (
+            "frame.pnm", "frame.dwt", "back.pnm", "frame.dwtt"))
+        pnm.write_pnm(frame, img)
+        _, err, secs = run_module(cli, ["encode", frame, dwt])
+        digest = sha256_file(dwt)
+        progress(f"cli: encode {W}x{H} -> {os.path.getsize(dwt)} bytes, "
+                 f"sha256 {digest[:16]}, {secs:.2f} s (one process); "
+                 f"{err.strip().splitlines()[-1]}")
+        if digest != REF_SHA256:
+            raise AssertionError(f"the CLI's stream differs from the JAX "
+                                 f"package's: sha256 {digest}")
+        _, _, secs = run_module(cli, ["decode", dwt, back])
+        out, gray = pnm.read_pnm(back)
+        progress(f"cli: decode -> {out.shape} gray={gray}, {secs:.2f} s")
+        if gray or not np.array_equal(out, img):
+            raise AssertionError("the CLI's decode differs from the frame")
+        budget = TILED_BYTES // 3
+        _, err, secs = run_module(cli, ["tiled-encode", frame, dwtt,
+                                        str(TILE[0]), str(budget)])
+        digest = sha256_file(dwtt)
+        progress(f"cli: tiled-encode {TILE[0]} {budget} -> {err.strip()}, "
+                 f"sha256 {digest[:16]}, {secs:.2f} s")
+        if digest != TILED_CUT_SHA256:
+            raise AssertionError(f"the CLI's budgeted container differs "
+                                 f"from the JAX package's: sha256 {digest}")
+        stream, _, secs = run_module(cli, ["encode", frame, "-"],
+                                     env={"DWT_SELFCHECK": "1"})
+        progress(f"cli: DWT_SELFCHECK=1 encode {W}x{H} to stdout: the "
+                 f"stream decodes to the frame, {secs:.2f} s")
+        if hashlib.sha256(stream).hexdigest() != REF_SHA256:
+            raise AssertionError("the self-checked stream differs")
+        crop, traces = (os.path.join(tmp, n) for n in ("crop.pnm", "trace"))
+        pnm.write_pnm(crop, img[:512, :512])
+        _, _, secs = run_module(cli, ["encode", crop, dwt],
+                                env={"DWT_TRACE": traces})
+        files = sorted(os.listdir(traces))
+        text = "".join(open(os.path.join(traces, f)).read() for f in files)
+        names = ("hilbert_gather_kernel", "pack_words_kernel")
+        progress(f"cli: DWT_TRACE encode 512x512 -> {files}, "
+                 f"{len(text)} characters, kernel "
+                 f"events {[text.count(n) for n in names]} for {names}, "
+                 f"{secs:.2f} s")
+        if not files or not all(n in text for n in names):
+            raise AssertionError(f"the trace in {files} does not name the "
+                                 f"kernels {names}")
+    stdout, err, secs = run_module("dwt_tpu_torch.selftest", [])
+    results = json.loads(stdout.decode().strip().splitlines()[-1])
+    progress(f"selftest: {results}, {secs:.1f} s (one process a "
+             f"configuration)")
+    if not results or any(v != "ok" for v in results.values()):
+        raise AssertionError(f"selftest: {results}\n{err[-3000:]}")
+
+
+# The budgeted tiled cases of tests/test_torch_tiled_budget.py: (w, h, c,
+# seed, tile side), at budgets of a half, a third, a fifth and a ninth of
+# the lossless container, and the 17x31 RGB image of seed 5 in 9x9 tiles
+# at 453 bytes.
+BUDGET_CASES = ((17, 31, 3, 5, 9), (35, 22, 3, 6, 9), (26, 40, 3, 7, 9),
+                (117, 109, 1, 8, 10), (40, 36, 1, 9, 12))
+
+
+def budget_cases(torch) -> None:
+    """Phase 8, the budgeted tiled encode: ``encode_tiled`` on the card
+    equals ``encode_tiled_sharded`` at world size 1 on NCCL (lossless, then
+    cut) on small cases like the tests'."""
+    import torch.distributed as dist
+
+    from dwt_tpu_torch.codec import tiled
+    from dwt_tpu_torch.parallel import encode as sharded
+    from dwt_tpu_torch.parallel import hosts
+
+    t0 = time.perf_counter()
+    reemitted, n = [], 0
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = hosts.global_mesh()
+        with wrapped(tiled, "_reemit", counted(reemitted)):
+            for w, h, c, seed, t in BUDGET_CASES:
+                im = random_image(w, h, c, seed)
+                full = len(tiled.encode_tiled(im, (t, t)))
+                budgets = [full // d for d in (2, 3, 5, 9)]
+                if (w, h, seed) == (17, 31, 5):
+                    budgets.append(453)
+                for b in budgets:
+                    got = tiled.encode_tiled(im, (t, t), b)
+                    want = sharded.encode_tiled_sharded(im, mesh, (t, t), b)
+                    n += 1
+                    if got != want:
+                        raise AssertionError(
+                            f"budgeted tiled encode {w}x{h}x{c} in {t}x{t} "
+                            f"tiles at {b} bytes: {len(got)} bytes, not the "
+                            f"sharded route's {len(want)} bytes")
+    finally:
+        dist.destroy_process_group()
+    progress(f"budget: {n} budgeted containers on the card equal to the "
+             f"lossless-then-cut containers of encode_tiled_sharded at world "
+             f"size 1 on NCCL ({len(reemitted)} tiles emitted again "
+             f"unmasked), {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -1491,6 +1659,13 @@ def main(argv: list) -> int:
 
     # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
     sharded_phase(torch, K, img, stream, card)
+
+    # 8. the command line, DWT_SELFCHECK, DWT_TRACE, the self-test, and the
+    # budgeted tiled encode against the lossless-then-cut route
+    t0 = time.perf_counter()
+    entry_points(img)
+    budget_cases(torch)
+    progress(f"entry points: phase 8 {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

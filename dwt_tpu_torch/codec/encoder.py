@@ -17,6 +17,7 @@ image does not fit one stream.
 from __future__ import annotations
 
 import functools
+import os
 import time
 
 import numpy as np
@@ -332,6 +333,7 @@ class Encoder:
         coding work of every schedule step that starts past it."""
         pyr = self.pyr
         t0 = time.perf_counter()
+        img = np.asarray(img)
         lin, stats = self.stage1(img)
         T = int(stats["T"])
         if capacity > 0:
@@ -347,6 +349,18 @@ class Encoder:
         if capacity > 0:
             stream = stream[:capacity]
         dt = time.perf_counter() - t0
+        if os.environ.get("DWT_SELFCHECK") == "1" and capacity <= 0:
+            # Sanitizer mode (the codec's analog of the reference's ASan
+            # build): every lossless stream must decode to the input before
+            # it is returned, so a kernel that corrupts the stream is caught
+            # here, not by a far-away reader.  Outside the timed span.
+            from . import decoder as _decoder
+
+            back, _ = _decoder.decode(stream, device=self.device)
+            if back.size != img.size or not np.array_equal(
+                    back.reshape(img.shape), img):
+                raise AssertionError(
+                    "DWT_SELFCHECK: stream does not decode to the input")
         le = layer_ends.cpu().numpy()
         info = {
             "tokens": T,

@@ -70,7 +70,7 @@ class BatchEncoder:
     def emit_batch(self, batch: list, padded_T: int = 0) -> tuple:
         """Stage 2 of one sub-batch at a shared token bucket (that of its
         largest T, unless ``padded_T`` gives one) -> (payloads, (n, LMAX)
-        int64 layer byte ends)."""
+        int64 layer bit ends)."""
         padded_T = padded_T or _enc._bucket(max(int(st["T"])
                                                 for _, st in batch))
         payloads, ends = [], []
@@ -78,17 +78,16 @@ class BatchEncoder:
             payload, _, layer_ends = self.enc.emit(lin, stats, padded_T)
             payloads.append(payload)
             ends.append(layer_ends)
-        ends = torch.stack(ends).cpu().numpy().astype(np.int64)
-        return payloads, (ends + 7) // 8
+        return payloads, torch.stack(ends).cpu().numpy().astype(np.int64)
 
     def encode_raw(self, imgs: np.ndarray) -> tuple:
         """(N, H, W, C) uint8 -> (payloads list[bytes], layer_ends (N, LMAX)
         byte offsets).  Payloads exclude the 6-byte header."""
         payloads, layer_list = [], []
         for batch in self.stage1_batches(imgs):
-            pls, lbs = self.emit_batch(batch)
+            pls, ends = self.emit_batch(batch)
             payloads.extend(pls)
-            layer_list.append(lbs)
+            layer_list.append((ends + 7) // 8)
         return payloads, np.concatenate(layer_list, axis=0)
 
     def encode_batch(self, imgs: np.ndarray) -> list:
@@ -128,37 +127,64 @@ def _head_bytes(n_tiles: int) -> int:
     return 20 + 4 * n_tiles
 
 
+def budget_cuts(layer_bytes: list, budget: int) -> np.ndarray:
+    """(n_tiles,) byte lengths of the tiles under a container ``budget``:
+    :func:`allocate_budget` over the tiles' (LMAX,) cumulative layer byte
+    ends, in tile order, after the header's reserve."""
+    lb = np.stack(layer_bytes)
+    return allocate_budget(np.diff(lb, axis=1, prepend=0),
+                           max(budget - _head_bytes(len(layer_bytes)), 0))
+
+
+def _reemit(enc: BatchEncoder, lin, stats) -> bytes:
+    """One tile's payload emitted again without the layer mask."""
+    return enc.enc.emit(lin, stats, _enc._bucket(int(stats["T"])))[0]
+
+
 def _budget_work(groups: dict, C: int, budget: int, n_tiles: int,
                  device) -> tuple:
     """Budget-bounded work (bytes.h:75-78 as the reference's early stop,
     generalized across tiles): stage 1 runs for every tile; per-layer
-    lower-bound byte costs give a conservative global waterline layer;
-    every tile's schedule is masked beyond it before stage 2.  Lower
-    bounds make the masked set a superset of what the true allocation
-    keeps, so the final bytes equal those of the lossless-then-cut path.
-    Returns (payloads, layer byte ends) in group order."""
+    lower-bound byte costs give a conservative global waterline layer
+    ``keep``; every tile's schedule is masked beyond it before stage 2.
+    Lower bounds make the true allocation stop inside layer ``keep`` at
+    the latest, and a masked stream equals the lossless one through the
+    end of that layer, so the cuts equal the lossless ones.  Past that end
+    a masked stream holds a few bits of its own: a tile whose cut's last
+    byte holds any of them is emitted again unmasked (:func:`_reemit`), so
+    every cut is the lossless stream's prefix.  Returns (payloads, layer
+    byte ends), in tile order."""
     work, lb_rows = [], []
     for (hh, ww), items in groups.items():
         enc = get_batch_encoder(ww, hh, C, device)
+        ids = [i for i, _ in items]
         for batch in enc.stage1_batches(np.stack([t for _, t in items])):
             hosts = [_enc.host_stats(st) for _, st in batch]
-            work.append((enc, batch, hosts))
+            work.append((enc, batch, hosts, ids[:len(batch)]))
+            ids = ids[len(batch):]
             lb_rows.extend(_enc._layer_lb_bytes_host(h, enc.pyr, C, LMAX)
                            for h in hosts)
     cum = np.stack(lb_rows).sum(axis=0).cumsum()
     # First layer the lower-bound total cannot fully afford: the true cut
     # reaches at most into it, so later layers never survive.
-    keep_layer = int((cum <= max(budget - _head_bytes(n_tiles), 0)).sum())
-    payloads, layer_bytes = [], []
-    for enc, batch, hosts in work:
+    keep = int((cum <= max(budget - _head_bytes(n_tiles), 0)).sum())
+    payloads, bit_ends, unmasked = [None] * n_tiles, [None] * n_tiles, {}
+    for enc, batch, hosts, ids in work:
         cut = []
-        for (lin, stats), h in zip(batch, hosts):
-            upd = _enc._truncate_schedule_to_layer(h, keep_layer, enc.pyr, C)
-            cut.append((lin, stats if upd is None
-                        else _enc.patch_stats(stats, upd)))
-        pls, lbs = enc.emit_batch(cut)
-        payloads.extend(pls)
-        layer_bytes.extend(lbs)
+        for (lin, stats), h, i in zip(batch, hosts, ids):
+            upd = _enc._truncate_schedule_to_layer(h, keep, enc.pyr, C)
+            if upd is not None:
+                unmasked[i] = (enc, lin, stats)
+                stats = _enc.patch_stats(stats, upd)
+            cut.append((lin, stats))
+        pls, ends = enc.emit_batch(cut)
+        for i, p, e in zip(ids, pls, ends):
+            payloads[i], bit_ends[i] = p, e
+    layer_bytes = [(e + 7) // 8 for e in bit_ends]
+    for i, n in enumerate(budget_cuts(layer_bytes, budget)):
+        # A masked tile has steps past layer ``keep``, so keep < LMAX.
+        if i in unmasked and 8 * int(n) > bit_ends[i][keep]:
+            payloads[i] = _reemit(*unmasked[i])
     return payloads, layer_bytes
 
 
@@ -185,11 +211,8 @@ def write_container(shape: tuple, tile: tuple, payloads: list,
     H, W, C = shape
     th, tw = tile
     if budget > 0:
-        lb = np.stack(layer_bytes)  # (ntiles, LMAX) cumulative byte ends
-        per_layer = np.diff(lb, axis=1, prepend=0)
-        cuts = allocate_budget(per_layer,
-                               max(budget - _head_bytes(len(payloads)), 0))
-        payloads = [p[:int(n)] for p, n in zip(payloads, cuts)]
+        payloads = [p[:int(n)] for p, n in
+                    zip(payloads, budget_cuts(layer_bytes, budget))]
     head = MAGIC + struct.pack("<BBIIHH", VERSION, 0 if C == 3 else 1,
                                W, H, tw, th)
     table = np.array([len(p) for p in payloads], "<u4").tobytes()
@@ -206,21 +229,16 @@ def encode_tiled(img: np.ndarray, tile: tuple = (512, 512), budget: int = 0,
         img = img[..., None]
     C = img.shape[2]
     groups, n_tiles = group_tiles(img, tile)
-    ids = [i for items in groups.values() for i, _ in items]
-
     if budget > 0:
-        pls, lbs = _budget_work(groups, C, budget, n_tiles, device)
+        payloads, layer_bytes = _budget_work(groups, C, budget, n_tiles,
+                                             device)
     else:
-        pls, lbs = [], []
+        payloads, layer_bytes = [None] * n_tiles, [None] * n_tiles
         for (hh, ww), items in groups.items():
             enc = get_batch_encoder(ww, hh, C, device)
-            p, lb = enc.encode_raw(np.stack([t for _, t in items]))
-            pls.extend(p)
-            lbs.extend(lb)
-    payloads = [None] * n_tiles
-    layer_bytes = [None] * n_tiles
-    for i, p, lb in zip(ids, pls, lbs):
-        payloads[i], layer_bytes[i] = p, lb
+            pls, lbs = enc.encode_raw(np.stack([t for _, t in items]))
+            for (i, _), p, lb in zip(items, pls, lbs):
+                payloads[i], layer_bytes[i] = p, lb
     return write_container(img.shape, tile, payloads, layer_bytes, budget)
 
 

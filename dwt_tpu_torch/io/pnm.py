@@ -59,10 +59,12 @@ def read_pnm(path) -> tuple:
     # Exactly one whitespace byte separates the header from the payload.
     pos += 1
     need = width * height * channels
-    payload = data[pos : pos + need]
-    if len(payload) < need:
+    if len(data) - pos < need:
         raise ValueError("EOF in PNM payload")
-    img = np.frombuffer(payload, dtype=np.uint8).reshape(height, width, channels)
+    # A copy: a writable array, which torch.as_tensor takes without a
+    # warning.
+    img = np.frombuffer(data, np.uint8, need, pos).reshape(
+        height, width, channels).copy()
     return img, gray
 
 

@@ -231,7 +231,7 @@ def encode_tiled_sharded(img: np.ndarray, mesh: hosts.Mesh | None = None,
         # The JAX package's collective: the (per, LMAX) layer byte ends of
         # every rank, (n_pad, LMAX) on every rank; then the payloads.
         ends = hosts.all_gather(mesh, torch.as_tensor(
-            ends, device=mesh.device)).cpu().numpy()
+            (ends + 7) // 8, device=mesh.device)).cpu().numpy()
         pls = _gather_payloads(mesh, pls)
         for j, (i, _) in enumerate(items):
             payloads[i], layer_bytes[i] = pls[j], ends[j]

@@ -578,3 +578,67 @@ def test_sharded_world1_nccl_equals_single(cuda):
             tiled.encode_tiled(img, tile=(64, 64))
     finally:
         dist.destroy_process_group()
+
+
+def _cli(argv, device):
+    """(exit code, stdout bytes) of the port's CLI run in this process."""
+    import contextlib
+    import io
+
+    from dwt_tpu_torch import cli
+
+    out = io.TextIOWrapper(io.BytesIO())
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv, device=device)
+    out.flush()
+    return rc, out.buffer.getvalue()
+
+
+def test_cli_on_card_equals_cpu(cuda, tmp_path):
+    """``encode`` (lossless and with a capacity), ``tiled-encode`` with a
+    budget and ``decode`` (of a stream, at a pixel cap, and of the
+    container) write the same bytes on the card as on the CPU."""
+    from dwt_tpu_torch.io import pnm
+
+    src = str(tmp_path / "in.pnm")
+    pnm.write_pnm(src, random_image(np.random.default_rng(8), 200, 120, 3,
+                                    "mixed"))
+    runs = [["encode", src, "OUT"], ["encode", src, "-", "3000"],
+            ["tiled-encode", src, "OUT", "64", "9000"],
+            ["decode", "CPU0", "OUT"], ["decode", "CPU0", "-", "600"],
+            ["decode", "CPU2", "OUT"]]
+    for dev in ("cpu", cuda):
+        d = tmp_path / str(dev)
+        d.mkdir()
+        for k, argv in enumerate(runs):
+            argv = [a.replace("OUT", str(d / f"out{k}"))
+                    .replace("CPU", str(tmp_path / "cpu" / "out"))
+                    for a in argv]
+            rc, so = _cli(argv, dev)
+            assert rc == 0
+            (d / f"stdout{k}").write_bytes(so)
+    names = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    assert len(names) == 4 + len(runs)
+    for n in names:
+        assert (tmp_path / "cuda" / n).read_bytes() == \
+            (tmp_path / "cpu" / n).read_bytes(), n
+
+
+def test_selftest_on_card_all_ok(cuda):
+    """``python -m dwt_tpu_torch.selftest`` on the card: every
+    configuration ok, exit 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "dwt_tpu_torch.selftest"],
+                       cwd=root, capture_output=True, text=True, timeout=900)
+    results = json.loads(r.stdout.strip().splitlines()[-1])
+    assert r.returncode == 0, r.stderr
+    assert list(results) == ["gather", "compact", "refbits", "pack",
+                             "scatter", "transpose", "probe", "encode",
+                             "decode"]
+    assert set(results.values()) == {"ok"}
