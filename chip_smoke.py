@@ -31,8 +31,10 @@ seconds:
              encode (1,000,000 bytes), which must equal the lossless
              stream's prefix with fewer tokens.  Then the tiled paths:
              ``encode_tiled`` of the frame in 512x512 tiles (40 tiles, 4
-             geometries), lossless and cut to a third of its size, both
-             held to the JAX package's container digests, and
+             geometries, each one sub-batch of the batch mode, so each
+             encode kernel launches once a geometry: the lossless encode's
+             counts must say so), lossless and cut to a third of its
+             size, both held to the JAX package's container digests, and
              ``decode_tiled`` of each container: the lossless one must
              give the frame back, the budgeted one the JAX package's
              pixels (its line counts the tiles that the budgeted encode
@@ -104,6 +106,19 @@ seconds:
              encode on small cases (``BUDGET_CASES``): ``encode_tiled`` on
              the card must equal ``encode_tiled_sharded`` at world size 1
              on NCCL (lossless, then cut).
+9. batch   — the batch throughput mode, BASELINE config 4: 64 RGB
+             1920x1080 frames (seeds 0-63) through
+             ``BatchEncoder.encode_batch``, 10 sub-batches (9 of 7
+             frames, 1 of 1), in ``Kernels.path``: the streams' total
+             bytes and SHA-256 must equal the JAX package's (constants
+             below), each encode kernel must launch once a sub-batch (10;
+             the transpose 20), and each stream must equal the
+             single-stream encoder's.  Then warm MP/s of the batch in
+             turns with the single-stream encoder looped over the same
+             frames, the copies and the peak memory of one 7-frame
+             sub-batch, and each encode kernel's wrapper time at the
+             7-frame shape beside its bound (also in the kernels' JSON:
+             ``batch_launches``, ``batch_ms``, ``batch_bound_ms``).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
 the two-rank run of phase 7 (it needs two cards), and prints no result
@@ -178,6 +193,24 @@ TILED_CUT_PIXELS_SHA256 = (
     "0374a98c578c277cd5ce9ef0d5c9a7b9853bfd9b6bb906b1bda61f1ecacd7c87")
 CAPACITY = 1_000_000
 
+# BASELINE config 4, "Batch-of-64 1080p frames throughput mode": 64 RGB
+# 1920x1080 frames made from seeds 0-63, through BatchEncoder.encode_batch
+# (sub-batches of 7 frames).  The JAX package's 64 streams, made on the CPU
+# with (one frame a vmapped dispatch, which bounds the host's memory and
+# leaves the bytes as they are)
+#   JAX_PLATFORMS=cpu python3 -c 'import hashlib, numpy as np, sys;
+#     sys.path[:0] = [".", "tests"]; from imagegen import random_image;
+#     from dwt_tpu.codec import tiled;
+#     tiled.BatchEncoder.MAX_PIXELS_PER_DISPATCH = 1920 * 1080;
+#     imgs = np.stack([random_image(np.random.default_rng(s), 1920, 1080, 3,
+#                                   "mixed") for s in range(64)]);
+#     blob = b"".join(tiled.BatchEncoder(1920, 1080, 3).encode_batch(imgs));
+#     print(len(blob), hashlib.sha256(blob).hexdigest())'
+BATCH_W, BATCH_H, BATCH_N = 1920, 1080, 64
+BATCH_BYTES = 204_176_443
+BATCH_SHA256 = (
+    "a66910a2f8e1b7a47883502e7b13607d6c0fe9d8dbf2d2997599a4b2128b5983")
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -198,7 +231,12 @@ def random_image(w: int, h: int, c: int, seed: int) -> np.ndarray:
 
 ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
                 "budgeted tiled encode", "sharded encode",
-                "sharded tiled encode", "budgeted sharded tiled encode")
+                "sharded tiled encode", "budgeted sharded tiled encode",
+                "batch encode")
+# The kernels of the encode path, each launched once a sub-batch by the
+# batch mode (the VLI scan's transpose twice).
+BATCH_KERNELS = {"hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
+                 "scatter_refbits": 1, "transpose2d": 2}
 DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
                 "sharded decode")
 
@@ -439,6 +477,7 @@ def wrapper_split_a(torch, vmag, meta, npairs, table) -> str:
     flat_ck = torch.empty_like(flat)
     flat_ck[flat.long()] = torch.arange(flat.numel(), dtype=flat.dtype,
                                         device=flat.device)
+    flat_ck = flat_ck[None]  # the single-stream encode's one frame
     if not torch.equal(tokens._kernel_a_table(flat_ck), table):
         raise AssertionError("kernel A's table is not flat_ck's inverse")
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
@@ -620,6 +659,40 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes) -> None:
                  f"the element kernel)")
 
 
+def encode_kernel_bytes(torch, name: str, args) -> int:
+    """The bytes an encode kernel must move for one call on ``args`` (as
+    the encoder passes them): each input read once, each output written
+    once.  Gather: its index, the frames' coefficients and the (N, C, nlin)
+    output; kernel A: the elements its live units cover, its meta and unit
+    table, and its whole pair buffer; pack: 16 B a token and the whole word
+    buffer; kernel B: the elements its live units cover, its meta, and each
+    word that holds one of their refinement bits read and written;
+    transpose: its tensor read and written."""
+    from dwt_tpu_torch.ops.compact import E
+
+    if name == "hilbert_gather":
+        co, src = args
+        n_out = co.numel() // (co.shape[-3] * co.shape[-2]) * src.numel()
+        return 4 * (src.numel() + co.numel() + n_out)
+    if name == "compact_tokens":
+        vmag, meta, npairs, table = args[:4]
+        return 4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
+                    + table.numel() + npairs)
+    if name == "pack_words":
+        widx, nwords = args[0], args[4]
+        return 4 * (4 * widx.numel() + nwords)
+    if name == "scatter_refbits":
+        vmag, meta, words = args[:3]
+        live = meta[meta[:, 6] > 0].long()
+        bit0 = 32 * live[:, 3] + live[:, 4]
+        ref_words = covered(torch, bit0 >> 5,
+                            ((bit0 + live[:, 6] - 1) >> 5) + 1, words.numel())
+        return 4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
+                    + 2 * ref_words)
+    x, = args
+    return 2 * x.numel() * x.element_size()
+
+
 def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                   tiled_scatter: list) -> list:
     """Phase 4: each kernel against its plain version, and its times
@@ -629,8 +702,6 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
                                    pack, transpose)
-
-    from dwt_tpu_torch.ops.compact import E
 
     out = []
 
@@ -644,13 +715,14 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=library_ms))
+            bound_by="bytes", library_ms=library_ms, batch_launches=None,
+            batch_ms=None, batch_bound_ms=None))
         progress(f"kernels: {name} equal to its plain version; "
                  f"{ms:.3f} ms (plain {plain_ms:.3f} ms, library "
                  f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, "
                  f"bound {out[-1]['bound_ms']:.3f} ms)")
 
-    # 1. gather: (H, W, C) coefficients -> (C, nlin)
+    # 1. gather: (1, H, W, C) coefficients -> (1, C, nlin)
     co, src = got["hilbert_gather"][0]
     k = hilbert_gather.hilbert_gather(co, src)
     p = hilbert_gather.hilbert_gather_plain(co, src)
@@ -661,7 +733,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         time_ms(torch, lambda: hilbert_gather.hilbert_gather(co, src)),
         time_ms(torch, lambda: hilbert_gather.hilbert_gather_plain(co, src),
                 reps=3),
-        4 * (src.numel() + co.numel() + k.numel()), lib_ms)
+        encode_kernel_bytes(torch, "hilbert_gather", (co, src)), lib_ms)
 
     # 1b. the tile engines' probe: one host call sends one 32x32 tile
     # through the gather and the scatter kernel and counts the wrong
@@ -705,8 +777,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                                                       table)),
         time_ms(torch, lambda: compact.compact_tokens_plain(vmag, meta,
                                                             npairs), reps=2),
-        4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
-             + table.numel() + npairs), None)
+        encode_kernel_bytes(torch, "compact_tokens", got["compact_tokens"][0]),
+        None)
     split_a = wrapper_split_a(torch, vmag, meta, npairs, table)
 
     # 3. pack: 16 B read a token, and the whole returned buffer written;
@@ -730,7 +802,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                                                order_flag=flag)),
         time_ms(torch, lambda: pack.pack_words_plain(widx, c0, c1, c2,
                                                      nwords), reps=3),
-        4 * (4 * widx.numel() + nwords), lib_ms)
+        encode_kernel_bytes(torch, "pack_words", got["pack_words"][0]),
+        lib_ms)
     split_pack = wrapper_split_pack(torch, widx, c0, c1, c2, nwords)
 
     # 4. kernel B (in place on the packed words: a fresh copy each run):
@@ -739,10 +812,6 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     # calls it, over kernel A's unit table and histograms (one launch),
     # and held also with its own count launch and its own unit table
     vmag, meta, words, table, hist = got["scatter_refbits"][0]
-    live = meta[meta[:, 6] > 0].long()
-    bit0 = 32 * live[:, 3] + live[:, 4]
-    ref_words = covered(torch, bit0 >> 5, ((bit0 + live[:, 6] - 1) >> 5) + 1,
-                        words.numel())
     p = compact.scatter_refbits_plain(vmag, meta, words.clone())
     for extra in ((table,), ()):
         if max_abs_err("scatter_refbits", compact.scatter_refbits(
@@ -755,8 +824,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                 setup=lambda: (vmag, meta, words.clone(), table, hist)),
         time_ms(torch, compact.scatter_refbits_plain,
                 setup=lambda: (vmag, meta, words.clone()), reps=2),
-        4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
-             + 2 * ref_words), None)
+        encode_kernel_bytes(torch, "scatter_refbits",
+                            got["scatter_refbits"][0]), None)
     split_b = wrapper_split_b(torch, vmag, meta, words, table, hist)
     progress(f"kernels: wrapper splits, ms: compact_tokens {split_a}; "
              f"pack_words {split_pack}; scatter_refbits {split_b}")
@@ -810,7 +879,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         parts.append((
             time_ms(torch, lambda: transpose.transpose2d(x)),
             time_ms(torch, lambda: transpose.transpose2d_plain(x)),
-            2 * x.numel() * x.element_size(),
+            encode_kernel_bytes(torch, "transpose2d", (x,)),
             time_ms(torch, lambda: x.T.contiguous())))
         bound = parts[-1][2] / HBM_BYTES_PER_S * 1e3
         if x.dtype == torch.int8:
@@ -839,21 +908,26 @@ def busy_ms(events, DeviceType) -> float:
     return busy / 1e3
 
 
-def encode_copies(torch, enc, img) -> dict:
+def copies(torch, fn) -> dict:
     """The device-to-host ("DtoH") and host-to-device ("HtoD") copies of
-    one warm encode, counted from torch.profiler's device events.  Uses
-    only the encoder's public API, so it can count another tree's."""
+    one ``fn()``, counted from torch.profiler's device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        enc.encode(img)
+        fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     return {d: sum(n.startswith(f"Memcpy {d}") for n in names)
             for d in ("DtoH", "HtoD")}
+
+
+def encode_copies(torch, enc, img) -> dict:
+    """The copies of one warm encode (:func:`copies`).  Uses only the
+    encoder's public API, so it can count another tree's."""
+    return copies(torch, lambda: enc.encode(img))
 
 
 def profile(torch, enc, img) -> None:
@@ -872,10 +946,10 @@ def profile(torch, enc, img) -> None:
     from dwt_tpu_torch.codec import emit, encoder, stage1, tokens
 
     pyr, C = enc.pyr, enc.channels
-    x = torch.as_tensor(img, device=enc.device)
+    x = torch.as_tensor(img, device=enc.device)[None]
     marks = [time.perf_counter()]
     lin, stats = stage1._transform_and_stats(x, pyr, C, enc.gray, enc._src)
-    T = int(stats["T"])
+    T = int(stats["T"][0])
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     padded_T = encoder._bucket(T)
@@ -1060,11 +1134,17 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     full, secs, counts, store = run(
         "tiled encode", lambda: tiled.encode_tiled(img, tile=TILE))
     digest = hashlib.sha256(full).hexdigest()
+    groups = len(tiled.group_tiles(img, TILE)[0])
     progress(f"e2e: tiled encode {TILE} -> {len(full)} bytes, sha256 "
-             f"{digest[:16]}, {secs:.2f} s cold; launches {counts}")
+             f"{digest[:16]}, {secs:.2f} s cold; launches {counts} (one "
+             f"sub-batch for each of the {groups} tile geometries)")
     if (len(full), digest) != (TILED_BYTES, TILED_SHA256):
         raise AssertionError(f"tiled container differs from the JAX "
                              f"package's: {len(full)} bytes, sha256 {digest}")
+    want = {k: n * groups for k, n in BATCH_KERNELS.items()}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the tiled encode's launches {counts} are not "
+                             f"one a tile geometry: want {want}")
     held("tiled encode", store)
 
     budget = len(full) // 3
@@ -1340,7 +1420,7 @@ def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes) -> None:
             ("encode", lambda: enc.encode(img),
              [(sharded, "rank_rows"), (sharded, "rgb_to_ycocg"),
               (sharded, "halo_dwt2d_fwd"), (sharded, "hilbert_gather"),
-              (sharded, "_stats_from_lin"), (enc._enc, "emit")],
+              (sharded, "_stats_from_lin"), (enc._enc, "emit_frames")],
              "the fine buffer's all-gather, the coarse placement"),
             ("decode", lambda: dec.decode(stream),
              [(decoder, "_parse"), (decoder._Tail, "pyramid"),
@@ -1551,6 +1631,138 @@ def budget_cases(torch) -> None:
              f"unmasked), {time.perf_counter() - t0:.1f} s")
 
 
+def batch_frames() -> np.ndarray:
+    """BASELINE config 4's 64 frames, made on the host's cores (numpy
+    lets go of the interpreter lock in the image arithmetic)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return np.stack(list(pool.map(
+            lambda s: random_image(BATCH_W, BATCH_H, C, s), range(BATCH_N))))
+
+
+def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
+    """Phase 9, the batch throughput mode (BASELINE config 4): 64 RGB
+    1080p frames through ``BatchEncoder.encode_batch`` in sub-batches of
+    ``MAX_PIXELS_PER_DISPATCH`` pixels (9 of 7 frames and 1 of 1), in
+    ``Kernels.path`` (kernel inputs kept and held against the plain
+    versions).  Gates: the 64 streams' total bytes and SHA-256 equal the
+    JAX package's, each stream equals the single-stream encoder's on the
+    card, and each encode kernel launched once a sub-batch (the transpose
+    twice).  Then warm MP/s of the batch in turns with a loop of the
+    single-stream encoder over the same frames, the copies and the peak
+    memory of one 7-frame sub-batch, and each kernel's wrapper time at the
+    7-frame shape beside its bound (into ``rows``)."""
+    from dwt_tpu_torch.codec import encoder, tiled
+
+    t_phase = time.perf_counter()
+    frames = batch_frames()
+    progress(f"batch: {BATCH_N} frames {BATCH_W}x{BATCH_H}x{C} made, "
+             f"{time.perf_counter() - t_phase:.1f} s")
+    enc = tiled.get_batch_encoder(BATCH_W, BATCH_H, C)
+    sub = enc.MAX_PIXELS_PER_DISPATCH // enc.pyr.total
+    nsub = -(-BATCH_N // sub)
+    store, counts = {}, {}
+    t0 = time.perf_counter()
+    with K.path("batch encode", store, counts):
+        streams = enc.encode_batch(frames)
+    secs = time.perf_counter() - t0
+    blob = b"".join(streams)
+    digest = hashlib.sha256(blob).hexdigest()
+    progress(f"batch: encode_batch of {BATCH_N} frames in {nsub} "
+             f"sub-batches ({sub} frames a sub-batch at most) -> {len(blob)} "
+             f"bytes, sha256 {digest[:16]}, {secs:.2f} s cold (kernel inputs "
+             f"kept); launches {counts}")
+    if (len(blob), digest) != (BATCH_BYTES, BATCH_SHA256):
+        raise AssertionError(f"the batch's streams differ from the JAX "
+                             f"package's: {len(blob)} bytes, sha256 {digest}")
+    want = {k: n * nsub for k, n in BATCH_KERNELS.items()}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"batch launches {counts}: want {want}, one a "
+                             f"sub-batch")
+    progress(f"batch: launches one a sub-batch: {want} (compact_tokens: a "
+             f"count and a place launch each); a loop over the frames would "
+             f"make {BATCH_N} and {2 * BATCH_N}")
+    progress(f"batch: kernels equal to their plain versions: "
+             f"{held_line(K.hold(store))}")
+
+    single = encoder.get_encoder(BATCH_W, BATCH_H, C)
+    mp = BATCH_N * BATCH_W * BATCH_H / 1e6
+    rates = {"batch": [], "single": []}
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = enc.encode_batch(frames)
+        rates["batch"].append(mp / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        ones = [single.encode(f) for f in frames]
+        rates["single"].append(mp / (time.perf_counter() - t0))
+        if again != streams:
+            raise AssertionError("a warm batch encode differs from the first")
+        bad = [i for i, (a, b) in enumerate(zip(ones, streams)) if a != b]
+        if bad:
+            raise AssertionError(f"batch streams {bad} differ from the "
+                                 f"single-stream encoder's")
+    progress(f"batch: each of the {BATCH_N} streams equal to the "
+             f"single-stream encoder's on the card (three passes)")
+    progress(f"timing: warm batch encode of {mp:.1f} MP, MP/s: batch "
+             + ", ".join(f"{m:.2f}" for m in rates["batch"])
+             + "; single-stream encoder looped over the frames "
+             + ", ".join(f"{m:.2f}" for m in rates["single"])
+             + f" (in turns) on {card}")
+
+    seven = frames[:sub]
+    moved = copies(torch, lambda: enc.encode_raw(seven))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    enc.encode_raw(seven)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    progress(f"profile: one {sub}-frame sub-batch ({sub * BATCH_W * BATCH_H} "
+             f"pixels): {moved['DtoH']} device-to-host and {moved['HtoD']} "
+             f"host-to-device copies; peak memory "
+             f"{peak / 2**30:.2f} GiB allocated ({(peak - base) / 2**30:.2f} "
+             f"GiB above the {base / 2**30:.2f} GiB held before it), "
+             f"max_memory_allocated, on {card}")
+
+    # Each kernel's wrapper at the 7-frame shape (the first sub-batch's
+    # kept call; the transposes summed), beside its bound.
+    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    calls = {
+        "hilbert_gather": lambda a: hilbert_gather.hilbert_gather(*a),
+        "compact_tokens": lambda a: compact.compact_tokens(*a[:4]),
+        "pack_words": lambda a: pack.pack_words(*a, order_flag=flag),
+        "transpose2d": lambda a: transpose.transpose2d(*a),
+    }
+    parts = []
+    for row in rows:
+        name = row["name"]
+        if name not in BATCH_KERNELS:
+            continue
+        kept = store[name][:BATCH_KERNELS[name]]
+        if name == "scatter_refbits":
+            ms = sum(time_ms(torch, compact.scatter_refbits, setup=lambda a=a: (
+                a[0], a[1], a[2].clone(), a[3], a[4])) for a in kept)
+        else:
+            ms = sum(time_ms(torch, lambda a=a: calls[name](a)) for a in kept)
+        bound = sum(encode_kernel_bytes(torch, name, a)
+                    for a in kept) / HBM_BYTES_PER_S * 1e3
+        row.update(batch_launches=counts[name], batch_ms=ms,
+                   batch_bound_ms=bound)
+        shapes = [tuple(a[0].shape) for a in kept]
+        parts.append(f"{name} {shapes} {ms:.3f} ms, bound {bound:.3f} ms, "
+                     f"share {bound / ms:.2f}")
+    progress(f"kernels: batch of {sub} frames, each wrapper at its kept "
+             f"call: " + "; ".join(parts))
+    del store
+    torch.cuda.empty_cache()
+    progress(f"batch: phase 9 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -1666,6 +1878,9 @@ def main(argv: list) -> int:
     entry_points(img)
     budget_cases(torch)
     progress(f"entry points: phase 8 {time.perf_counter() - t0:.1f} s")
+
+    # 9. the batch throughput mode: BASELINE config 4
+    batch_phase(torch, K, rows, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)

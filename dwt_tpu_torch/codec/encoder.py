@@ -6,7 +6,10 @@ and the emit half (codec/emit.py), writing the same ``.dwt`` bytes as the
 JAX package and the reference C encoder.  Five CUDA kernels run on the
 path: the linearization gather (and its one-time probe when an encoder
 is built), compaction kernels A and B, the VLI scan's transposes and the
-codeword packer.
+codeword packer.  The stages take a leading frame axis:
+``Encoder.stage1_frames`` and ``Encoder.emit_frames`` run N frames of the
+geometry through one pipeline (``codec/tiled.py``'s batch mode), and one
+stream is the case N = 1 (``Encoder.stage1``, ``Encoder.emit``).
 
 A byte budget (``capacity > 0``) masks the schedule steps that start past
 it before stage 2 (``_truncate_schedule``), and ``encode`` routes to the
@@ -24,11 +27,12 @@ import numpy as np
 import torch
 
 from ..geometry import compute_pyramid
-from ..ops import pack
+from ..ops import compact, pack
 from ..ops.hilbert_gather import engine_supported
-from .emit import _stage2_emit
-from .stage1 import (ALIGN, NSTATE, PMAX, _transform_and_stats,
-                     gather_source)
+from .emit import _stage2_emit, _stream_words
+# _check_planes is the encoder's too (its callers and tests reach it here).
+from .stage1 import (ALIGN, NSTATE, PMAX, _check_planes,  # noqa: F401
+                     _transform_and_stats, frame, gather_source, one_frame)
 from .tokens import _stage2_tokens
 
 # Coefficient ceiling of one .dwt stream (as in the JAX package): beyond it
@@ -40,24 +44,43 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _check_planes(planes_max: int) -> int:
-    """Magnitudes must stay below 2^29 (bits 29/30 are the sig/ref flags,
-    encode.c:115-128): more planes cannot be coded by the format."""
-    if planes_max > PMAX:
+def _check_batch(n: int, nlin: int, pyr, channels: int,
+                 padded_T: int) -> None:
+    """The int32 bounds of one stage-2 launch over ``n`` frames laid end to
+    end at token bucket ``padded_T`` (``nlin``: the linearized length of a
+    channel): the pack kernel's word indices and kernel B's word windows
+    (n stream buffers), kernel A's pair windows (n pair buffers), the
+    packed elements' index and the token slots must stay below 2^31.
+    Raises before anything is allocated: a sub-batch is never split behind
+    the caller's back (lower ``BatchEncoder.MAX_PIXELS_PER_DISPATCH``
+    instead)."""
+    need = {
+        "stream words": n * _stream_words(pyr, channels, padded_T),
+        "token pairs": n * (padded_T // 2 + compact.WTOK_BIG + 256),
+        "packed elements": n * channels * nlin + compact.E,
+        "token slots": n * (padded_T + 1),
+    }
+    over = {k: v for k, v in need.items() if v >= 2**31}
+    if over:
         raise ValueError(
-            f"coefficient magnitude needs {planes_max} bitplanes; the format "
-            f"supports at most {PMAX} (magnitudes < 2^29, reference "
-            "encode.c:115-128)")
-    return planes_max
+            f"a sub-batch of {n} {pyr.width}x{pyr.height} frames at token "
+            f"bucket {padded_T} needs {over}, past the kernels' int32 "
+            "indices (2^31); encode fewer frames a sub-batch")
 
 
-def _total_bits_host(bits_parts, order_flag) -> int:
-    """Exact stream bit count from the int32 partial sums, totaled in
-    Python ints so nothing can wrap, after the pack kernel's order check
-    (:func:`pack.check_order`): one device-to-host copy for both."""
-    host = torch.cat([bits_parts, order_flag]).cpu().numpy()
-    pack.check_order(host[-1:])
-    return int(host[:-1].astype(np.int64).sum())
+def _host_totals(bits_parts, order_flag, layer_ends) -> tuple:
+    """Exact stream bit count of each frame from the (N, K) int32 partial
+    sums, totaled in Python ints so nothing can wrap, after the pack
+    kernel's order check (:func:`pack.check_order`), and the (N, LMAX)
+    layer-end bit offsets as int64: one device-to-host copy for the
+    sub-batch.  Returns (list of totals, layer ends)."""
+    n, k = bits_parts.shape
+    host = torch.cat([order_flag, bits_parts.reshape(-1),
+                      layer_ends.reshape(-1)]).cpu().numpy()
+    pack.check_order(host[:1])
+    parts = host[1:1 + n * k].reshape(n, k).astype(np.int64)
+    return ([int(t) for t in parts.sum(axis=1)],
+            host[1 + n * k:].reshape(n, -1).astype(np.int64))
 
 
 def _check_stream_bits(total_bits: int) -> int:
@@ -95,11 +118,12 @@ def _ilog2_host(x: int) -> int:
 
 def _root_bits_host(stats, pix0: int) -> int:
     """Exact bit count of the root-band coding (encode.c:97-110), replayed
-    on the host from the stage-1 stats: per channel one VLI(cnt) through
-    the adaptive order chain (which starts at 0), then cnt raw bits per
-    coefficient and one sign bit per nonzero."""
-    root_cnt = np.asarray(torch.as_tensor(stats["root_cnt"]).cpu())
-    root_base = np.asarray(torch.as_tensor(stats["root_base"]).cpu())
+    on the host from the stage-1 stats' host copy (:func:`host_stats`):
+    per channel one VLI(cnt) through the adaptive order chain (which
+    starts at 0), then cnt raw bits per coefficient and one sign bit per
+    nonzero."""
+    root_cnt = np.asarray(stats["root_cnt"])
+    root_base = np.asarray(stats["root_base"])
     planes_base = int(stats["planes_base"])
     ends = np.concatenate([root_base[1:], [planes_base]])
     bits = 0
@@ -125,19 +149,46 @@ _PATCH_DTYPES = {"valid": torch.bool, "refrun_ok": torch.bool,
                  "nS_sched": torch.int32, "T": torch.int32}
 
 
-def host_stats(stats) -> dict:
-    """Numpy copies of the stats leaves that the schedule cuts read."""
-    return {k: np.asarray(torch.as_tensor(stats[k]).cpu())
-            for k in _TRUNC_STATS_KEYS}
+def host_stats(stats, keys: tuple = _TRUNC_STATS_KEYS) -> dict:
+    """Numpy copies of the stats leaves ``keys`` (by default those that the
+    schedule cuts read), with the stats' leading frame axis if they have
+    one (:func:`frame` takes a frame's): one device-to-host copy."""
+    ts = [torch.as_tensor(stats[k]) for k in keys]
+    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts]).cpu()
+    out, o = {}, 0
+    for k, t in zip(keys, ts):
+        v = flat[o:o + t.numel()].reshape(t.shape)
+        out[k] = (v != 0 if t.dtype == torch.bool else v).numpy()
+        o += t.numel()
+    return out
 
 
 def patch_stats(stats, upd: dict) -> dict:
-    """``stats`` with the leaves of a schedule cut (numpy) replaced by
-    tensors on the stats' device, in the stage-1 dtypes."""
+    """One frame's ``stats`` with the leaves of a schedule cut (numpy)
+    replaced by tensors on the stats' device, in the stage-1 dtypes."""
     dev = stats["order"].device
     return {**stats, **{k: torch.as_tensor(v, dtype=_PATCH_DTYPES[k],
                                            device=dev)
                         for k, v in upd.items()}}
+
+
+def patch_frames(stats, upds: dict) -> dict:
+    """Batched ``stats`` with frame i's leaves replaced by the schedule
+    cut ``upds[i]`` (numpy, as :func:`patch_stats` takes), for each frame
+    of ``upds``: one host-to-device copy a leaf.  The given stats are left
+    as they were."""
+    if not upds:
+        return stats
+    dev = stats["order"].device
+    ids = sorted(upds)
+    rows = torch.as_tensor(ids, device=dev)
+    out = dict(stats)
+    for k, dt in _PATCH_DTYPES.items():
+        t = stats[k].clone()
+        t[rows] = torch.as_tensor(np.stack([upds[i][k] for i in ids]),
+                                  dtype=dt, device=dev)
+        out[k] = t
+    return out
 
 
 def _step_lb_bits(sh: dict) -> np.ndarray:
@@ -294,37 +345,57 @@ class Encoder:
     def encode(self, img: np.ndarray, capacity: int = 0) -> bytes:
         return self.encode_with_stats(img, capacity)[0]
 
-    def stage1(self, img: np.ndarray) -> tuple:
-        """Stage 1 of one (H, W, C) or (H, W) image: (lin, stats) on the
-        encoder's device."""
-        img = np.asarray(img)
-        if img.ndim == 2:
-            img = img[..., None]
-        if img.shape != (self.pyr.height, self.pyr.width, self.channels):
-            raise ValueError(
-                f"image shape {img.shape} does not match the encoder's "
-                f"{(self.pyr.height, self.pyr.width, self.channels)}")
-        lin, stats = _transform_and_stats(
-            torch.as_tensor(img, device=self.device), self.pyr,
+    def stage1_frames(self, imgs: np.ndarray) -> tuple:
+        """Stage 1 of N (N, H, W, C) or (N, H, W) frames in one pipeline:
+        (lin, stats) on the encoder's device, every leaf with a leading
+        frame axis.  Raises if a frame needs more planes than the format
+        holds."""
+        imgs = np.asarray(imgs)
+        if imgs.ndim == 3:
+            imgs = imgs[..., None]
+        shape = (self.pyr.height, self.pyr.width, self.channels)
+        if imgs.ndim != 4 or imgs.shape[1:] != shape:
+            raise ValueError(f"frames of shape {imgs.shape[1:]} do not "
+                             f"match the encoder's {shape}")
+        return _transform_and_stats(
+            torch.as_tensor(imgs, device=self.device), self.pyr,
             self.channels, self.gray, self._src)
-        _check_planes(int(stats["planes_max"]))
-        return lin, stats
 
-    def emit(self, lin, stats, padded_T: int) -> tuple:
-        """Stage 2 at token bucket ``padded_T`` (>= T).  Returns (payload
-        bytes without the header, total bits, (LMAX,) int32 layer-end bit
-        offsets on the device)."""
+    def emit_frames(self, lin, stats, padded_T: int) -> tuple:
+        """Stage 2 of N frames (``stage1_frames``' output) at token bucket
+        ``padded_T`` (>= every frame's T), each kernel launched once for
+        the N frames.  Returns (payloads without the header, total bits,
+        (N, LMAX) int64 layer-end bit offsets)."""
         pyr, C = self.pyr, self.channels
+        _check_batch(lin.shape[0], lin.shape[-1], pyr, C, padded_T)
         tv, tr, tf, orders, vmag, com = _stage2_tokens(lin, stats, pyr, C,
                                                        padded_T)
         order_flag = torch.zeros(1, dtype=torch.int32, device=self.device)
         words, bits_parts, _, layer_ends = _stage2_emit(
             lin, stats, tv, tr, tf, orders, vmag, com, pyr, C, padded_T,
             order_flag)
-        total_bits = _check_stream_bits(_total_bits_host(bits_parts,
-                                                          order_flag))
-        return (_stream_words_bytes(words, (total_bits + 7) // 8), total_bits,
-                layer_ends)
+        totals, ends = _host_totals(bits_parts, order_flag, layer_ends)
+        totals = [_check_stream_bits(t) for t in totals]
+        return ([_stream_words_bytes(words[i], (t + 7) // 8)
+                 for i, t in enumerate(totals)], totals, ends)
+
+    def stage1(self, img: np.ndarray) -> tuple:
+        """Stage 1 of one (H, W, C) or (H, W) image: (lin, stats) on the
+        encoder's device, the N = 1 case of :meth:`stage1_frames` (frame
+        0's views)."""
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = img[..., None]
+        lin, stats = self.stage1_frames(img[None])
+        return lin[0], frame(stats, 0)
+
+    def emit(self, lin, stats, padded_T: int) -> tuple:
+        """Stage 2 of one image at token bucket ``padded_T`` (>= T), the N
+        = 1 case of :meth:`emit_frames`.  Returns (payload bytes without
+        the header, total bits, (LMAX,) int64 layer-end bit offsets)."""
+        payloads, totals, ends = self.emit_frames(lin[None],
+                                                  one_frame(stats), padded_T)
+        return payloads[0], totals[0], ends[0]
 
     def encode_with_stats(self, img: np.ndarray, capacity: int = 0) -> tuple:
         """Returns (stream bytes, info dict) — the structured counterpart of
@@ -361,14 +432,16 @@ class Encoder:
                     back.reshape(img.shape), img):
                 raise AssertionError(
                     "DWT_SELFCHECK: stream does not decode to the input")
-        le = layer_ends.cpu().numpy()
+        le = layer_ends
+        sh = host_stats(stats, ("root_cnt", "root_base", "planes_base",
+                                "planes"))
         info = {
             "tokens": T,
             "payload_bits": total_bits,
             "meta_bits": 8 * len(self.header()),
-            "root_bits": _root_bits_host(stats, pyr.pixels[0]),
+            "root_bits": _root_bits_host(sh, pyr.pixels[0]),
             "bytes": len(stream),
-            "planes": stats["planes"].cpu().tolist(),
+            "planes": sh["planes"].tolist(),
             "levels": pyr.levels,
             "layer_end_bytes": np.unique(
                 (le[le < 2**31 - 1] + 7) // 8).tolist(),

@@ -2,9 +2,11 @@
 
 Port of the stage-1 half of ``dwt_tpu/codec/encoder.py`` (``_Segs``,
 ``_plane_stats``, ``_linearize``, ``_stats_from_lin``,
-``_transform_and_stats``).  Every ``stats`` key keeps the JAX package's
-name, shape, dtype and value (as the JAX package computes them on the
-CPU).
+``_transform_and_stats``).  Every function takes a leading frame axis:
+N same-geometry frames go through one pipeline (the JAX package's
+functions under ``jax.vmap``), and one stream is the case N = 1.  Every
+``stats`` key keeps the JAX package's name, dtype and value (as the JAX
+package computes them on the CPU), with a leading N.
 
 Token ranks, not state machines: at plane p a coefficient with
 significance plane q (MSB index of |coeff|) is a zero-run member when
@@ -99,13 +101,21 @@ class _Segs:
         self.block_chunk = torch.as_tensor(
             np.repeat(np.arange(self.nchunk), [ln // 512 for ln in ch_len]),
             device=self.device)
-
-    def sizes_t(self) -> torch.Tensor:
-        return torch.as_tensor(self.sizes, device=self.device)
+        # The tables above as int32 tensors on the device, made once (a
+        # host-to-device copy a call otherwise).
+        t = functools.partial(torch.as_tensor, dtype=_I32, device=self.device)
+        self.sizes_t = t(self.sizes)
+        self.real_t = t(self.real)
+        self.level_nchunk_t = t(self.level_nchunk)
+        self.level_chunk_base_t = t(self.level_chunk_base)
+        self.ch_start_t = t(self.ch_start)
+        self.ch_len_t = t(self.ch_len)
+        self.ch_valid_t = t(self.ch_valid)
+        self.chunk_level_t = t(np.repeat(np.arange(self.L), lv_cnt))
 
     def bcast(self, small: torch.Tensor) -> torch.Tensor:
         """(C, L) per-segment values -> (C, n) per-element."""
-        return torch.repeat_interleave(small, self.sizes_t(), dim=1)
+        return torch.repeat_interleave(small, self.sizes_t, dim=1)
 
     def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """(C, n) -> (C, L) per-segment int32 sums."""
@@ -133,12 +143,12 @@ class _Segs:
             dim=1)
 
     def level_excl_cumsum(self, x_ck: torch.Tensor) -> torch.Tensor:
-        """Exclusive cumsum over the chunk axis (dim 1), restarting per
-        level.  Works on (C, nchunk) or (C, nchunk, P)."""
+        """Exclusive cumsum over the chunk axis, restarting per level, of
+        (..., nchunk, P)."""
         return torch.cat(
-            [_excl_cumsum(x_ck[:, b : b + c], dim=1)
+            [_excl_cumsum(x_ck[..., b : b + c, :], dim=-2)
              for b, c in zip(self.level_chunk_base, self.level_nchunk)],
-            dim=1)
+            dim=-2)
 
 
 @functools.lru_cache(maxsize=16)
@@ -148,17 +158,19 @@ def segs_for(pyr: Pyramid, device) -> _Segs:
 
 
 def _detail_q(lin, segs: _Segs):
-    """(C, n) significance plane of each padded detail element (-1 = zero
-    or pad), and the (1, n) validity mask."""
-    det = lin[:, segs.root_pad :]
+    """(..., C, n) significance plane of each padded detail element of
+    (..., C, nlin) ``lin`` (-1 = zero or pad), and the (1, n) validity
+    mask."""
+    det = lin[..., segs.root_pad :]
     valid = segs.valid_t[None, :]
     mag = det.abs()
     return torch.where((mag > 0) & valid, _ilog2(mag), -1), valid
 
 
 def _plane_stats(q, valid, segs: _Segs, C: int, L: int, planes_max):
-    """(C, L, PMAX) / (C, nchunk, PMAX) per-plane token statistics in
-    three fused one-hot passes: per-512-block plane histograms,
+    """(C, L, PMAX) / (C, nchunk, PMAX) per-plane token statistics of the
+    C rows of ``q`` (the frames' channels, flattened) in three fused
+    one-hot passes: per-512-block plane histograms,
     last-significant positions and boundary-prefix zero counts.
 
     trailZ(c, l, p) — zeros after the level's last newly significant
@@ -217,8 +229,7 @@ def _plane_stats(q, valid, segs: _Segs, C: int, L: int, planes_max):
     nS = lvl(nS_ck, lambda s: s.sum(dim=1, dtype=_I32))
     nZ = lvl(nZ_ck, lambda s: s.sum(dim=1, dtype=_I32))
     lastS = lvl(lastS_ck, lambda s: s.amax(dim=1))  # (C, L, PMAX)
-    lastS_cc = torch.repeat_interleave(
-        lastS, torch.as_tensor(segs.level_nchunk, device=dev), dim=1)
+    lastS_cc = lastS[:, segs.chunk_level_t]  # (C, nchunk, PMAX)
     zcar = segs.level_excl_cumsum(nZ_ck)
     is_k = (lastS_ck == lastS_cc) & (lastS_ck >= 0)
     z_upto = lvl(torch.where(is_k, zcar + zup_ck, 0),
@@ -251,10 +262,22 @@ def _plane_stats_loop(q, valid, segs: _Segs, C: int, L: int, planes_max):
     return nS, nZ, trailZ, nS_ck, nZ_ck
 
 
-def _transform_and_stats(img, pyr: Pyramid, channels: int, gray: bool, src):
-    """(H, W, C) image -> (lin, stats).  ``src``: the gather's source index
-    (see :func:`gather_source`)."""
-    data = img.to(_I32)
+def _check_planes(planes_max: int) -> int:
+    """Magnitudes must stay below 2^29 (bits 29/30 are the sig/ref flags,
+    encode.c:115-128): more planes cannot be coded by the format."""
+    if planes_max > PMAX:
+        raise ValueError(
+            f"coefficient magnitude needs {planes_max} bitplanes; the format "
+            f"supports at most {PMAX} (magnitudes < 2^29, reference "
+            "encode.c:115-128)")
+    return planes_max
+
+
+def _transform_and_stats(imgs, pyr: Pyramid, channels: int, gray: bool,
+                         src):
+    """(N, H, W, C) frames -> (lin, stats).  ``src``: the gather's source
+    index (see :func:`gather_source`)."""
+    data = imgs.to(_I32)
     if not gray:
         data = rgb_to_ycocg(data)
     coeff = dwt2d_fwd(data, pyr)
@@ -273,90 +296,109 @@ def gather_source(pyr: Pyramid) -> np.ndarray:
 
 
 def _linearize(coeff, src, pyr: Pyramid, channels: int):
-    """(H, W, C) coefficients -> (C, nlin) padded scan-order layout: the
-    gather kernel places the detail bands (pads stay 0), then the root
-    band is written as a dense raster crop."""
+    """(N, H, W, C) coefficients -> (N, C, nlin) padded scan-order layout:
+    the gather kernel places every frame's detail bands in one launch (pads
+    stay 0), then the root bands are written as dense raster crops."""
     lin = hilbert_gather(coeff.contiguous(), src)
-    h0, w0 = pyr.heights[0], pyr.widths[0]
-    lin[:, : h0 * w0] = coeff[:h0, :w0, :].reshape(h0 * w0, channels).T
+    n, h0, w0 = coeff.shape[0], pyr.heights[0], pyr.widths[0]
+    lin[:, :, : h0 * w0] = coeff[:, :h0, :w0, :].reshape(
+        n, h0 * w0, channels).transpose(1, 2)
     return lin
 
 
-def _carry_chain(carry0: int, valid_s, nS_s, nZ_s, trailZ_s, nRef_s):
-    """Zero-run carry chain over the schedule steps (rle.h cnt threading),
-    on the host: the chain has C * L * PMAX steps, a few hundred to a few
-    thousand, and is sequential."""
-    S = valid_s.shape[0]
-    carry_in = np.zeros(S, np.int32)
-    refrun_val = np.zeros(S, np.int32)
-    refrun_ok = np.zeros(S, bool)
-    carry = carry0
-    for i in range(S):
-        v, s_cnt, z_cnt = bool(valid_s[i]), int(nS_s[i]), int(nZ_s[i])
-        t_z, r_cnt = int(trailZ_s[i]), int(nRef_s[i])
-        rv = t_z if s_cnt > 0 else carry + z_cnt
-        carry_in[i] = carry
-        refrun_val[i] = rv
-        refrun_ok[i] = v and r_cnt > 0 and rv > 0
-        if v:
-            carry = 0 if r_cnt > 0 else rv
-    return carry_in, refrun_val, refrun_ok, carry
+def _carry_chain(carry0, valid_s, nS_s, nZ_s, trailZ_s, nRef_s):
+    """Zero-run carry chain over the schedule steps (rle.h cnt threading)
+    of N frames, on the host: ``carry0`` (N,), the rest (N, S) in schedule
+    order.  The chain has C * L * PMAX steps a frame, a few hundred to a
+    few thousand, and is sequential.  Returns (N, 3, S) int32 carry_in,
+    refrun_val and refrun_ok (0/1), and the (N,) carry at the end."""
+    N, S = valid_s.shape
+    out = np.zeros((N, 3, S), np.int32)
+    ends = np.zeros(N, np.int32)
+    for f in range(N):
+        cin, rrv, rro = [], [], []
+        carry = int(carry0[f])
+        for v, s_cnt, z_cnt, t_z, r_cnt in zip(
+                *(a[f].tolist() for a in (valid_s, nS_s, nZ_s, trailZ_s,
+                                          nRef_s))):
+            rv = t_z if s_cnt > 0 else carry + z_cnt
+            cin.append(carry)
+            rrv.append(rv)
+            rro.append(v and r_cnt > 0 and rv > 0)
+            if v:
+                carry = 0 if r_cnt > 0 else rv
+        out[f] = cin, rrv, rro
+        ends[f] = carry
+    return out, ends
 
 
 def _stats_from_lin(lin, pyr: Pyramid, channels: int):
-    """Stage-1 statistics from the linearized coefficients."""
+    """Stage-1 statistics of N frames from their (N, C, nlin) linearized
+    coefficients: every leaf with a leading frame axis.  One
+    device-to-host copy (the carry chain's inputs and each frame's
+    planes_max, checked here by :func:`_check_planes`) and one
+    host-to-device copy (the chain's results) for the N frames."""
     dev = lin.device
+    N = lin.shape[0]
     pix0 = pyr.pixels[0]
     L, C = pyr.levels, channels
+    S = C * L * PMAX
     segs = segs_for(pyr, dev)
 
-    root = lin[:, :pix0]
-    q, valid = _detail_q(lin, segs)
+    root = lin[:, :, :pix0]
+    q, valid = _detail_q(lin, segs)  # (N, C, n)
 
-    planes = (1 + q.amax(dim=1)).to(_I32)  # (C,)
-    planes_max = planes.max()
+    planes = (1 + q.amax(dim=2)).to(_I32)  # (N, C)
+    planes_max = planes.amax(dim=1)  # (N,)
 
-    nS, nZ, trailZ, nS_ck, nZ_ck = _plane_stats(q, valid, segs, C, L,
-                                                planes_max)
-    nums = torch.as_tensor(segs.real, dtype=_I32, device=dev)
-    p_ix = torch.arange(PMAX, dtype=_I32, device=dev)[None, None, :]
-    nRef = torch.where(p_ix < planes_max, nums[None, :, None] - nZ - nS, 0)
+    nS, nZ, trailZ, nS_ck, nZ_ck = (
+        x.reshape(N, C, *x.shape[1:]) for x in _plane_stats(
+            q.reshape(N * C, -1), valid, segs, N * C, L, planes_max))
+    pm = planes_max[:, None, None, None]
+    p_ix = torch.arange(PMAX, dtype=_I32, device=dev)[None, None, None, :]
+    nRef = torch.where(p_ix < pm, segs.real_t[None, None, :, None] - nZ - nS,
+                       0)
 
-    # --- schedule order over the (C, L, PMAX) step grid -------------------
-    c_ix = torch.arange(C, dtype=_I32, device=dev)[:, None, None]
-    l_ix = torch.arange(L, dtype=_I32, device=dev)[None, :, None]
+    # --- schedule order over each frame's (C, L, PMAX) step grid ----------
+    c_ix = torch.arange(C, dtype=_I32, device=dev)[None, :, None, None]
+    l_ix = torch.arange(L, dtype=_I32, device=dev)[None, None, :, None]
     sec = (c_ix > 0).to(_I32)
-    layers = torch.where(sec == 0, planes_max - 2 - p_ix + l_ix,
-                         planes_max - 1 - p_ix + l_ix)
-    valid = (p_ix < planes[:, None, None]).expand(C, L, PMAX)
+    layers = torch.where(sec == 0, pm - 2 - p_ix + l_ix,
+                         pm - 1 - p_ix + l_ix)
+    valid = (p_ix < planes[:, :, None, None]).expand(N, C, L, PMAX)
     key = ((layers + 1) << 16) | (sec << 12) | (l_ix << 6) | c_ix
-    key = torch.where(valid, key, 2**30).reshape(-1)
-    order = torch.argsort(key, stable=True)  # schedule order of flat steps
+    key = torch.where(valid, key, 2**30).reshape(N, S)
+    order = torch.argsort(key, dim=1, stable=True)  # schedule order of steps
 
-    nS_s = nS.reshape(-1)[order]
-    nZ_s = nZ.reshape(-1)[order]
-    trailZ_s = trailZ.reshape(-1)[order]
-    nRef_s = nRef.reshape(-1)[order]
-    valid_s = valid.reshape(-1)[order]
+    def sched(x):
+        return x.reshape(N, S).gather(1, order)
+
+    nS_s, nZ_s, trailZ_s, nRef_s = map(sched, (nS, nZ, trailZ, nRef))
+    valid_s = sched(valid)
 
     # When planes_max == 0 the degenerate pre-step (plane index -1,
     # encode.c:190-194) contributes chunk 0's positions as pure zeros.
-    pm = int(planes_max)
-    host = [t.cpu().numpy() for t in (valid_s, nS_s, nZ_s, trailZ_s, nRef_s)]
-    cin, rrv, rro, carry_end = _carry_chain(
-        segs.real[0] if pm == 0 else 0, *host)
-    carry_in_s = torch.as_tensor(cin, device=dev)
-    refrun_val_s = torch.as_tensor(rrv, device=dev)
-    refrun_ok_s = torch.as_tensor(rro, device=dev)
+    host = torch.cat([x.to(_I32) for x in (
+        valid_s, nS_s, nZ_s, trailZ_s, nRef_s, planes_max[:, None])],
+        dim=1).cpu().numpy()
+    pm_host = host[:, 5 * S]
+    _check_planes(int(pm_host.max()))
+    chain, carry_end = _carry_chain(
+        np.where(pm_host == 0, segs.real[0], 0),
+        *(host[:, k * S:(k + 1) * S] for k in range(5)))
+    back = torch.as_tensor(np.concatenate(
+        [chain.reshape(N, 3 * S), carry_end[:, None]], axis=1), device=dev)
+    carry_in_s, refrun_val_s = back[:, :S], back[:, S:2 * S]
+    refrun_ok_s = back[:, 2 * S:3 * S] != 0
 
     # --- token counts / bases ---------------------------------------------
-    root_max = root.abs().amax(dim=1)
+    root_max = root.abs().amax(dim=2)
     root_cnt = torch.where(root_max > 0,
                            1 + _ilog2(root_max.clamp(min=1)), 0).to(_I32)
-    nnz_root = (root != 0).sum(dim=1, dtype=_I32)
+    nnz_root = (root != 0).sum(dim=2, dtype=_I32)
     root_tokens = (1 + torch.where(root_cnt > 0, pix0 + nnz_root, 0)).to(_I32)
     root_base = _excl_cumsum(root_tokens)
-    planes_base = root_tokens.sum(dtype=_I32)
+    planes_base = root_tokens.sum(dim=1, dtype=_I32)  # (N,)
     steps_base0 = planes_base + C
 
     # Refinement bits are not tokens: they are raw bits at closed-form
@@ -369,19 +411,16 @@ def _stats_from_lin(lin, pyr: Pyramid, channels: int):
     cnt_s = torch.where(valid_s, 2 * nS_s + refrun_ok_s.to(_I32), 0)
     cnt_al = (cnt_s + 1) // 2 * 2
     steps_base0_al = (steps_base0 + 1) // 2 * 2
-    base_s = (steps_base0_al + _excl_cumsum(cnt_al)).to(_I32)
-    T = (steps_base0_al + cnt_al.sum(dtype=_I32) + 1).to(_I32)  # + flush
+    base_s = (steps_base0_al[:, None] + _excl_cumsum(cnt_al)).to(_I32)
+    T = (steps_base0_al + cnt_al.sum(dim=1, dtype=_I32) + 1).to(_I32)  # flush
     # Refinement-bit injection site of a step: the next step's base.
-    inj_pos_s = torch.cat([base_s[1:], (T - 1)[None]]).to(_I32)
+    inj_pos_s = torch.cat([base_s[:, 1:], (T - 1)[:, None]], dim=1).to(_I32)
     nref_v = torch.where(valid_s, nRef_s, 0)
     refpfx_s = _excl_cumsum(nref_v).to(_I32)
 
-    S = C * L * PMAX
-
     def unsort(x):
-        out = torch.zeros(S, dtype=x.dtype, device=dev)
-        out[order] = x
-        return out.reshape(C, L, PMAX)
+        out = torch.zeros((N, S), dtype=x.dtype, device=dev)
+        return out.scatter_(1, order, x).reshape(N, C, L, PMAX)
 
     return lin, dict(
         planes=planes, planes_max=planes_max,
@@ -395,15 +434,26 @@ def _stats_from_lin(lin, pyr: Pyramid, channels: int):
         refrun_val=unsort(refrun_val_s),
         refrun_ok=unsort(refrun_ok_s),
         valid=valid.contiguous(),
-        carry_end=torch.tensor(carry_end, dtype=_I32, device=dev),
+        carry_end=back[:, 3 * S].contiguous(),
         T=T,
         order=order.to(_I32),
         nS_ck=nS_ck,
         nZ_ck=nZ_ck,
-        # Schedule-ordered (S,) step views for the token finisher and the
+        # Schedule-ordered (N, S) step views for the token finisher and the
         # kernel metadata.
         base_sched=base_s,
         nS_sched=torch.where(valid_s, nS_s, 0),
         cin_sched=carry_in_s,
         valid_sched=valid_s,
     )
+
+
+def frame(tree: dict, i: int) -> dict:
+    """Frame ``i`` of batched stats (tensors or their numpy host copies):
+    every leaf indexed on its leading axis (views)."""
+    return {k: v[i] for k, v in tree.items()}
+
+
+def one_frame(tree: dict) -> dict:
+    """Single-frame stats as a batch of one (views)."""
+    return {k: v[None] for k, v in tree.items()}

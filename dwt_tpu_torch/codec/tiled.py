@@ -3,11 +3,13 @@
 Port of ``dwt_tpu/codec/tiled.py``.  Two capabilities beyond the
 reference's single-stream format:
 
-* **Batch mode** (:class:`BatchEncoder`): many same-geometry frames or
-  tiles.  Each frame of a sub-batch runs the single-stream encoder's
-  stage 1 and stage 2 (so its kernels launch once per frame), at the
-  sub-batch's shared token bucket, as the JAX package's vmapped program
-  does.
+* **Batch throughput mode** (:class:`BatchEncoder`): many same-geometry
+  frames or tiles.  A sub-batch of frames (at most
+  ``MAX_PIXELS_PER_DISPATCH`` pixels) goes through one device pipeline
+  with a leading frame axis, at the sub-batch's shared token bucket, as
+  the JAX package's vmapped program does: each encode kernel launches
+  once a sub-batch, and the host copies once a sub-batch, not once a
+  frame (BASELINE config 4, "batch-of-64 1080p").
 
 * **Tiled container** (:func:`encode_tiled` / :func:`decode_tiled`): an
   image split into independently coded tiles with a per-tile length
@@ -32,7 +34,6 @@ import functools
 import struct
 
 import numpy as np
-import torch
 
 from ..parallel.tiled import allocate_budget
 from . import decoder as _decoder
@@ -45,10 +46,10 @@ VERSION = 1
 
 class BatchEncoder:
     """Encodes batches of same-size images on one device (``device``
-    defaults to the CUDA card)."""
+    defaults to the CUDA card), one pipeline a sub-batch."""
 
-    # Pixels a sub-batch: bounds the stage-1 outputs held on the device at
-    # once (as the JAX package bounds one vmapped dispatch).
+    # Pixels a sub-batch: bounds the buffers held on the device at once
+    # (equal to the JAX package's bound on one vmapped dispatch).
     MAX_PIXELS_PER_DISPATCH = 16_000_000
 
     def __init__(self, width: int, height: int, channels: int, device=None):
@@ -59,33 +60,34 @@ class BatchEncoder:
     def header(self) -> bytes:
         return self.enc.header()
 
-    def stage1_batches(self, imgs: np.ndarray) -> list:
-        """(N, H, W, C) uint8 -> list of sub-batches, each a list of one
-        (lin, stats) per frame (MAX_PIXELS_PER_DISPATCH pixels at most)."""
-        imgs = np.asarray(imgs)
+    def _chunks(self, imgs: np.ndarray):
         chunk = max(1, self.MAX_PIXELS_PER_DISPATCH // self.pyr.total)
-        return [[self.enc.stage1(im) for im in imgs[s:s + chunk]]
-                for s in range(0, imgs.shape[0], chunk)]
+        return (imgs[s:s + chunk] for s in range(0, imgs.shape[0], chunk))
 
-    def emit_batch(self, batch: list, padded_T: int = 0) -> tuple:
-        """Stage 2 of one sub-batch at a shared token bucket (that of its
-        largest T, unless ``padded_T`` gives one) -> (payloads, (n, LMAX)
-        int64 layer bit ends)."""
-        padded_T = padded_T or _enc._bucket(max(int(st["T"])
-                                                for _, st in batch))
-        payloads, ends = [], []
-        for lin, stats in batch:
-            payload, _, layer_ends = self.enc.emit(lin, stats, padded_T)
-            payloads.append(payload)
-            ends.append(layer_ends)
-        return payloads, torch.stack(ends).cpu().numpy().astype(np.int64)
+    def stage1_batches(self, imgs: np.ndarray) -> list:
+        """(N, H, W, C) uint8 -> list of sub-batches (MAX_PIXELS_PER_DISPATCH
+        pixels at most), each one (lin, stats) with a leading frame
+        axis."""
+        return [self.enc.stage1_frames(b) for b in self._chunks(
+            np.asarray(imgs))]
+
+    def emit_batch(self, batch: tuple, padded_T: int = 0) -> tuple:
+        """Stage 2 of one sub-batch (lin, stats) at a shared token bucket
+        (that of its largest T, unless ``padded_T`` gives one) ->
+        (payloads, (n, LMAX) int64 layer bit ends)."""
+        lin, stats = batch
+        padded_T = padded_T or _enc._bucket(int(stats["T"].max()))
+        payloads, _, ends = self.enc.emit_frames(lin, stats, padded_T)
+        return payloads, ends
 
     def encode_raw(self, imgs: np.ndarray) -> tuple:
         """(N, H, W, C) uint8 -> (payloads list[bytes], layer_ends (N, LMAX)
-        byte offsets).  Payloads exclude the 6-byte header."""
+        byte offsets).  Payloads exclude the 6-byte header.  Each
+        sub-batch's stage 2 follows its stage 1, so one sub-batch's
+        buffers are held at a time."""
         payloads, layer_list = [], []
-        for batch in self.stage1_batches(imgs):
-            pls, ends = self.emit_batch(batch)
+        for b in self._chunks(np.asarray(imgs)):
+            pls, ends = self.emit_batch(self.enc.stage1_frames(b))
             payloads.extend(pls)
             layer_list.append((ends + 7) // 8)
         return payloads, np.concatenate(layer_list, axis=0)
@@ -137,7 +139,8 @@ def budget_cuts(layer_bytes: list, budget: int) -> np.ndarray:
 
 
 def _reemit(enc: BatchEncoder, lin, stats) -> bytes:
-    """One tile's payload emitted again without the layer mask."""
+    """One tile's payload emitted again without the layer mask (``lin``
+    and ``stats``: that frame's, as ``Encoder.stage1`` gives them)."""
     return enc.enc.emit(lin, stats, _enc._bucket(int(stats["T"])))[0]
 
 
@@ -146,22 +149,25 @@ def _budget_work(groups: dict, C: int, budget: int, n_tiles: int,
     """Budget-bounded work (bytes.h:75-78 as the reference's early stop,
     generalized across tiles): stage 1 runs for every tile; per-layer
     lower-bound byte costs give a conservative global waterline layer
-    ``keep``; every tile's schedule is masked beyond it before stage 2.
-    Lower bounds make the true allocation stop inside layer ``keep`` at
-    the latest, and a masked stream equals the lossless one through the
-    end of that layer, so the cuts equal the lossless ones.  Past that end
-    a masked stream holds a few bits of its own: a tile whose cut's last
-    byte holds any of them is emitted again unmasked (:func:`_reemit`), so
-    every cut is the lossless stream's prefix.  Returns (payloads, layer
-    byte ends), in tile order."""
+    ``keep``; every tile's schedule is masked beyond it before stage 2
+    (frame by frame, on its sub-batch's stats).  Lower bounds make the
+    true allocation stop inside layer ``keep`` at the latest, and a masked
+    stream equals the lossless one through the end of that layer, so the
+    cuts equal the lossless ones.  Past that end a masked stream holds a
+    few bits of its own: a tile whose cut's last byte holds any of them is
+    emitted again unmasked (:func:`_reemit`, one frame), so every cut is
+    the lossless stream's prefix.  Returns (payloads, layer byte ends), in
+    tile order."""
     work, lb_rows = [], []
     for (hh, ww), items in groups.items():
         enc = get_batch_encoder(ww, hh, C, device)
         ids = [i for i, _ in items]
-        for batch in enc.stage1_batches(np.stack([t for _, t in items])):
-            hosts = [_enc.host_stats(st) for _, st in batch]
-            work.append((enc, batch, hosts, ids[:len(batch)]))
-            ids = ids[len(batch):]
+        for lin, stats in enc.stage1_batches(np.stack([t for _, t in items])):
+            n = lin.shape[0]
+            host = _enc.host_stats(stats)
+            hosts = [_enc.frame(host, j) for j in range(n)]
+            work.append((enc, lin, stats, hosts, ids[:n]))
+            ids = ids[n:]
             lb_rows.extend(_enc._layer_lb_bytes_host(h, enc.pyr, C, LMAX)
                            for h in hosts)
     cum = np.stack(lb_rows).sum(axis=0).cumsum()
@@ -169,15 +175,14 @@ def _budget_work(groups: dict, C: int, budget: int, n_tiles: int,
     # reaches at most into it, so later layers never survive.
     keep = int((cum <= max(budget - _head_bytes(n_tiles), 0)).sum())
     payloads, bit_ends, unmasked = [None] * n_tiles, [None] * n_tiles, {}
-    for enc, batch, hosts, ids in work:
-        cut = []
-        for (lin, stats), h, i in zip(batch, hosts, ids):
+    for enc, lin, stats, hosts, ids in work:
+        upds = {}
+        for j, (h, i) in enumerate(zip(hosts, ids)):
             upd = _enc._truncate_schedule_to_layer(h, keep, enc.pyr, C)
             if upd is not None:
-                unmasked[i] = (enc, lin, stats)
-                stats = _enc.patch_stats(stats, upd)
-            cut.append((lin, stats))
-        pls, ends = enc.emit_batch(cut)
+                unmasked[i] = (enc, lin[j], _enc.frame(stats, j))
+                upds[j] = upd
+        pls, ends = enc.emit_batch((lin, _enc.patch_frames(stats, upds)))
         for i, p, e in zip(ids, pls, ends):
             payloads[i], bit_ends[i] = p, e
     layer_bytes = [(e + 7) // 8 for e in bit_ends]

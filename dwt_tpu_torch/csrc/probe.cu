@@ -15,7 +15,8 @@
 #include "common.cuh"
 
 extern "C" int dwt_hilbert_gather(const void* co, const void* src, void* out,
-                                  int64_t nlin, int C, void* stream);
+                                  int64_t nlin, int C, int nframes,
+                                  int64_t frame_elems, void* stream);
 extern "C" int dwt_hilbert_scatter(const void* lin, const void* src,
                                    const void* sq_ptr, const void* runs,
                                    void* out, int H, int W, int64_t L, int C,
@@ -54,7 +55,7 @@ extern "C" int dwt_engine_probe(const void* tile, const void* idx, void* out,
   cudaError_t e = cudaGetSymbolAddress(&sq_ptr, dwt_probe_sq_ptr);
   if (e == cudaSuccess) e = cudaGetSymbolAddress(&runs, dwt_probe_runs);
   if (e != cudaSuccess) return (int)e;
-  int rc = dwt_hilbert_gather(tile, idx, out, n, 1, stream);
+  int rc = dwt_hilbert_gather(tile, idx, out, n, 1, 1, n, stream);
   if (rc) return rc;
   rc = dwt_hilbert_scatter(tile, idx, sq_ptr, runs, (int*)out + n,
                            SIDE, SIDE, n, 1, 1, 1, stream);

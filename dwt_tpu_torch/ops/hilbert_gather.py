@@ -2,9 +2,11 @@
 
 Port of ``dwt_tpu/ops/pallas_hilbert.py:hilbert_gather_pallas``: (H, W, C)
 int32 coefficients -> (C, nlin) int32 in the padded scan order of
-``hilbert.padded_layout(pyr, ALIGN)``.  The static permutation arrives as
-a precomputed source index per output slot (``-1`` for pads and the root
-band, which stay 0: the caller writes the root raster crop).
+``hilbert.padded_layout(pyr, ALIGN)``, or N frames (N, H, W, C) -> (N, C,
+nlin) in one launch (the JAX kernel under ``jax.vmap``).  The static
+permutation arrives as a precomputed source index per output slot, shared
+by the frames (``-1`` for pads and the root band, which stay 0: the
+caller writes the root raster crop).
 
 :func:`engine_supported` is the port of ``pallas_hilbert.engine_supported``:
 a one-time probe, per device, that the gather and scatter kernels (the
@@ -24,22 +26,31 @@ from ._launch import need, on_card
 
 
 def hilbert_gather_plain(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``out[c, i] = co.flat[src[i], c]`` or 0."""
-    C = co.shape[2]
-    g = co.reshape(-1, C)[src.clamp(min=0).long()]
-    return torch.where((src >= 0)[:, None], g, 0).T.contiguous()
+    """Plain PyTorch version: ``out[..., c, i] = co[...].flat[src[i], c]``
+    or 0."""
+    C = co.shape[-1]
+    g = co.reshape(*co.shape[:-3], -1, C)[..., src.clamp(min=0).long(), :]
+    return torch.where((src >= 0)[:, None], g, 0).transpose(-1, -2) \
+        .contiguous()
 
 
 def hilbert_gather(co: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """(H, W, C) int32, (nlin,) int32 source indices -> (C, nlin) int32."""
-    need("hilbert_gather co", co, torch.int32, 3)
+    """(H, W, C) int32, (nlin,) int32 source indices -> (C, nlin) int32;
+    (N, H, W, C) -> (N, C, nlin)."""
+    if co.dim() not in (3, 4):
+        raise ValueError(f"hilbert_gather co: expected (H, W, C) or (N, H, "
+                         f"W, C), got {co.dim()}-D")
+    need("hilbert_gather co", co, torch.int32, co.dim())
     need("hilbert_gather src", src, torch.int32, 1)
     if not on_card("hilbert_gather", co, src):
         return hilbert_gather_plain(co, src)
-    C, nlin = co.shape[2], src.shape[0]
-    out = torch.empty((C, nlin), dtype=torch.int32, device=co.device)
+    H, W, C = co.shape[-3:]
+    nlin = src.shape[0]
+    out = torch.empty((*co.shape[:-3], C, nlin), dtype=torch.int32,
+                      device=co.device)
     build.check(build.library().dwt_hilbert_gather(
         co.data_ptr(), src.data_ptr(), out.data_ptr(), nlin, C,
+        co.shape[0] if co.dim() == 4 else 1, H * W * C,
         build.stream_of(co)), "hilbert_gather")
     hilbert_gather.launches += 1
     return out

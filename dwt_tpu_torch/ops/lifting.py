@@ -78,16 +78,17 @@ def cdf53_inv(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
-    """Multi-level forward 2-D DWT on (H, W, C) int32 (encode.c:16-30):
-    rows, then columns, per level; the LL quadrant recurses."""
+    """Multi-level forward 2-D DWT on (..., H, W, C) int32 (encode.c:16-30):
+    rows, then columns, per level; the LL quadrant recurses.  Leading axes
+    are a batch."""
     out = img
     for l in range(pyr.levels, 0, -1):
         w, h = pyr.widths[l], pyr.heights[l]
-        sub = cdf53_fwd(cdf53_fwd(out[:h, :w], axis=1), axis=0)
-        if (h, w) == tuple(out.shape[:2]):
+        sub = cdf53_fwd(cdf53_fwd(out[..., :h, :w, :], axis=-2), axis=-3)
+        if (h, w) == tuple(out.shape[-3:-1]):
             out = sub  # the first (full-size) level: a new tensor
         else:
-            out[:h, :w] = sub  # in place: ``out`` is this function's own
+            out[..., :h, :w, :] = sub  # in place: ``out`` is this function's
     return out
 
 

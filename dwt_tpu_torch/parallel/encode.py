@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..codec import decoder
-from ..codec.encoder import _bucket, _check_planes, get_encoder
+from ..codec.encoder import _bucket, get_encoder
 from ..codec.stage1 import ALIGN, _stats_from_lin
 from ..codec.tiled import get_batch_encoder, group_tiles, write_container
 from ..geometry import Pyramid, compute_pyramid
@@ -109,11 +109,11 @@ class ShardedEncoder:
             raise ValueError(f"image shape {img.shape} does not match the "
                              f"encoder's {shape}")
         lin, stats = _stats_from_lin(
-            sharded_lin(img, self.mesh, pyr, self.gray, self._src), pyr,
-            self.channels)
-        _check_planes(int(stats["planes_max"]))
-        payload, _, _ = self._enc.emit(lin, stats, _bucket(int(stats["T"])))
-        stream = self._enc.header() + payload
+            sharded_lin(img, self.mesh, pyr, self.gray, self._src)[None],
+            pyr, self.channels)
+        payloads, _, _ = self._enc.emit_frames(lin, stats,
+                                               _bucket(int(stats["T"][0])))
+        stream = self._enc.header() + payloads[0]
         return stream[:capacity] if capacity > 0 else stream
 
 
@@ -203,7 +203,9 @@ def encode_tiled_sharded(img: np.ndarray, mesh: hosts.Mesh | None = None,
     of ``mesh`` (``hosts.global_mesh()`` when None).  Each group of
     same-shape tiles, in row-major order, is padded with zero tiles to a
     multiple of the ranks; rank r encodes the r-th contiguous block of it
-    (stage 1, then ``emit`` at the bucket of the largest T over the ranks).
+    through the batched pipeline (``BatchEncoder``'s sub-batches: stage 1,
+    then stage 2 at the bucket of the largest T over the ranks), as the
+    JAX package's shard_map over its vmapped tile groups.
     The tiles' layer byte ends and payloads are all-gathered, and every
     rank cuts the same waterline, keeping the JAX package's 20 + 4n header
     reserve."""
@@ -222,16 +224,19 @@ def encode_tiled_sharded(img: np.ndarray, mesh: hosts.Mesh | None = None,
         real = tiles[mesh.rank * per:(mesh.rank + 1) * per]
         mine[:len(real)] = real
         enc = get_batch_encoder(ww, hh, C, mesh.device)
-        batch = [s for sub in enc.stage1_batches(mine) for s in sub]
-        top = hosts.all_reduce_max(mesh, torch.tensor(
-            [max(int(st[k]) for _, st in batch) for k in ("T", "planes_max")],
-            dtype=torch.int64, device=mesh.device)).tolist()
-        _check_planes(top[1])
-        pls, ends = enc.emit_batch(batch, _bucket(top[0]))
+        batches = enc.stage1_batches(mine)
+        top = hosts.all_reduce_max(mesh, torch.stack(
+            [st["T"].max() for _, st in batches]).max().to(torch.int64)
+            .reshape(1))
+        pls, ends = [], []
+        for batch in batches:
+            p, e = enc.emit_batch(batch, _bucket(int(top[0])))
+            pls.extend(p)
+            ends.append(e)
         # The JAX package's collective: the (per, LMAX) layer byte ends of
         # every rank, (n_pad, LMAX) on every rank; then the payloads.
         ends = hosts.all_gather(mesh, torch.as_tensor(
-            (ends + 7) // 8, device=mesh.device)).cpu().numpy()
+            (np.concatenate(ends) + 7) // 8, device=mesh.device)).cpu().numpy()
         pls = _gather_payloads(mesh, pls)
         for j, (i, _) in enumerate(items):
             payloads[i], layer_bytes[i] = pls[j], ends[j]

@@ -36,8 +36,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
 ENTRY_POINTS = {
-    # (co, src, out, nlin, C, stream)
-    "dwt_hilbert_gather": (_P, _P, _P, _L, _I, _P),
+    # (co, src, out, nlin, C, nframes, frame_elems, stream)
+    "dwt_hilbert_gather": (_P, _P, _P, _L, _I, _I, _L, _P),
     # (lin, src, sq_ptr, runs, out, H, W, L, C, nruns, group, stream)
     "dwt_hilbert_scatter": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I,
                             _P),

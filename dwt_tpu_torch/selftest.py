@@ -112,7 +112,8 @@ def _tensor(a, dev):
 
 
 def _gather(h: _Held, size) -> None:
-    """Kernel 1 on a real scan-order index (RGB and gray) and on a random
+    """Kernel 1 on a real scan-order index (RGB and gray, and three RGB
+    frames in one launch, as the batch mode calls it) and on a random
     index with pads, at a length that fills no block."""
     from .codec.stage1 import gather_source
     from .geometry import compute_pyramid
@@ -120,16 +121,18 @@ def _gather(h: _Held, size) -> None:
 
     rng = np.random.default_rng(1)
     w, h_ = size
-    cases = [(gather_source(compute_pyramid(w, h_)), (h_, w, c))
-             for c in (3, 1)]
+    real = gather_source(compute_pyramid(w, h_))
+    cases = [(real, (h_, w, c)) for c in (3, 1)] + [(real, (3, h_, w, 3))]
     rand = rng.integers(-1, 45 * 37, 70_001).astype(np.int32)
     cases.append((rand, (37, 45, 5)))
     for src, shape in cases:
         co = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(
             np.int32)
-        want = np.zeros((shape[2], src.size), np.int32)
+        frames = co.reshape(-1, shape[-3] * shape[-2], shape[-1])
+        want = np.zeros((frames.shape[0], shape[-1], src.size), np.int32)
         ok = src >= 0
-        want[:, ok] = co.reshape(-1, shape[2])[src[ok]].T
+        want[:, :, ok] = frames[:, src[ok]].transpose(0, 2, 1)
+        want = want.reshape(*shape[:-3], shape[-1], src.size)
         h.kernel(f"gather {shape} nlin={src.size}", hilbert_gather,
                  hilbert_gather_plain, want, _tensor(co, h.dev),
                  _tensor(src, h.dev))

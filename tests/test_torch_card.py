@@ -541,6 +541,83 @@ def test_tiled_on_card_equals_cpu(cuda, budget_div):
         assert np.array_equal(out, img)
 
 
+BATCH_KERNELS = ("hilbert_gather", "compact_tokens", "pack_words",
+                 "scatter_refbits", "transpose2d")
+
+
+def _batch_pairs():
+    """Each batched kernel's wrapper and plain version, and the codec
+    module that calls it."""
+    from dwt_tpu_torch.codec import emit, stage1, tokens
+    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+
+    return {
+        "hilbert_gather": (stage1, hilbert_gather.hilbert_gather,
+                           hilbert_gather.hilbert_gather_plain),
+        "compact_tokens": (tokens, compact.compact_tokens,
+                           compact.compact_tokens_plain),
+        "pack_words": (emit, pack.pack_words, pack.pack_words_plain),
+        "scatter_refbits": (emit, compact.scatter_refbits,
+                            compact.scatter_refbits_plain),
+        "transpose2d": (tokens, transpose.transpose2d,
+                        transpose.transpose2d_plain),
+    }
+
+
+@pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
+def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
+    """Kernels 1-4 and 6 as a 3-frame sub-batch calls them (a flat, a
+    noise and a mixed frame: three token counts, one with no detail
+    plane), each launched once for the sub-batch (the transpose twice)
+    and each call held to its plain version on the same CUDA tensors; the
+    payloads and layer ends equal the CPU's."""
+    from dwt_tpu_torch.codec import tiled
+
+    rng = np.random.default_rng(w + c)
+    imgs = np.stack([random_image(rng, w, h, c, k)
+                     for k in ("flat", "noise", "mixed")])
+    want = tiled.BatchEncoder(w, h, c, device="cpu").encode_raw(imgs)
+    pairs = _batch_pairs()
+    calls = {k: [] for k in pairs}
+    for name, (mod, fn, _) in pairs.items():
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls[_name].append(tuple(a.clone() if hasattr(a, "clone")
+                                      else a for a in args))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    before = {k: fn.launches for k, (_, fn, _) in pairs.items()}
+    got = tiled.BatchEncoder(w, h, c).encode_raw(imgs)
+    torch.cuda.synchronize()
+    assert got[0] == want[0] and np.array_equal(got[1], want[1])
+    assert {k: fn.launches - before[k] for k, (_, fn, _) in pairs.items()} \
+        == {k: 2 if k == "transpose2d" else 1 for k in pairs}
+    for name, (_, fn, plain) in pairs.items():
+        for args in calls[name]:
+            fresh = [[a.clone() if hasattr(a, "clone") else a for a in args]
+                     for _ in range(2)]
+            k, p = fn(*fresh[0]), plain(*fresh[1])
+            torch.cuda.synchronize()
+            assert k.dtype == p.dtype and torch.equal(k, p), name
+    assert calls["hilbert_gather"][0][0].shape[0] == 3
+
+
+def test_sub_batch_int32_bound_raises_on_card(cuda):
+    """A sub-batch whose stream buffers would pass the kernels' int32
+    indices raises before any stage-2 kernel launches; nothing splits it
+    or falls back to a loop over its frames."""
+    from dwt_tpu_torch.codec import tiled
+
+    pairs = _batch_pairs()
+    enc = tiled.BatchEncoder(9, 9, 3)
+    imgs = np.stack([random_image(np.random.default_rng(k), 9, 9, 3, "noise")
+                     for k in range(3)])
+    batch = enc.stage1_batches(imgs)[0]
+    before = {k: fn.launches for k, (_, fn, _) in pairs.items()}
+    with pytest.raises(ValueError, match="int32"):
+        enc.emit_batch(batch, 1 << 29)
+    assert {k: fn.launches for k, (_, fn, _) in pairs.items()} == before
+
+
 def test_sharded_world1_nccl_equals_single(cuda):
     """The sharded routes at world size 1 on NCCL (rank 0 on the card, a
     free local port): the stream equals ``Encoder``'s, the collectives go

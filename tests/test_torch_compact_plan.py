@@ -229,9 +229,9 @@ def _encode_units(img):
 
     h, w, c = img.shape
     enc = encoder.Encoder(w, h, c, device="cpu")
-    lin, stats = stage1._transform_and_stats(torch.as_tensor(img), enc.pyr,
-                                             c, c == 1, enc._src)
-    padded_T = encoder._bucket(int(stats["T"]))
+    lin, stats = stage1._transform_and_stats(torch.as_tensor(img)[None],
+                                             enc.pyr, c, c == 1, enc._src)
+    padded_T = encoder._bucket(int(stats["T"][0]))
     segs = stage1.segs_for(enc.pyr, lin.device)
     com = tokens._unit_common(stats, segs, enc.pyr, c)
     meta, pairbuf = tokens._kernel_a_meta(stats, segs, com, padded_T)

@@ -32,14 +32,16 @@ CASES = [  # tests/test_encoder.py's
 
 
 def _port_pipeline(img):
+    """The port's intermediates for one image: its stage functions on a
+    batch of one frame (frame 0 of every result)."""
     from dwt_tpu_torch.codec import emit, encoder, stage1, tokens
 
     h, w, c = img.shape
     enc = encoder.Encoder(w, h, c, device="cpu")
     pyr = enc.pyr
-    lin, stats = stage1._transform_and_stats(torch.as_tensor(img), pyr, c,
-                                             c == 1, enc._src)
-    padded_T = encoder._bucket(int(stats["T"]))
+    lin, stats = stage1._transform_and_stats(torch.as_tensor(img)[None], pyr,
+                                             c, c == 1, enc._src)
+    padded_T = encoder._bucket(int(stats["T"][0]))
     zp, sgn, vmag, com = tokens._sig_tokens(lin, stats, pyr, c, padded_T)
     segs = stage1.segs_for(pyr, lin.device)
     meta_a, _ = tokens._kernel_a_meta(stats, segs, com, padded_T)
@@ -52,12 +54,14 @@ def _port_pipeline(img):
                                  nwords)
     words, bits_parts, wild, ends = emit._stage2_emit(
         lin, stats, tv, tr, tf, orders, vmag2, com2, pyr, c, padded_T)
-    out = dict(lin=lin, zp=zp, sgn=sgn, meta_a=meta_a, meta_b=meta_b, tv=tv,
-               tr=tr, tf=tf, orders=orders, words_tok=words_tok, words=words,
-               bits_parts=bits_parts, layer_ends=ends,
-               **{f"com_{k}": v for k, v in com.items()})
-    out = {k: to_np(v) for k, v in out.items()}
-    out["stats"] = {k: to_np(stats[k]) for k in STATS_KEYS}
+    out = dict(lin=lin, zp=zp, sgn=sgn, tv=tv, tr=tr, tf=tf, orders=orders,
+               words_tok=words_tok, words=words, bits_parts=bits_parts,
+               layer_ends=ends,
+               **{f"com_{k}": v for k, v in com.items()
+                  if k not in ("table", "hist")})
+    out = {k: to_np(v[0]) for k, v in out.items()}
+    out.update(meta_a=to_np(meta_a), meta_b=to_np(meta_b))
+    out["stats"] = {k: to_np(stats[k][0]) for k in STATS_KEYS}
     out["padded_T"], out["wild"] = padded_T, wild
     out["stream"] = enc.encode(img)
     return out

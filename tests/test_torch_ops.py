@@ -140,11 +140,11 @@ def test_plane_stats_fused_equals_loop(rng, w, h, c, kind):
 
     img = random_image(rng, w, h, c, kind)
     enc = encoder.Encoder(w, h, c, device="cpu")
-    lin, stats = stage1._transform_and_stats(torch.as_tensor(img), enc.pyr,
-                                             c, c == 1, enc._src)
+    lin, stats = stage1._transform_and_stats(torch.as_tensor(img)[None],
+                                             enc.pyr, c, c == 1, enc._src)
     segs = stage1.segs_for(enc.pyr, lin.device)
-    q, valid = stage1._detail_q(lin, segs)
-    pm = stats["planes_max"]
+    q, valid = stage1._detail_q(lin[0], segs)
+    pm = stats["planes_max"][0]
     got = stage1._plane_stats(q, valid, segs, c, enc.pyr.levels, pm)
     want = stage1._plane_stats_loop(q, valid, segs, c, enc.pyr.levels, pm)
     for name, g, w_ in zip(["nS", "nZ", "trailZ", "nS_ck", "nZ_ck"], got, want):

@@ -257,9 +257,9 @@ def _encoder_drive(img):
 
     h, w, c = img.shape
     enc = encoder.Encoder(w, h, c, device="cpu")
-    lin, stats = stage1._transform_and_stats(torch.as_tensor(img), enc.pyr,
-                                             c, c == 1, enc._src)
-    padded_T = encoder._bucket(int(stats["T"]))
+    lin, stats = stage1._transform_and_stats(torch.as_tensor(img)[None],
+                                             enc.pyr, c, c == 1, enc._src)
+    padded_T = encoder._bucket(int(stats["T"][0]))
     segs = stage1.segs_for(enc.pyr, lin.device)
     tv, tr, tf, orders, vmag, com = tokens._stage2_tokens(lin, stats, enc.pyr,
                                                           c, padded_T)
@@ -269,8 +269,8 @@ def _encoder_drive(img):
     meta_b = emit._kernel_b_meta(stats, segs, com, refstart, enc.pyr,
                                  padded_T, nwords)
     meta_a, _ = tokens._kernel_a_meta(stats, segs, com, padded_T)
-    return (vmag.numpy(), meta_b.numpy(), words.numpy(), com["table"].numpy(),
-            meta_a.numpy())
+    return (vmag.numpy(), meta_b.numpy(), words[0].numpy(),
+            com["table"].numpy(), meta_a.numpy())
 
 
 CASES = ["kernels drive", "shared", "cut", "misaligned", "past nwords",

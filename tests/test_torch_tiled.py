@@ -73,7 +73,7 @@ def test_batch_encoder_sub_batches(monkeypatch):
     enc = _port().BatchEncoder(32, 24, 1, "cpu")
     whole = enc.encode_batch(imgs)
     monkeypatch.setattr(enc, "MAX_PIXELS_PER_DISPATCH", 2 * 32 * 24)
-    assert [len(b) for b in enc.stage1_batches(imgs)] == [2, 2, 1]
+    assert [lin.shape[0] for lin, _ in enc.stage1_batches(imgs)] == [2, 2, 1]
     assert enc.encode_batch(imgs) == whole
 
 
@@ -151,12 +151,13 @@ def test_container_route_with_capacity(jax_tiled):
 
 def test_stream_bits_reroute(monkeypatch):
     """A stream past 2^31 bits reroutes to the container (the check is
-    forced for the first two single-stream encodes here), unless
+    forced for the first two single-stream encodes here, in the stage 2
+    that the single stream and the container's batch share), unless
     container=False."""
     from dwt_tpu_torch.codec import encoder
 
     img = random_image(np.random.default_rng(8), 40, 24, 3, "mixed")
-    real = encoder.Encoder.emit
+    real = encoder.Encoder.emit_frames
     calls = []
 
     def huge(self, lin, stats, padded_T):
@@ -165,14 +166,14 @@ def test_stream_bits_reroute(monkeypatch):
             encoder._check_stream_bits(2**31)
         return real(self, lin, stats, padded_T)
 
-    monkeypatch.setattr(encoder.Encoder, "emit", huge)
+    monkeypatch.setattr(encoder.Encoder, "emit_frames", huge)
     monkeypatch.setattr(encoder, "_warned_container", False)
     with pytest.raises(ValueError, match="2\\^31 bits"):
         encoder.encode(img, container=False, device="cpu")
     with pytest.warns(UserWarning, match="2\\^31 bits"):
         data = encoder.encode(img, device="cpu", gray=False)
     assert len(calls) == 3  # the third is the container's one tile
-    monkeypatch.setattr(encoder.Encoder, "emit", real)
+    monkeypatch.setattr(encoder.Encoder, "emit_frames", real)
     assert data == _port().encode_tiled(img, device="cpu")
 
 

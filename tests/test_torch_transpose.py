@@ -70,7 +70,7 @@ def test_vli_orders_equal_jax(padded_T):
     vli = rng.random(padded_T) < 0.6
     want = np.asarray(je._vli_orders(jnp.asarray(val), jnp.asarray(vli),
                                      padded_T))
-    got = tokens._vli_orders(torch.from_numpy(val), torch.from_numpy(vli),
-                             padded_T).numpy()
+    got = tokens._vli_orders(torch.from_numpy(val)[None],
+                             torch.from_numpy(vli)[None], padded_T)[0].numpy()
     assert got.dtype == np.int32
     assert np.array_equal(got, want.astype(np.int32)) and got.max() > 3
