@@ -57,8 +57,12 @@ seconds:
              wrapper derives, the table's size, and kernel 5 at the tiled
              decode's kept calls, held also at other channel groups; the
              transposes with the bytes a thread moves, the int8 one held
-             also by the element kernel; the tile engines' probe as its
-             one host call, and one cold
+             also by the element kernel; the VLI order scan's three
+             kernels (bound by bytes or by integer operations, whichever
+             is larger), and one whole 4K ``_vli_orders`` with them and
+             with the eager scan (the plain version) in turns, by CUDA
+             events and by the host clock; the tile engines' probe as
+             its one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; device busy time
@@ -74,8 +78,9 @@ seconds:
              beside their bounds: kernel 5 at 4K and at the tiled
              decode's calls (there also at other channel groups), each
              transpose of the VLI scan (the int8 one also by the element
-             kernel).  After the timing phase, so that no profiler session
-             runs before it.
+             kernel), each of the VLI order scan's three kernels.  After
+             the timing phase, so that no profiler session runs before
+             it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
              ``tcp://127.0.0.1`` port), so their all-gathers and
@@ -112,7 +117,8 @@ seconds:
              frames, 1 of 1), in ``Kernels.path``: the streams' total
              bytes and SHA-256 must equal the JAX package's (constants
              below), each encode kernel must launch once a sub-batch (10;
-             the transpose 20), and each stream must equal the
+             the transpose 20, the VLI order scan's three kernels 30), and
+             each stream must equal the
              single-stream encoder's.  Then warm MP/s of the batch in
              turns with the single-stream encoder looped over the same
              frames, the copies and the peak memory of one 7-frame
@@ -212,6 +218,15 @@ BATCH_SHA256 = (
     "a66910a2f8e1b7a47883502e7b13607d6c0fe9d8dbf2d2997599a4b2128b5983")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# Integer instructions a second of one H100 SXM: 132 SMs of 64 INT32 lanes
+# at 1.98 GHz, a quarter of the data sheet's 67 TFLOP/s float32 (an FMA
+# counts two there, on 128 FP32 lanes an SM).
+INT32_OPS_PER_S = 67e12 / 4
+# Integer operations the VLI order scan spends on one active token: its
+# block's map at the 31 entry states, 8 words of four states with 5
+# operations each (compare, mask, add, max, saturating subtract), and the
+# replay's one state, 5 more.
+VLI_OPS_PER_TOKEN = 45
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -233,10 +248,12 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
                 "budgeted tiled encode", "sharded encode",
                 "sharded tiled encode", "budgeted sharded tiled encode",
                 "batch encode")
-# The kernels of the encode path, each launched once a sub-batch by the
-# batch mode (the VLI scan's transpose twice).
+# The kernels of the encode path and their launches a sub-batch of the
+# batch mode: one each, the VLI scan's transpose twice (two calls) and its
+# order scan three (one call, three kernels).
 BATCH_KERNELS = {"hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
-                 "scatter_refbits": 1, "transpose2d": 2}
+                 "scatter_refbits": 1, "transpose2d": 2, "vli_orders": 3}
+BATCH_CALLS = {"transpose2d": 2}  # wrapper calls a sub-batch, where not 1
 DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
                 "sharded decode")
 
@@ -256,15 +273,16 @@ def max_abs_err(name: str, kernel_out, plain_out) -> int:
 
 
 class Kernels:
-    """The kernel wrappers of the paths (the six kernels and the tile
-    engines' probe), their sources, the TPU kernels they replace and the
-    paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch
-    them."""
+    """The kernel wrappers of the paths (the six kernels, the VLI order
+    scan and the tile engines' probe), their sources, the TPU kernels (or,
+    for the scan, the JAX code) they replace and the paths
+    (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
         from dwt_tpu_torch.ops import (compact, hilbert_gather,
-                                       hilbert_scatter, pack, transpose)
+                                       hilbert_scatter, pack, transpose,
+                                       vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
 
         # The codec modules call the kernel wrappers by these names (the
@@ -272,7 +290,7 @@ class Kernels:
         self.sites = [(stage1, "hilbert_gather"), (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
                       (decoder, "hilbert_scatter"), (tokens, "transpose2d"),
-                      (sharded, "hilbert_gather")]
+                      (tokens, "vli_orders"), (sharded, "hilbert_gather")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "hilbert_gather": (hilbert_gather.hilbert_gather,
@@ -286,6 +304,7 @@ class Kernels:
                                 hilbert_scatter.hilbert_scatter_plain),
             "transpose2d": (transpose.transpose2d,
                             transpose.transpose2d_plain),
+            "vli_orders": (vli_scan.vli_orders, vli_scan.vli_orders_plain),
         }
         self.rows = [
             ("hilbert_gather", hilbert_gather.hilbert_gather,
@@ -314,6 +333,11 @@ class Kernels:
             ("transpose2d", transpose.transpose2d,
              "dwt_tpu_torch/csrc/transpose.cu",
              "dwt_tpu/ops/pallas_transpose.py:57", ENCODE_PATHS),
+            # The VLI order scan between them: three kernels a call.  No
+            # TPU kernel: it replaces the JAX package's XLA scan.
+            ("vli_orders", vli_scan.vli_orders,
+             "dwt_tpu_torch/csrc/vli_scan.cu",
+             "dwt_tpu/codec/encoder.py:745", ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -618,16 +642,21 @@ def transpose_routes(torch, x, want) -> None:
                                  f"differs from its plain version")
 
 
-def device_times(torch, scatter_4k, tiled_scatter, transposes) -> None:
+VLI_NAMES = ("vli_maps_kernel", "vli_entry_kernel", "vli_replay_kernel")
+
+
+def device_times(torch, scatter_4k, tiled_scatter, transposes,
+                 vli) -> None:
     """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; each VLI scan transpose, the int8 one also by the
-    element kernel.  Run last, so that no profiler session comes before
-    the timing phase that a parent's script would not run either."""
+    element kernel; each of the VLI order scan's three kernels at 4K.
+    Run last, so that no profiler session comes before the timing phase
+    that a parent's script would not run either."""
     from dwt_tpu_torch.ops import hilbert_scatter as hs
-    from dwt_tpu_torch.ops import transpose
+    from dwt_tpu_torch.ops import transpose, vli_scan
 
     for i, (lin, src, sq_ptr, runs) in enumerate([scatter_4k]
                                                  + tiled_scatter):
@@ -657,6 +686,40 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes) -> None:
         progress(f"device: transpose2d {tuple(x.shape)} {x.dtype}, bound "
                  f"{bound:.4f} ms: {'; '.join(routes)} (1 byte a thread: "
                  f"the element kernel)")
+    x, nblk = vli
+    bound, by = bound_of(*vli_work(torch, x))
+    ms = [kernel_ms(torch, lambda: vli_scan.vli_orders(x, nblk), name)
+          for name in VLI_NAMES]
+    progress(f"device: vli_orders {tuple(x.shape)}, nblk {nblk}: "
+             + ", ".join(f"{n} {m:.4f} ms" for n, m in zip(VLI_NAMES, ms))
+             + f"; together {sum(ms):.4f} ms, bound {bound:.4f} ms by {by}, "
+             f"share {bound / sum(ms):.2f}")
+
+
+def bound_of(nbytes: int, ops: int = 0) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the integer operations over the INT32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes,
+                                                             "bytes")
+
+
+def vli_work(torch, x) -> tuple:
+    """(bytes, integer operations) the VLI order scan must spend on its
+    (TB, R) int32 parameters ``x``: x read once and the int8 orders
+    written once (5 bytes a token), and ``VLI_OPS_PER_TOKEN`` a token that
+    is a VLI value (x > 0; the others are no-ops)."""
+    return 5 * x.numel(), VLI_OPS_PER_TOKEN * int((x > 0).sum())
+
+
+def kernel_work(torch, name: str, args) -> tuple:
+    """(bytes, integer operations) of one call of an encode kernel: the
+    operations count only for the VLI order scan, whose bound they may
+    set; the others are bound by their bytes."""
+    if name == "vli_orders":
+        return vli_work(torch, args[0])
+    return encode_kernel_bytes(torch, name, args), 0
 
 
 def encode_kernel_bytes(torch, name: str, args) -> int:
@@ -701,26 +764,28 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
-                                   pack, transpose)
+                                   pack, transpose, vli_scan)
 
     out = []
 
-    def row(name, kernel_out, plain_out, ms, plain_ms, nbytes, library_ms):
+    def row(name, kernel_out, plain_out, ms, plain_ms, nbytes, library_ms,
+            ops=0):
         err = max_abs_err(name, kernel_out, plain_out)
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
         src, rep = next((s, r) for n, _, s, r, _ in K.rows if n == name)
+        bound, by = bound_of(nbytes, ops)
         out.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=library_ms, batch_launches=None,
-            batch_ms=None, batch_bound_ms=None))
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=library_ms, batch_launches=None, batch_ms=None,
+            batch_bound_ms=None))
         progress(f"kernels: {name} equal to its plain version; "
                  f"{ms:.3f} ms (plain {plain_ms:.3f} ms, library "
                  f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, "
-                 f"bound {out[-1]['bound_ms']:.3f} ms)")
+                 f"bound {bound:.4f} ms by {by})")
 
     # 1. gather: (1, H, W, C) coefficients -> (1, C, nlin)
     co, src = got["hilbert_gather"][0]
@@ -891,7 +956,65 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                  f"share {bound / parts[-1][0]:.2f})")
     row("transpose2d", torch.cat(ks), torch.cat(ps),
         *(sum(t[i] for t in parts) for i in range(4)))
+
+    # 7. the VLI order scan between them, on the (TB, nblk) int32
+    # parameters: three kernels, held to the plain version (the eager
+    # passes of the parent's scan); no PyTorch call computes this function.
+    # Then one whole ``_vli_orders`` call (both transposes and the scan)
+    # and the same with the eager scan, by CUDA events and by the host
+    # clock around a synchronised call: the scan's share of the tokens
+    # half before and after.
+    x, nblk = got["vli_orders"][0]
+    nbytes, ops = vli_work(torch, x)
+    row("vli_orders", vli_scan.vli_orders(x, nblk),
+        vli_scan.vli_orders_plain(x, nblk),
+        time_ms(torch, lambda: vli_scan.vli_orders(x, nblk)),
+        time_ms(torch, lambda: vli_scan.vli_orders_plain(x, nblk), reps=3),
+        nbytes, None, ops)
+    progress(f"kernels: vli_orders {tuple(x.shape)}, nblk {nblk}: "
+             f"{nbytes} bytes, {ops} integer operations "
+             f"({int((x > 0).sum())} VLI tokens of {x.numel()})")
+    vli_whole(torch, x.shape[0] * nblk, nblk)
     return out
+
+
+def vli_whole(torch, padded_T: int, nblk: int) -> None:
+    """One 4K ``tokens._vli_orders`` (its two transposes around the scan)
+    with the scan's kernels and with its plain version, the parent's
+    eager passes, in turns, on the same tokens: by CUDA events around the
+    call and by the host clock around a call that ends synchronised."""
+    from dwt_tpu_torch.codec import tokens
+    from dwt_tpu_torch.ops import vli_scan
+
+    rng = np.random.default_rng(0)
+    val = torch.as_tensor((rng.integers(0, 2**20, padded_T)
+                           >> rng.integers(0, 20, padded_T))
+                          .astype(np.int32), device="cuda")[None]
+    vli = torch.as_tensor(rng.random(padded_T) < 0.6, device="cuda")[None]
+    want = tokens._vli_orders(val, vli, padded_T)
+    times = {}
+    for name in ("kernels", "eager", "eager", "kernels"):
+        if name == "eager":
+            tokens.vli_orders = vli_scan.vli_orders_plain
+        try:
+            got = tokens._vli_orders(val, vli, padded_T)
+            if not torch.equal(got, want):
+                raise AssertionError(f"_vli_orders {name} differs")
+            ev = time_ms(torch, lambda: tokens._vli_orders(val, vli,
+                                                           padded_T), reps=3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens._vli_orders(val, vli, padded_T)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        finally:
+            tokens.vli_orders = vli_scan.vli_orders
+        times.setdefault(name, []).append(f"{ev:.3f} ms events, "
+                                          f"{wall:.3f} ms host")
+    progress(f"kernels: one _vli_orders at 4K ({padded_T} tokens, {nblk} "
+             f"blocks): with the scan's kernels {'; '.join(times['kernels'])}"
+             f"; with the eager scan (the parent's passes) "
+             f"{'; '.join(times['eager'])}")
 
 
 def busy_ms(events, DeviceType) -> float:
@@ -1649,10 +1772,11 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     versions).  Gates: the 64 streams' total bytes and SHA-256 equal the
     JAX package's, each stream equals the single-stream encoder's on the
     card, and each encode kernel launched once a sub-batch (the transpose
-    twice).  Then warm MP/s of the batch in turns with a loop of the
-    single-stream encoder over the same frames, the copies and the peak
-    memory of one 7-frame sub-batch, and each kernel's wrapper time at the
-    7-frame shape beside its bound (into ``rows``)."""
+    twice, the VLI order scan's three kernels once each).  Then warm MP/s
+    of the batch in turns with a loop of the single-stream encoder over
+    the same frames, the copies and the peak memory of one 7-frame
+    sub-batch, and each kernel's wrapper time at the 7-frame shape beside
+    its bound (into ``rows``)."""
     from dwt_tpu_torch.codec import encoder, tiled
 
     t_phase = time.perf_counter()
@@ -1681,8 +1805,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         raise AssertionError(f"batch launches {counts}: want {want}, one a "
                              f"sub-batch")
     progress(f"batch: launches one a sub-batch: {want} (compact_tokens: a "
-             f"count and a place launch each); a loop over the frames would "
-             f"make {BATCH_N} and {2 * BATCH_N}")
+             f"count and a place launch each; vli_orders: its three "
+             f"kernels); a loop over the frames would make {BATCH_N} and "
+             f"{2 * BATCH_N}")
     progress(f"batch: kernels equal to their plain versions: "
              f"{held_line(K.hold(store))}")
 
@@ -1729,7 +1854,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
 
     # Each kernel's wrapper at the 7-frame shape (the first sub-batch's
     # kept call; the transposes summed), beside its bound.
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
+                                   vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
@@ -1737,25 +1863,30 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         "compact_tokens": lambda a: compact.compact_tokens(*a[:4]),
         "pack_words": lambda a: pack.pack_words(*a, order_flag=flag),
         "transpose2d": lambda a: transpose.transpose2d(*a),
+        "vli_orders": lambda a: vli_scan.vli_orders(*a),
     }
     parts = []
     for row in rows:
         name = row["name"]
         if name not in BATCH_KERNELS:
             continue
-        kept = store[name][:BATCH_KERNELS[name]]
+        kept = store[name][:BATCH_CALLS.get(name, 1)]
         if name == "scatter_refbits":
             ms = sum(time_ms(torch, compact.scatter_refbits, setup=lambda a=a: (
                 a[0], a[1], a[2].clone(), a[3], a[4])) for a in kept)
         else:
             ms = sum(time_ms(torch, lambda a=a: calls[name](a)) for a in kept)
-        bound = sum(encode_kernel_bytes(torch, name, a)
-                    for a in kept) / HBM_BYTES_PER_S * 1e3
+        work = [kernel_work(torch, name, a) for a in kept]
+        bound, by = bound_of(sum(w[0] for w in work), sum(w[1] for w in work))
         row.update(batch_launches=counts[name], batch_ms=ms,
                    batch_bound_ms=bound)
         shapes = [tuple(a[0].shape) for a in kept]
-        parts.append(f"{name} {shapes} {ms:.3f} ms, bound {bound:.3f} ms, "
-                     f"share {bound / ms:.2f}")
+        plain = ""
+        if name == "vli_orders":
+            plain = ", plain " + format(time_ms(torch, lambda: (
+                vli_scan.vli_orders_plain(*kept[0])), reps=3), ".3f") + " ms"
+        parts.append(f"{name} {shapes} {ms:.3f} ms{plain}, bound "
+                     f"{bound:.3f} ms by {by}, share {bound / ms:.2f}")
     progress(f"kernels: batch of {sub} frames, each wrapper at its kept "
              f"call: " + "; ".join(parts))
     del store
@@ -1839,7 +1970,7 @@ def main(argv: list) -> int:
     # 4. kernels against their plain versions, on the main path's inputs
     rows = check_kernels(torch, K, got, launches, tiled_scatter)
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
-                     [x for (x,) in got["transpose2d"]])
+                     [x for (x,) in got["transpose2d"]], got["vli_orders"][0])
     del got, tiled_scatter
     torch.cuda.empty_cache()
 

@@ -18,13 +18,14 @@ from ..geometry import Pyramid
 from ..ops import compact
 from ..ops.compact import compact_tokens
 from ..ops.transpose import transpose2d
-from .stage1 import NSTATE, PMAX, _Segs, _excl_cumsum, _ilog2, segs_for
+from ..ops.vli_scan import vli_orders
+from .stage1 import PMAX, _Segs, _excl_cumsum, _ilog2, segs_for
 
 _I32 = torch.int32
 
 # Sequential steps of the VLI order scan (tokens per block); the blocks'
-# transition maps compose in a log-depth scan.  Any power of two that
-# divides the token bucket gives the same orders.
+# transition maps compose in a chain (``ops/vli_scan.py``).  Any power of
+# two that divides the token bucket gives the same orders.
 VLI_BLOCK = 128
 
 
@@ -249,14 +250,16 @@ def _vli_orders(tok_val, tok_vli, padded_T: int):
     (N, padded_T) token arrays.
 
     The order is a chain over NSTATE values through every VLI token of a
-    frame.  The tokens split into blocks of TB, the frames' blocks stacked
-    as rows: pass A runs each block over all NSTATE entry states at once
-    (TB sequential steps, every block of every frame in parallel), giving
-    its transition map; pass B composes each frame's maps with a log-depth
-    inclusive scan (map composition is a gather), segmented by frame: a
-    frame's first block enters in state 0 and no map composes across
-    frames; pass C replays each block from its true entry state and
-    records every token's order before its own transition.
+    frame.  The tokens split into blocks of TB, the frames' blocks laid
+    side by side as the columns of one (TB, N * nblk) transposed parameter
+    array (kernel 6), and :func:`vli_orders` (``csrc/vli_scan.cu``) scans
+    it in three launches: each block's transition map over all NSTATE
+    entry states, with a segment's maps composed; a walk over each frame's
+    segments from state 0 (no state carries across frames); and a replay
+    of each block from its true entry state, recording every token's order
+    before its own transition.  A second transpose turns the int8 orders
+    back.  Five launches a call on the card, whatever N and padded_T are;
+    on the CPU the scan's plain version (eager loops of TB steps).
     """
     TB = VLI_BLOCK
     while padded_T % TB:
@@ -265,45 +268,7 @@ def _vli_orders(tok_val, tok_vli, padded_T: int):
     N = tok_val.shape[0]
     # (TB, N * nblk)
     x = transpose2d(_vli_ab(tok_val, tok_vli).reshape(N * nblk, TB))
-    a_all = ((x - 1) & 31).to(torch.int8)
-    b_all = (((x - 1) >> 5) & 31).to(torch.int8)
-    act_all = x > 0
-
-    def apply1(s, t):
-        a, b, act = a_all[t], b_all[t], act_all[t]
-        if s.dim() == 2:
-            a, b, act = a[:, None], b[:, None], act[:, None]
-        ns = torch.clamp(torch.maximum(s, a + (s >= b).to(torch.int8)) - 2,
-                         0, NSTATE - 1)
-        return torch.where(act, ns, s)
-
-    # Pass A: per-block transition map for every entry state.
-    maps = torch.arange(NSTATE, dtype=torch.int8,
-                        device=x.device)[None, :].repeat(N * nblk, 1)
-    for t in range(TB):
-        maps = apply1(maps, t)
-
-    # Pass B: minc[f, i] maps the order entering frame f's block 0 to the
-    # order leaving its block i (Hillis-Steele: apply the earlier map
-    # first).
-    minc = maps.long().reshape(N, nblk, NSTATE)
-    d = 1
-    while d < nblk:
-        nxt = minc.clone()
-        nxt[:, d:] = torch.gather(minc[:, d:], 2, minc[:, :-d])
-        minc = nxt
-        d *= 2
-    entry = torch.cat([torch.zeros((N, 1), dtype=torch.int8,
-                                   device=x.device),
-                       minc[:, :-1, 0].to(torch.int8)], dim=1).reshape(-1)
-
-    # Pass C: replay from the true entry states.
-    orders = torch.empty((TB, N * nblk), dtype=torch.int8, device=x.device)
-    s = entry
-    for t in range(TB):
-        orders[t] = s
-        s = apply1(s, t)
-    return transpose2d(orders).reshape(N, padded_T).to(_I32)
+    return transpose2d(vli_orders(x, nblk)).reshape(N, padded_T).to(_I32)
 
 
 def _stage2_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):

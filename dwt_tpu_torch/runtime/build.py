@@ -57,6 +57,12 @@ ENTRY_POINTS = {
     "dwt_transpose": (_P, _P, _L, _L, _I, _I, _P),
     # (tile, idx, out, bad, n, stream)
     "dwt_engine_probe": (_P, _P, _P, _P, _I, _P),
+    # (x, maps, agg, TB, R, nblk, stream)
+    "dwt_vli_maps": (_P, _P, _P, _I, _L, _I, _P),
+    # (agg, seg_in, nframes, nblk, stream)
+    "dwt_vli_entry": (_P, _P, _L, _I, _P),
+    # (x, maps, seg_in, out, TB, R, nblk, stream)
+    "dwt_vli_replay": (_P, _P, _P, _P, _I, _L, _I, _P),
 }
 
 

@@ -30,7 +30,7 @@ KINDS = ("flat", "noise", "mixed", "noise", "flat")
 # Frames a batch -> frames a sub-batch (None: the default bound).
 SUB = {1: None, 3: 3, 5: 2}
 KERNELS = ("hilbert_gather", "compact_tokens", "pack_words",
-           "scatter_refbits", "transpose2d")
+           "scatter_refbits", "transpose2d", "vli_orders")
 
 
 def _frames(name: str, n: int) -> np.ndarray:
@@ -59,7 +59,8 @@ def _spy(monkeypatch) -> dict:
 
     calls = {k: [] for k in KERNELS}
     for mod, name in ((stage1, "hilbert_gather"), (tokens, "compact_tokens"),
-                      (tokens, "transpose2d"), (emit, "pack_words"),
+                      (tokens, "transpose2d"), (tokens, "vli_orders"),
+                      (emit, "pack_words"),
                       (emit, "scatter_refbits")):
         def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
             calls[_name].append(tuple(
@@ -165,7 +166,8 @@ def test_batch_intermediates_equal_single(batched, name):
 def _split_plain(name, kernel, args, singles_args):
     """The batched call's plain version, cut into frames, and each
     frame's own plain call."""
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
+                                   vli_scan)
 
     n = len(singles_args)
     if kernel == "hilbert_gather":
@@ -188,6 +190,11 @@ def _split_plain(name, kernel, args, singles_args):
         return list(got.reshape(n, -1)), [
             compact.scatter_refbits_plain(a[0], a[1], a[2].clone())
             for a in singles_args]
+    if kernel == "vli_orders":  # frame f's blocks: columns f * nblk ...
+        x, nblk = args
+        got = vli_scan.vli_orders_plain(x, nblk)
+        return list(got.reshape(got.shape[0], n, nblk).transpose(0, 1)), [
+            vli_scan.vli_orders_plain(*a) for a in singles_args]
     # The VLI scan's transposes: frame f's blocks are rows f * nblk ...
     # of the int32 input and columns of the int8 one.
     got = transpose.transpose2d_plain(args[0])

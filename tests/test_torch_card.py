@@ -348,16 +348,18 @@ def test_gather_kernel_equals_plain(cuda, w, h, c):
                                         (320, 240, 3, "mixed")])
 def test_encoder_on_card_equals_cpu(cuda, w, h, c, kind):
     from dwt_tpu_torch.codec import encoder
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
+                                   vli_scan)
 
     img = random_image(np.random.default_rng(7), w, h, c, kind)
     fns = (hilbert_gather.hilbert_gather, compact.compact_tokens,
-           compact.scatter_refbits, pack.pack_words, transpose.transpose2d)
+           compact.scatter_refbits, pack.pack_words, transpose.transpose2d,
+           vli_scan.vli_orders)
     before = [f.launches for f in fns]
     got = encoder.Encoder(w, h, c).encode(img)
     assert got == encoder.Encoder(w, h, c, device="cpu").encode(img)
     moved = [f.launches - b for f, b in zip(fns, before)]
-    assert moved == [1, 1, 1, 1, 2], moved
+    assert moved == [1, 1, 1, 1, 2, 3], moved
 
 
 @pytest.mark.parametrize("w,h,c,sub", [(8, 8, 1, None), (9, 8, 3, None),
@@ -522,6 +524,69 @@ def test_int8_transpose_routes(cuda, shape, vec):
     assert transpose.transpose2d.launches == before + 1
 
 
+def _vli_params(rng, tb, r, kind, cuda):
+    """(tb, r) int32 transition parameters on the card: the encoder's
+    (``_vli_ab`` of random values, 60 % of them VLI tokens), or any
+    (a, b) pair, 0 and values past 1024."""
+    from dwt_tpu_torch.codec import tokens
+
+    if kind == "encoder":
+        val = torch.as_tensor((rng.integers(0, 2**20, tb * r)
+                               >> rng.integers(0, 20, tb * r))
+                              .astype(np.int32), device=cuda)
+        vli = torch.as_tensor(rng.random(tb * r) < 0.6, device=cuda)
+        return tokens._vli_ab(val, vli).reshape(tb, r).contiguous()
+    x = rng.integers(-3, 1026, (tb, r))
+    x[rng.random((tb, r)) < 0.001] = 2**31 - 1
+    return torch.as_tensor(x.astype(np.int32), device=cuda)
+
+
+@pytest.mark.parametrize("tb,nblk,n,kind", [
+    (128, 245760, 1, "encoder"),   # the 4K frame's scan
+    (128, 61440, 7, "encoder"),    # 7 frames of a quarter of its blocks:
+                                   # a 1080p sub-batch of the batch mode
+    (64, 97, 3, "any"), (128, 1000, 2, "any"), (16, 257, 1, "any"),
+    (1, 5, 3, "any"), (32, 511, 2, "encoder")])
+def test_vli_kernels_equal_plain(cuda, tb, nblk, n, kind):
+    """The VLI order scan's three kernels against its plain version on the
+    same CUDA tensors, exact, dtype and shape included, at the 4K and the
+    batch shapes and at ragged ones (segments of 256 block columns cut
+    short, blocks of fewer tokens); three launches a call."""
+    from dwt_tpu_torch.ops import vli_scan
+
+    x = _vli_params(np.random.default_rng(nblk), tb, n * nblk, kind, cuda)
+    before = vli_scan.vli_orders.launches
+    got = vli_scan.vli_orders(x, nblk)
+    assert vli_scan.vli_orders.launches == before + 3
+    want = vli_scan.vli_orders_plain(x, nblk)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int8
+    assert got.shape == want.shape == x.shape and torch.equal(got, want)
+    assert kind != "encoder" or int(got.max()) > 3
+
+
+def test_vli_orders_launches_a_scan(cuda):
+    """One ``_vli_orders`` call on the card: two transposes and three
+    scan launches, whatever the frame count; orders equal the CPU's."""
+    from dwt_tpu_torch.codec import tokens
+    from dwt_tpu_torch.ops import transpose, vli_scan
+
+    rng = np.random.default_rng(3)
+    for n, padded_T in ((1, 4096), (3, 6144 + 64), (5, 2048)):
+        val = (rng.integers(0, 2**20, (n, padded_T))
+               >> rng.integers(0, 20, (n, padded_T))).astype(np.int32)
+        vli = rng.random((n, padded_T)) < 0.6
+        fns = (transpose.transpose2d, vli_scan.vli_orders)
+        before = [f.launches for f in fns]
+        got = tokens._vli_orders(torch.as_tensor(val, device=cuda),
+                                 torch.as_tensor(vli, device=cuda), padded_T)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == [2, 3]
+        want = tokens._vli_orders(torch.as_tensor(val),
+                                  torch.as_tensor(vli), padded_T)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("budget_div", [0, 3])
 def test_tiled_on_card_equals_cpu(cuda, budget_div):
     """A small tiled container (uneven edge tiles), lossless and cut to a
@@ -542,14 +607,18 @@ def test_tiled_on_card_equals_cpu(cuda, budget_div):
 
 
 BATCH_KERNELS = ("hilbert_gather", "compact_tokens", "pack_words",
-                 "scatter_refbits", "transpose2d")
+                 "scatter_refbits", "transpose2d", "vli_orders")
+# Launches of each wrapper a sub-batch: the VLI scan's two transposes and
+# its three kernels.
+BATCH_LAUNCHES = {"transpose2d": 2, "vli_orders": 3}
 
 
 def _batch_pairs():
     """Each batched kernel's wrapper and plain version, and the codec
     module that calls it."""
     from dwt_tpu_torch.codec import emit, stage1, tokens
-    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, transpose
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
+                                   vli_scan)
 
     return {
         "hilbert_gather": (stage1, hilbert_gather.hilbert_gather,
@@ -561,16 +630,19 @@ def _batch_pairs():
                             compact.scatter_refbits_plain),
         "transpose2d": (tokens, transpose.transpose2d,
                         transpose.transpose2d_plain),
+        "vli_orders": (tokens, vli_scan.vli_orders,
+                       vli_scan.vli_orders_plain),
     }
 
 
 @pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
 def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
-    """Kernels 1-4 and 6 as a 3-frame sub-batch calls them (a flat, a
-    noise and a mixed frame: three token counts, one with no detail
-    plane), each launched once for the sub-batch (the transpose twice)
-    and each call held to its plain version on the same CUDA tensors; the
-    payloads and layer ends equal the CPU's."""
+    """Kernels 1-4 and 6 and the VLI scan as a 3-frame sub-batch calls
+    them (a flat, a noise and a mixed frame: three token counts, one with
+    no detail plane), each launched once for the sub-batch (the transpose
+    twice, the scan's three kernels once each) and each call held to its
+    plain version on the same CUDA tensors; the payloads and layer ends
+    equal the CPU's."""
     from dwt_tpu_torch.codec import tiled
 
     rng = np.random.default_rng(w + c)
@@ -590,7 +662,7 @@ def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
     torch.cuda.synchronize()
     assert got[0] == want[0] and np.array_equal(got[1], want[1])
     assert {k: fn.launches - before[k] for k, (_, fn, _) in pairs.items()} \
-        == {k: 2 if k == "transpose2d" else 1 for k in pairs}
+        == {k: BATCH_LAUNCHES.get(k, 1) for k in pairs}
     for name, (_, fn, plain) in pairs.items():
         for args in calls[name]:
             fresh = [[a.clone() if hasattr(a, "clone") else a for a in args]

@@ -220,4 +220,4 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
         "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu", "pack.cu",
-        "probe.cu", "runtime.cu", "transpose.cu"]
+        "probe.cu", "runtime.cu", "transpose.cu", "vli_scan.cu"]
