@@ -48,7 +48,9 @@ seconds:
 4. kernels — each kernel again on the 4K main paths' inputs, held against
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
-             PyTorch call computes the same function, that call; the
+             PyTorch call computes the same function, that call: first
+             stage 1's forward transform (colour and lifting, a launch a
+             level) and plane statistics (two kernels); the
              wrappers of the pack kernel and kernels A and B also in their
              parts (zero fill, order check or unit table, launches);
              kernel B also with its own count launch and unit table, and
@@ -65,7 +67,9 @@ seconds:
              its one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
-             warm encode spends its time (stage times; device busy time
+             warm encode spends its time (stage times; stage 1 by pass,
+             ``tools/stage1_split.py``: upload, colour and lifting,
+             gather, statistics, schedule and carry; device busy time
              and idle share from torch.profiler, three readings; the
              device-to-host and host-to-device copies of one); three
              warm decodes in MP/s, and one decode split into host parse,
@@ -78,9 +82,9 @@ seconds:
              beside their bounds: kernel 5 at 4K and at the tiled
              decode's calls (there also at other channel groups), each
              transpose of the VLI scan (the int8 one also by the element
-             kernel), each of the VLI order scan's three kernels.  After
-             the timing phase, so that no profiler session runs before
-             it.
+             kernel), each of the VLI order scan's three kernels, stage
+             1's three kernels.  After the timing phase, so that no
+             profiler session runs before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
              ``tcp://127.0.0.1`` port), so their all-gathers and
@@ -93,7 +97,12 @@ seconds:
              1,000,000-byte prefix to the prefix's shape and digest
              ("sharded decode"), and ``encode_tiled_sharded`` lossless and
              at a third of its size to the two container digests ("sharded
-             tiled encode", "budgeted sharded tiled encode").  Then warm
+             tiled encode", "budgeted sharded tiled encode").  The
+             sharded encode reaches stage 1's transform kernel only
+             through the halo DWT's coarse tail (``dwt2d_fwd`` on the
+             levels below the halo levels) and its plane statistics
+             through ``_stats_from_lin``; the tiled routes reach both
+             through the batch mode's stage 1.  Then warm
              rates of the three, each beside its single-device twin's in
              turns.  With two cards or more, two ranks (``cuda:0``,
              ``cuda:1``) in spawned processes run the same routes and
@@ -117,14 +126,17 @@ seconds:
              frames, 1 of 1), in ``Kernels.path``: the streams' total
              bytes and SHA-256 must equal the JAX package's (constants
              below), each encode kernel must launch once a sub-batch (10;
-             the transpose 20, the VLI order scan's three kernels 30), and
+             the transpose 20, the VLI order scan's three kernels 30, the
+             forward transform a level, 80, the plane statistics 20), and
              each stream must equal the
              single-stream encoder's.  Then warm MP/s of the batch in
              turns with the single-stream encoder looped over the same
              frames, the copies and the peak memory of one 7-frame
-             sub-batch, and each encode kernel's wrapper time at the
-             7-frame shape beside its bound (also in the kernels' JSON:
-             ``batch_launches``, ``batch_ms``, ``batch_bound_ms``).
+             sub-batch, stage 1 of a 7-frame sub-batch by pass, and each
+             encode kernel's wrapper time at the 7-frame shape beside its
+             bound, stage 1's kernels also by torch.profiler (also in the
+             kernels' JSON: ``batch_launches``, ``batch_ms``,
+             ``batch_bound_ms``, ``batch_device_ms``).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
 the two-rank run of phase 7 (it needs two cards), and prints no result
@@ -250,8 +262,11 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
                 "batch encode")
 # The kernels of the encode path and their launches a sub-batch of the
 # batch mode: one each, the VLI scan's transpose twice (two calls) and its
-# order scan three (one call, three kernels).
-BATCH_KERNELS = {"hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
+# order scan three (one call, three kernels), the forward transform one a
+# level (8 at 1920x1080) and the plane statistics two (one call, two
+# kernels).
+BATCH_KERNELS = {"forward_transform": 8, "plane_stats": 2,
+                 "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
                  "scatter_refbits": 1, "transpose2d": 2, "vli_orders": 3}
 BATCH_CALLS = {"transpose2d": 2}  # wrapper calls a sub-batch, where not 1
 DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
@@ -259,8 +274,15 @@ DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
 
 
 def max_abs_err(name: str, kernel_out, plain_out) -> int:
-    """Largest difference of two integer outputs (as uint32 bit patterns);
-    raises if their shapes or dtypes differ."""
+    """Largest difference of two integer outputs (as uint32 bit patterns),
+    or of two tuples of them, part by part; raises if their shapes or
+    dtypes differ."""
+    if isinstance(kernel_out, tuple):
+        if len(kernel_out) != len(plain_out):
+            raise AssertionError(f"{name}: kernel gives {len(kernel_out)} "
+                                 f"outputs, plain {len(plain_out)}")
+        return max(max_abs_err(name, k, p)
+                   for k, p in zip(kernel_out, plain_out))
     if (kernel_out.shape, kernel_out.dtype) != (plain_out.shape,
                                                 plain_out.dtype):
         raise AssertionError(
@@ -274,25 +296,38 @@ def max_abs_err(name: str, kernel_out, plain_out) -> int:
 
 class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
-    scan and the tile engines' probe), their sources, the TPU kernels (or,
-    for the scan, the JAX code) they replace and the paths
+    scan, the forward transform, the plane statistics and the tile
+    engines' probe), their sources, the TPU kernels (or, for the scan, the
+    transform and the statistics, the JAX code) they replace and the paths
     (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
         from dwt_tpu_torch.ops import (compact, hilbert_gather,
-                                       hilbert_scatter, pack, transpose,
-                                       vli_scan)
+                                       hilbert_scatter, lifting, pack,
+                                       plane_stats, transpose, vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
+        from dwt_tpu_torch.parallel import tiled as halo
 
         # The codec modules call the kernel wrappers by these names (the
-        # sharded encoder its gather through the composed halo index).
-        self.sites = [(stage1, "hilbert_gather"), (tokens, "compact_tokens"),
+        # sharded encoder its gather through the composed halo index, and
+        # the transform only as the halo DWT's coarse tail, ``dwt2d_fwd``,
+        # whose launches count on ``forward_transform``; it reaches the
+        # plane statistics through stage 1's ``_stats_from_lin``).
+        self.sites = [(stage1, "forward_transform"),
+                      (stage1, "hilbert_gather"), (stage1, "plane_stats"),
+                      (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
                       (decoder, "hilbert_scatter"), (tokens, "transpose2d"),
-                      (tokens, "vli_orders"), (sharded, "hilbert_gather")]
+                      (tokens, "vli_orders"), (sharded, "hilbert_gather"),
+                      (halo, "dwt2d_fwd")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
+            "forward_transform": (lifting.forward_transform,
+                                  lifting.forward_transform_plain),
+            "dwt2d_fwd": (lifting.dwt2d_fwd, lifting.dwt2d_fwd_plain),
+            "plane_stats": (plane_stats.plane_stats,
+                            plane_stats.plane_stats_plain),
             "hilbert_gather": (hilbert_gather.hilbert_gather,
                                hilbert_gather.hilbert_gather_plain),
             "compact_tokens": (compact.compact_tokens,
@@ -307,6 +342,16 @@ class Kernels:
             "vli_orders": (vli_scan.vli_orders, vli_scan.vli_orders_plain),
         }
         self.rows = [
+            # Stage 1's transform, a launch a level, and its plane
+            # statistics, two kernels a call.  No TPU kernel: they replace
+            # the JAX package's XLA (dwt2d_fwd with rgb_to_ycocg, and
+            # _plane_stats).
+            ("forward_transform", lifting.forward_transform,
+             "dwt_tpu_torch/csrc/lifting.cu",
+             "dwt_tpu/ops/lifting.py:95", ENCODE_PATHS),
+            ("plane_stats", plane_stats.plane_stats,
+             "dwt_tpu_torch/csrc/plane_stats.cu",
+             "dwt_tpu/codec/encoder.py:219", ENCODE_PATHS),
             ("hilbert_gather", hilbert_gather.hilbert_gather,
              "dwt_tpu_torch/csrc/hilbert_gather.cu",
              "dwt_tpu/ops/pallas_hilbert.py:284", ENCODE_PATHS),
@@ -643,18 +688,42 @@ def transpose_routes(torch, x, want) -> None:
 
 
 VLI_NAMES = ("vli_maps_kernel", "vli_entry_kernel", "vli_replay_kernel")
+# Stage 1's kernels by wrapper, as the profiler names them.
+STAGE1_NAMES = {"forward_transform": ("lift_fwd_kernel",),
+                "plane_stats": ("plane_hist_kernel", "plane_zup_kernel")}
+
+
+def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
+    """Each stage-1 kernel's device time (torch.profiler) on its kept
+    call ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's kernels
+    summed); returns a line of them beside their bounds."""
+    from dwt_tpu_torch.ops import lifting, plane_stats
+
+    fns = {"forward_transform": lifting.forward_transform,
+           "plane_stats": plane_stats.plane_stats}
+    parts = []
+    for name, kernels in STAGE1_NAMES.items():
+        args = kept[name]
+        ms = [kernel_ms(torch, lambda: fns[name](*args), k) for k in kernels]
+        bound, by = bound_of(*kernel_work(torch, name, args))
+        next(r for r in rows if r["name"] == name)[key] = sum(ms)
+        parts.append(f"{name} {tuple(args[0].shape)}: " + ", ".join(
+            f"{k} {m:.4f} ms" for k, m in zip(kernels, ms))
+            + f"; bound {bound:.4f} ms by {by}, share {bound / sum(ms):.2f}")
+    return "; ".join(parts)
 
 
 def device_times(torch, scatter_4k, tiled_scatter, transposes,
-                 vli) -> None:
+                 vli, stage1_kept, rows) -> None:
     """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; each VLI scan transpose, the int8 one also by the
-    element kernel; each of the VLI order scan's three kernels at 4K.
-    Run last, so that no profiler session comes before the timing phase
-    that a parent's script would not run either."""
+    element kernel; each of the VLI order scan's three kernels at 4K;
+    stage 1's kernels at 4K (into ``rows``).  Run last, so that no
+    profiler session comes before the timing phase that a parent's script
+    would not run either."""
     from dwt_tpu_torch.ops import hilbert_scatter as hs
     from dwt_tpu_torch.ops import transpose, vli_scan
 
@@ -694,6 +763,8 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
              + ", ".join(f"{n} {m:.4f} ms" for n, m in zip(VLI_NAMES, ms))
              + f"; together {sum(ms):.4f} ms, bound {bound:.4f} ms by {by}, "
              f"share {bound / sum(ms):.2f}")
+    progress("device: stage 1 at 4K: " + stage1_device(torch, stage1_kept,
+                                                      rows, "device_ms"))
 
 
 def bound_of(nbytes: int, ops: int = 0) -> tuple:
@@ -713,12 +784,47 @@ def vli_work(torch, x) -> tuple:
     return 5 * x.numel(), VLI_OPS_PER_TOKEN * int((x > 0).sum())
 
 
+def transform_work(torch, args) -> tuple:
+    """(bytes, integer operations) the forward transform must spend on its
+    (N, H, W, C) frames: the frames read once and the int32 coefficients
+    written once.  Its integer work, about 14 operations a sample over all
+    levels, takes less time at the INT32 rate than those bytes, and is not
+    counted."""
+    x = args[0]
+    return x.numel() * (x.element_size() + 4), 0
+
+
+def plane_stats_work(torch, args) -> tuple:
+    """(bytes, integer operations) the plane statistics must spend on
+    their arguments: each row's detail elements read once (4 bytes), the
+    pad mask once, the tables written once (int32); and one compare for
+    each element and plane that the boundary-prefix count must look at:
+    the elements of a chunk up to its last index at that plane (from the
+    plain version's tables, on this data)."""
+    from dwt_tpu_torch.ops import plane_stats as ps
+
+    lin, valid, _, _, unit_chunk, chunk_base = args
+    R, n, nchunk = lin.shape[0], valid.numel(), chunk_base.numel()
+    nbytes = 4 * R * n + n + 4 * (R * nchunk * (3 * ps.PMAX + 1) + R)
+    last = ps.plane_stats_plain(*args)[2]
+    first_unit = torch.searchsorted(
+        unit_chunk.long(), torch.arange(nchunk, device=lin.device))
+    first = first_unit * ps.UNIT - chunk_base.long()
+    ops = int((last.long() + 1 - first[None, :, None]).clamp(min=0).sum())
+    return nbytes, ops
+
+
 def kernel_work(torch, name: str, args) -> tuple:
     """(bytes, integer operations) of one call of an encode kernel: the
-    operations count only for the VLI order scan, whose bound they may
-    set; the others are bound by their bytes."""
+    operations count only for the VLI order scan and the plane
+    statistics, whose bound they may set; the others are bound by their
+    bytes."""
     if name == "vli_orders":
         return vli_work(torch, args[0])
+    if name == "forward_transform":
+        return transform_work(torch, args)
+    if name == "plane_stats":
+        return plane_stats_work(torch, args)
     return encode_kernel_bytes(torch, name, args), 0
 
 
@@ -764,7 +870,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
-                                   pack, transpose, vli_scan)
+                                   lifting, pack, plane_stats, transpose,
+                                   vli_scan)
 
     out = []
 
@@ -780,12 +887,32 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=library_ms, batch_launches=None, batch_ms=None,
-            batch_bound_ms=None))
+            library_ms=library_ms, device_ms=None, batch_launches=None,
+            batch_ms=None, batch_bound_ms=None, batch_device_ms=None))
         progress(f"kernels: {name} equal to its plain version; "
                  f"{ms:.3f} ms (plain {plain_ms:.3f} ms, library "
                  f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, "
                  f"bound {bound:.4f} ms by {by})")
+
+    # 0. stage 1's transform, uint8 (1, H, W, C) frames -> int32
+    # coefficients, and its plane statistics of the linearized (C, nlin)
+    # coefficients; no one PyTorch call computes either function
+    args = got["forward_transform"][0]
+    nbytes, ops = transform_work(torch, args)
+    row("forward_transform", lifting.forward_transform(*args),
+        lifting.forward_transform_plain(*args),
+        time_ms(torch, lambda: lifting.forward_transform(*args)),
+        time_ms(torch, lambda: lifting.forward_transform_plain(*args),
+                reps=3), nbytes, None, ops)
+    args = got["plane_stats"][0]
+    nbytes, ops = plane_stats_work(torch, args)
+    row("plane_stats", plane_stats.plane_stats(*args),
+        plane_stats.plane_stats_plain(*args),
+        time_ms(torch, lambda: plane_stats.plane_stats(*args)),
+        time_ms(torch, lambda: plane_stats.plane_stats_plain(*args), reps=3),
+        nbytes, None, ops)
+    progress(f"kernels: plane_stats {tuple(args[0].shape)}: {nbytes} bytes, "
+             f"{ops} compares of the boundary-prefix count")
 
     # 1. gather: (1, H, W, C) coefficients -> (1, C, nlin)
     co, src = got["hilbert_gather"][0]
@@ -1088,6 +1215,8 @@ def profile(torch, enc, img) -> None:
     progress(f"profile: stage1 {ms[0]:.1f} ms, tokens {ms[1]:.1f} ms, "
              f"emit {ms[2]:.1f} ms (host clock, synchronised)")
     del lin, stats, tv, tr, tf, orders, vmag, com
+    progress("profile: stage 1 at 4K by pass: " + stage1_split(torch, enc,
+                                                               img[None]))
 
     readings = []
     for i in range(4):
@@ -1120,6 +1249,20 @@ def profile(torch, enc, img) -> None:
              f"device-to-host, {copies['HtoD']} host-to-device")
     progress("profile: top device time (last one): " + "; ".join(
         f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
+
+
+def stage1_split(torch, enc, imgs: np.ndarray) -> str:
+    """``tools/stage1_split.py``'s split of one stage 1 of ``imgs``: the
+    means of three runs, each pass by the host clock between synchronised
+    marks and by CUDA events, beside the unmarked ``stage1_frames``."""
+    spec = importlib.util.spec_from_file_location(
+        "stage1_split", os.path.join(ROOT, "tools", "stage1_split.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = mod.split(torch, enc, imgs, 3)
+    return "; ".join(f"{k} {h:.2f} ms" + ("" if d is None else
+                                         f" ({d:.2f} events)")
+                     for k, (h, d) in res.items())
 
 
 def sha256_pixels(img: np.ndarray) -> str:
@@ -1242,6 +1385,8 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     each kernel call it kept (one for each set of input shapes) is held
     against its plain version.  Returns the lossless container and the
     scatter calls its decode kept."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+
     def run(name, fn):
         store, counts = {}, {}
         t0 = time.perf_counter()
@@ -1257,7 +1402,8 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     full, secs, counts, store = run(
         "tiled encode", lambda: tiled.encode_tiled(img, tile=TILE))
     digest = hashlib.sha256(full).hexdigest()
-    groups = len(tiled.group_tiles(img, TILE)[0])
+    shapes = tiled.group_tiles(img, TILE)[0]
+    groups = len(shapes)
     progress(f"e2e: tiled encode {TILE} -> {len(full)} bytes, sha256 "
              f"{digest[:16]}, {secs:.2f} s cold; launches {counts} (one "
              f"sub-batch for each of the {groups} tile geometries)")
@@ -1265,6 +1411,9 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
         raise AssertionError(f"tiled container differs from the JAX "
                              f"package's: {len(full)} bytes, sha256 {digest}")
     want = {k: n * groups for k, n in BATCH_KERNELS.items()}
+    # The transform launches once a level of each tile geometry.
+    want["forward_transform"] = sum(compute_pyramid(ww, hh).levels
+                                    for hh, ww in shapes)
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"the tiled encode's launches {counts} are not "
                              f"one a tile geometry: want {want}")
@@ -1830,6 +1979,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
                                  f"single-stream encoder's")
     progress(f"batch: each of the {BATCH_N} streams equal to the "
              f"single-stream encoder's on the card (three passes)")
+    progress(f"profile: stage 1 of a {sub}-frame sub-batch by pass: "
+             + stage1_split(torch, enc.enc, frames[:sub]))
     progress(f"timing: warm batch encode of {mp:.1f} MP, MP/s: batch "
              + ", ".join(f"{m:.2f}" for m in rates["batch"])
              + "; single-stream encoder looped over the frames "
@@ -1854,11 +2005,13 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
 
     # Each kernel's wrapper at the 7-frame shape (the first sub-batch's
     # kept call; the transposes summed), beside its bound.
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
-                                   vli_scan)
+    from dwt_tpu_torch.ops import (compact, hilbert_gather, lifting, pack,
+                                   plane_stats, transpose, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
+        "forward_transform": lambda a: lifting.forward_transform(*a),
+        "plane_stats": lambda a: plane_stats.plane_stats(*a),
         "hilbert_gather": lambda a: hilbert_gather.hilbert_gather(*a),
         "compact_tokens": lambda a: compact.compact_tokens(*a[:4]),
         "pack_words": lambda a: pack.pack_words(*a, order_flag=flag),
@@ -1882,13 +2035,19 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
                    batch_bound_ms=bound)
         shapes = [tuple(a[0].shape) for a in kept]
         plain = ""
-        if name == "vli_orders":
+        plains = {"vli_orders": vli_scan.vli_orders_plain,
+                  "forward_transform": lifting.forward_transform_plain,
+                  "plane_stats": plane_stats.plane_stats_plain}
+        if name in plains:
             plain = ", plain " + format(time_ms(torch, lambda: (
-                vli_scan.vli_orders_plain(*kept[0])), reps=3), ".3f") + " ms"
+                plains[name](*kept[0])), reps=3), ".3f") + " ms"
         parts.append(f"{name} {shapes} {ms:.3f} ms{plain}, bound "
                      f"{bound:.3f} ms by {by}, share {bound / ms:.2f}")
     progress(f"kernels: batch of {sub} frames, each wrapper at its kept "
              f"call: " + "; ".join(parts))
+    progress(f"device: stage 1 at the batch of {sub} frames: "
+             + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
+                             rows, "batch_device_ms"))
     del store
     torch.cuda.empty_cache()
     progress(f"batch: phase 9 {time.perf_counter() - t_phase:.1f} s")
@@ -1970,7 +2129,8 @@ def main(argv: list) -> int:
     # 4. kernels against their plain versions, on the main path's inputs
     rows = check_kernels(torch, K, got, launches, tiled_scatter)
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
-                     [x for (x,) in got["transpose2d"]], got["vli_orders"][0])
+                     [x for (x,) in got["transpose2d"]], got["vli_orders"][0],
+                     {k: got[k][0] for k in STAGE1_NAMES}, rows)
     del got, tiled_scatter
     torch.cuda.empty_cache()
 

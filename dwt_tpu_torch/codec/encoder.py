@@ -3,9 +3,10 @@
 Port of ``dwt_tpu/codec/encoder.py``'s ``Encoder``, ``get_encoder`` and
 ``encode``: stage 1 (codec/stage1.py), the tokens half (codec/tokens.py)
 and the emit half (codec/emit.py), writing the same ``.dwt`` bytes as the
-JAX package and the reference C encoder.  Five CUDA kernels run on the
-path: the linearization gather (and its one-time probe when an encoder
-is built), compaction kernels A and B, the VLI scan's transposes and the
+JAX package and the reference C encoder.  CUDA kernels run on the
+path: the forward transform and the plane statistics, the linearization
+gather (and its one-time probe when an encoder is built), compaction
+kernels A and B, the VLI scan's transposes and order scan, and the
 codeword packer.  The stages take a leading frame axis:
 ``Encoder.stage1_frames`` and ``Encoder.emit_frames`` run N frames of the
 geometry through one pipeline (``codec/tiled.py``'s batch mode), and one
@@ -333,6 +334,9 @@ class Encoder:
         engine_supported(self.device)  # the gather's probe, once a device
         self._src = torch.as_tensor(gather_source(self.pyr),
                                     device=self.device)
+        # Pinned staging buffers of the upload, one a frame shape and dtype,
+        # each with the event recorded behind its last copy.
+        self._staging: dict = {}
 
     def header(self) -> bytes:
         w, h = self.pyr.width, self.pyr.height
@@ -357,9 +361,30 @@ class Encoder:
         if imgs.ndim != 4 or imgs.shape[1:] != shape:
             raise ValueError(f"frames of shape {imgs.shape[1:]} do not "
                              f"match the encoder's {shape}")
-        return _transform_and_stats(
-            torch.as_tensor(imgs, device=self.device), self.pyr,
-            self.channels, self.gray, self._src)
+        return _transform_and_stats(self._upload(imgs), self.pyr,
+                                    self.channels, self.gray, self._src)
+
+    def _upload(self, imgs: np.ndarray) -> torch.Tensor:
+        """The frames on the encoder's device, in their own dtype.  To the
+        card through a pinned staging buffer kept per frame shape, copied
+        without blocking on the current stream; the buffer is refilled
+        only after the copy recorded behind its last use has completed."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(imgs, device=self.device)
+        host = torch.from_numpy(np.ascontiguousarray(imgs))
+        key = (tuple(host.shape), host.dtype)
+        if key not in self._staging:
+            self._staging[key] = [torch.empty(host.shape, dtype=host.dtype,
+                                              pin_memory=True), None]
+        staged = self._staging[key]
+        if staged[1] is not None:
+            staged[1].synchronize()
+        staged[0].copy_(host)
+        out = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        out.copy_(staged[0], non_blocking=True)
+        staged[1] = torch.cuda.Event()
+        staged[1].record(torch.cuda.current_stream(self.device))
+        return out
 
     def emit_frames(self, lin, stats, padded_T: int) -> tuple:
         """Stage 2 of N frames (``stage1_frames``' output) at token bucket

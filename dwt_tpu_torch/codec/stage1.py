@@ -14,6 +14,12 @@ q < p, newly significant (run-flush token + sign bit) when q == p and a
 refinement bit when q > p, so every token's position in the stream is a
 function of per-chunk plane histograms and one carry chain over the
 (channel, level, plane) schedule.
+
+Two kernels serve this stage besides the gather: the colour transform and
+the lifting (``ops/lifting.py:forward_transform``, a launch a level), and
+the per-chunk plane statistics (``ops/plane_stats.py:plane_stats``, two
+launches); the rest of the statistics and the schedule are small eager
+tensor work and one carry chain on the host.
 """
 
 from __future__ import annotations
@@ -26,32 +32,20 @@ import torch
 from ..geometry import Pyramid
 from ..hilbert import padded_layout
 from ..ops import compact
-from ..ops.color import rgb_to_ycocg
 from ..ops.hilbert_gather import hilbert_gather
-from ..ops.lifting import dwt2d_fwd
+from ..ops.lifting import forward_transform
+from ..ops.plane_stats import (PMAX, UNIT, _excl_cumsum, _ilog2, detail_q,
+                               plane_stats, plane_tables_plain)
 
 # Adaptive VLI order states (vli.h:67-84): enough for run lengths < 2^28.
 NSTATE = 31
-# Bitplane bound of the format: magnitudes stay below 2^29 because bits
-# 29/30 are the reference's sig/ref coding flags (encode.c:115-128).
-PMAX = 29
 # Segment alignment of the scan-order layout (hilbert.padded_layout);
-# 8 x compact.SUBA, so every unit starts on a whole row of packed elements.
+# 8 x compact.SUBA, so every unit starts on a whole row of packed elements,
+# and a whole unit of the plane statistics' kernels.
 ALIGN = 8192
+assert ALIGN % UNIT == 0
 
 _I32 = torch.int32
-
-
-def _ilog2(x: torch.Tensor) -> torch.Tensor:
-    """Floor log2 for x > 0 as int32 (garbage for x <= 0: mask at the call
-    sites).  Exact: an integer below 2^53 converts to float64 exactly, and
-    the exponent field of the float is its floor log2."""
-    return ((x.to(torch.float64).view(torch.int64) >> 52) - 1023).to(_I32)
-
-
-def _excl_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Exclusive cumsum that keeps int32 (torch's int32 cumsum is int64)."""
-    return (torch.cumsum(x, dim=dim) - x).to(x.dtype)
 
 
 class _Segs:
@@ -101,6 +95,14 @@ class _Segs:
         self.block_chunk = torch.as_tensor(
             np.repeat(np.arange(self.nchunk), [ln // 512 for ln in ch_len]),
             device=self.device)
+        # The plane statistics' kernels: each UNIT-element unit's chunk,
+        # and each chunk's level start (a level-local index is a position
+        # less it).
+        self.unit_chunk_t = torch.as_tensor(
+            np.repeat(np.arange(self.nchunk), [ln // UNIT for ln in ch_len]),
+            dtype=_I32, device=self.device)
+        self.chunk_base_t = torch.as_tensor(
+            np.repeat(self.starts, lv_cnt), dtype=_I32, device=self.device)
         # The tables above as int32 tensors on the device, made once (a
         # host-to-device copy a call otherwise).
         t = functools.partial(torch.as_tensor, dtype=_I32, device=self.device)
@@ -161,65 +163,32 @@ def _detail_q(lin, segs: _Segs):
     """(..., C, n) significance plane of each padded detail element of
     (..., C, nlin) ``lin`` (-1 = zero or pad), and the (1, n) validity
     mask."""
-    det = lin[..., segs.root_pad :]
-    valid = segs.valid_t[None, :]
-    mag = det.abs()
-    return torch.where((mag > 0) & valid, _ilog2(mag), -1), valid
+    return (detail_q(lin[..., segs.root_pad :], segs.valid_t),
+            segs.valid_t[None, :])
 
 
 def _plane_stats(q, valid, segs: _Segs, C: int, L: int, planes_max):
     """(C, L, PMAX) / (C, nchunk, PMAX) per-plane token statistics of the
-    C rows of ``q`` (the frames' channels, flattened) in three fused
-    one-hot passes: per-512-block plane histograms,
-    last-significant positions and boundary-prefix zero counts.
+    C rows of ``q`` (the frames' channels, flattened): the chunk tables of
+    ``plane_tables_plain``, then :func:`_level_stats`.  Values at p >=
+    planes_max differ from :func:`_plane_stats_loop`'s zeros only in slots
+    every consumer masks."""
+    del valid, planes_max, C, L  # pads are -1 in q already
+    return _level_stats(*plane_tables_plain(
+        q, segs.valid_t, segs.idx_local, segs.block_chunk, segs.nchunk),
+        segs)
+
+
+def _level_stats(nS_ck, lastS_ck, z0_ck, zup_ck, segs: _Segs):
+    """(nS, nZ, trailZ, nS_ck, nZ_ck) from the chunk tables of
+    :func:`plane_stats`.
 
     trailZ(c, l, p) — zeros after the level's last newly significant
     element (rle.h run threading) — decomposes because level-local indices
     are monotone across a level's chunks: the level's lastS lies in one
     chunk k*, so z_upto = sum_{k<k*} nZ_ck[k] + (chunk-local zeros at
-    idx <= lastS).  Values at p >= planes_max differ from
-    :func:`_plane_stats_loop`'s zeros only in slots every consumer masks.
-    """
-    del valid, planes_max  # pads are -1 in q already; every plane is made
-    dev = q.device
-    nb = q.shape[1] // 512
-    qb = q.reshape(C, nb, 512)
-    validb = segs.valid_t.reshape(1, nb, 512)
-    idxb = segs.idx_local.reshape(1, nb, 512)
-    p_all = torch.arange(PMAX, dtype=_I32, device=dev)
-    ids = segs.block_chunk
-
-    z0_b = ((qb == -1) & validb).sum(dim=2, dtype=_I32)  # (C, nb)
-    hist_p, last_p = [], []
-    GP = 8  # planes per fused pass: bounds every temporary
-    for g0 in range(0, PMAX, GP):
-        oh = qb[..., None] == p_all[g0 : g0 + GP]
-        hist_p.append(oh.sum(dim=2, dtype=_I32))
-        last_p.append(torch.where(oh, idxb[..., None], -1).amax(dim=2))
-    hist_b = torch.cat(hist_p, dim=-1)  # (C, nb, PMAX)
-    lastS_b = torch.cat(last_p, dim=-1)
-
-    def zeros_ckp():
-        return torch.zeros((C, segs.nchunk, PMAX), dtype=_I32, device=dev)
-
-    nS_ck = zeros_ckp().index_add_(1, ids, hist_b)
-    lastS_ck = torch.full((C, segs.nchunk, PMAX), -1, dtype=_I32,
-                          device=dev).scatter_reduce_(
-        1, ids[None, :, None].expand(C, nb, PMAX), lastS_b, "amax")
-    z0_ck = torch.zeros((C, segs.nchunk), dtype=_I32,
-                        device=dev).index_add_(1, ids, z0_b)
+    idx <= lastS)."""
     nZ_ck = z0_ck[..., None] + _excl_cumsum(nS_ck, dim=2)
-
-    # Chunk-local boundary-prefix zeros: zeros at idx <= the chunk's own
-    # last-significant position, per plane.
-    lastS_bc = lastS_ck[:, ids]  # (C, nb, PMAX)
-    qzb = torch.where(validb, qb, 2**30)
-    zup_p = []
-    for g0 in range(0, PMAX, GP):
-        m = ((qzb[..., None] < p_all[g0 : g0 + GP])
-             & (idxb[..., None] <= lastS_bc[:, :, None, g0 : g0 + GP]))
-        zup_p.append(m.sum(dim=2, dtype=_I32))
-    zup_ck = zeros_ckp().index_add_(1, ids, torch.cat(zup_p, dim=-1))
 
     def lvl(x, red):
         return torch.stack(
@@ -275,12 +244,10 @@ def _check_planes(planes_max: int) -> int:
 
 def _transform_and_stats(imgs, pyr: Pyramid, channels: int, gray: bool,
                          src):
-    """(N, H, W, C) frames -> (lin, stats).  ``src``: the gather's source
-    index (see :func:`gather_source`)."""
-    data = imgs.to(_I32)
-    if not gray:
-        data = rgb_to_ycocg(data)
-    coeff = dwt2d_fwd(data, pyr)
+    """(N, H, W, C) frames (uint8, or any dtype that converts to int32) ->
+    (lin, stats).  ``src``: the gather's source index (see
+    :func:`gather_source`)."""
+    coeff = forward_transform(imgs, pyr, not gray)
     return _stats_from_lin(_linearize(coeff, src, pyr, channels), pyr,
                            channels)
 
@@ -346,14 +313,14 @@ def _stats_from_lin(lin, pyr: Pyramid, channels: int):
     segs = segs_for(pyr, dev)
 
     root = lin[:, :, :pix0]
-    q, valid = _detail_q(lin, segs)  # (N, C, n)
-
-    planes = (1 + q.amax(dim=2)).to(_I32)  # (N, C)
+    planes, *tables = plane_stats(
+        lin.reshape(N * C, -1), segs.valid_t, segs.idx_local,
+        segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
+    planes = planes.reshape(N, C)
     planes_max = planes.amax(dim=1)  # (N,)
 
     nS, nZ, trailZ, nS_ck, nZ_ck = (
-        x.reshape(N, C, *x.shape[1:]) for x in _plane_stats(
-            q.reshape(N * C, -1), valid, segs, N * C, L, planes_max))
+        x.reshape(N, C, *x.shape[1:]) for x in _level_stats(*tables, segs))
     pm = planes_max[:, None, None, None]
     p_ix = torch.arange(PMAX, dtype=_I32, device=dev)[None, None, None, :]
     nRef = torch.where(p_ix < pm, segs.real_t[None, None, :, None] - nZ - nS,

@@ -1,10 +1,20 @@
 """Integer CDF 5/3 lifting, forward and inverse (port of
-``dwt_tpu/ops/lifting.py``).
+``dwt_tpu/ops/lifting.py``), and the encoder's forward transform (kernel
+``csrc/lifting.cu``).
 
-Whole-axis slice arithmetic over all rows or columns of a level at once.
 Every division truncates toward zero (C semantics, never Python's floor);
 odd-length boundary rules follow the reference's cdf53.h:11-33: clamped
 neighbours, and no update on the last even sample of an odd-N signal.
+
+:func:`forward_transform` takes N (N, H, W, C) frames to their (N, H, W,
+C) int32 coefficients, the YCoCg-R colour transform first for RGB.  On the
+card one ``lift_fwd_kernel`` launch a level (``launches`` grows by
+``pyr.levels``): uint8 frames are read as bytes, the colour transform is
+applied as the finest level loads, each level's detail quadrants go
+straight into the coefficients and its LL quadrant into one of two
+ping-pong buffers, the next level's input.  On the CPU:
+:func:`forward_transform_plain`, whole-axis slice arithmetic over all rows
+or columns of a level at once (:func:`dwt2d_fwd_plain`).
 """
 
 from __future__ import annotations
@@ -12,6 +22,9 @@ from __future__ import annotations
 import torch
 
 from ..geometry import Pyramid
+from ..runtime import build
+from ._launch import on_card
+from .color import rgb_to_ycocg
 
 
 def _tdiv(a: torch.Tensor, d: int) -> torch.Tensor:
@@ -80,7 +93,14 @@ def cdf53_inv(x: torch.Tensor, axis: int) -> torch.Tensor:
 def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
     """Multi-level forward 2-D DWT on (..., H, W, C) int32 (encode.c:16-30):
     rows, then columns, per level; the LL quadrant recurses.  Leading axes
-    are a batch."""
+    are a batch.  :func:`forward_transform` without the colour step: on
+    the card its kernel, on the CPU :func:`dwt2d_fwd_plain`."""
+    frames = img.reshape((-1,) + tuple(img.shape[-3:])).contiguous()
+    return forward_transform(frames, pyr, False).reshape(img.shape)
+
+
+def dwt2d_fwd_plain(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dwt2d_fwd`."""
     out = img
     for l in range(pyr.levels, 0, -1):
         w, h = pyr.widths[l], pyr.heights[l]
@@ -90,6 +110,68 @@ def dwt2d_fwd(img: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
         else:
             out[..., :h, :w, :] = sub  # in place: ``out`` is this function's
     return out
+
+
+def forward_transform_plain(frames: torch.Tensor, pyr: Pyramid,
+                            colour: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`forward_transform`."""
+    data = frames.to(torch.int32)
+    if colour:
+        data = rgb_to_ycocg(data)
+    return dwt2d_fwd_plain(data, pyr)
+
+
+def forward_transform(frames: torch.Tensor, pyr: Pyramid,
+                      colour: bool) -> torch.Tensor:
+    """(N, H, W, C) frames (uint8, or any dtype that converts to int32) ->
+    (N, H, W, C) int32 coefficients of ``dwt2d_fwd(rgb_to_ycocg(frames))``
+    (``colour``, C == 3) or ``dwt2d_fwd(frames)``.  The frames are left as
+    they were.  On the card ``pyr.levels`` launches."""
+    if frames.dim() != 4 or tuple(frames.shape[1:3]) != (pyr.height,
+                                                         pyr.width):
+        raise ValueError(f"forward_transform: frames of shape "
+                         f"{tuple(frames.shape)} are not (N, {pyr.height}, "
+                         f"{pyr.width}, C)")
+    if colour and frames.shape[3] != 3:
+        raise ValueError("forward_transform: the colour transform needs 3 "
+                         "channels")
+    if not on_card("forward_transform", frames):
+        return forward_transform_plain(frames, pyr, colour)
+    N, H, W, C = frames.shape
+    if C not in (1, 3) or N > 65535:
+        raise ValueError(f"forward_transform: the kernel takes 1 or 3 "
+                         f"channels and at most 65535 frames, not {C} and "
+                         f"{N}")
+    if frames.dtype not in (torch.uint8, torch.int32):
+        frames = frames.to(torch.int32)
+    dev = frames.device
+    coeff = torch.empty((N, H, W, C), dtype=torch.int32, device=dev)
+    L = pyr.levels
+    # Ping-pong LL buffers, sized for the first two LL images (each later
+    # one is smaller than its buffer); the last level writes coeff's LL.
+    bufs = [torch.empty(N * pyr.heights[l] * pyr.widths[l] * C,
+                        dtype=torch.int32, device=dev)
+            for l in (L - 1, L - 2) if l >= 1]
+    lib, stream = build.library(), build.stream_of(frames)
+    src, u8 = frames, frames.dtype == torch.uint8
+    s_frame, s_row = H * W * C, W * C
+    for step, l in enumerate(range(L, 0, -1)):
+        h, w = pyr.heights[l], pyr.widths[l]
+        hl, wl = pyr.heights[l - 1], pyr.widths[l - 1]
+        if l == 1:
+            ll, ll_frame, ll_row = coeff, H * W * C, W * C
+        else:
+            ll, ll_frame, ll_row = bufs[step % 2], hl * wl * C, wl * C
+        build.check(lib.dwt_lift_fwd(
+            src.data_ptr(), int(u8), int(colour and l == L), s_frame, s_row,
+            coeff.data_ptr(), H * W * C, W * C, ll.data_ptr(), ll_frame,
+            ll_row, N, h, w, C, stream), "forward_transform")
+        forward_transform.launches += 1
+        src, u8, s_frame, s_row = ll, False, ll_frame, ll_row
+    return coeff
+
+
+forward_transform.launches = 0
 
 
 def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:

@@ -63,6 +63,16 @@ ENTRY_POINTS = {
     "dwt_vli_entry": (_P, _P, _L, _I, _P),
     # (x, maps, seg_in, out, TB, R, nblk, stream)
     "dwt_vli_replay": (_P, _P, _P, _P, _I, _L, _I, _P),
+    # (src, src_u8, colour, src_frame, src_row, coeff, co_frame, co_row, ll,
+    #  ll_frame, ll_row, n, h, w, C, stream)
+    "dwt_lift_fwd": (_P, _I, _I, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I,
+                     _I, _P),
+    # (lin, valid, unit_chunk, chunk_base, q8, nS, last1, z0, planes, rows,
+    #  nlin, n, nchunk, stream)
+    "dwt_plane_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
+                       _P),
+    # (q8, unit_chunk, chunk_base, last1, zup, rows, n, nchunk, stream)
+    "dwt_plane_zup": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
 }
 
 

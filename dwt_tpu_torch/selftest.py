@@ -370,12 +370,15 @@ def _streams(size) -> list:
 
 
 def _launches() -> list:
-    from .ops import (compact, hilbert_gather, hilbert_scatter, pack,
-                      transpose, vli_scan)
+    """The encode kernels' launch counts, then the scatter kernel's."""
+    from .ops import (compact, hilbert_gather, hilbert_scatter, lifting,
+                      pack, plane_stats, transpose, vli_scan)
 
     return [compact.compact_tokens.launches, compact.scatter_refbits.launches,
             hilbert_gather.hilbert_gather.launches, pack.pack_words.launches,
             transpose.transpose2d.launches, vli_scan.vli_orders.launches,
+            lifting.forward_transform.launches,
+            plane_stats.plane_stats.launches,
             hilbert_scatter.hilbert_scatter.launches]
 
 
@@ -388,9 +391,9 @@ def _encode(h: _Held, size) -> None:
         before = _launches()
         got = Encoder(ww, hh, c, device=h.dev).encode(img)
         ran = [a - b for a, b in zip(_launches(), before)]
-        if not all(ran[:6]):
+        if not all(ran[:-1]):
             h.fail(f"encode {ww}x{hh}x{c}: an encode kernel did not launch "
-                   f"{ran[:6]}")
+                   f"{ran[:-1]}")
         h.same(f"encode {ww}x{hh}x{c}", np.frombuffer(got, np.uint8),
                np.frombuffer(want, np.uint8))
 
@@ -405,7 +408,7 @@ def _decode(h: _Held, size) -> None:
             label = f"decode {img.shape} of {len(s)} bytes"
             before = _launches()
             got, _ = decoder.decode(s, device=h.dev)
-            if _launches()[6] == before[6]:
+            if _launches()[-1] == before[-1]:
                 h.fail(f"{label}: the scatter kernel did not launch")
             want, _ = decoder.decode(s, device="cpu")
             h.same(label, got, want)

@@ -791,3 +791,72 @@ def test_selftest_on_card_all_ok(cuda):
                              "scatter", "transpose", "probe", "encode",
                              "decode"]
     assert set(results.values()) == {"ok"}
+
+
+STAGE1_SHAPES = [
+    # (w, h, c, n): 4K RGB, a 7-frame 1080p sub-batch, a group of 512x448
+    # tiles, a grey odd-sized frame, a frame wider than one 32-sample tile
+    # row of the lifting kernel and only a tile and a bit high
+    (3840, 2160, 3, 1), (1920, 1080, 3, 7), (448, 512, 3, 12),
+    (321, 239, 1, 1), (1000, 37, 3, 2)]
+
+
+@pytest.mark.parametrize("w,h,c,n", STAGE1_SHAPES)
+def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
+    """The forward transform (one launch a level; uint8 and int32 frames,
+    and ``dwt2d_fwd`` without the colour step) and the plane statistics
+    (two launches) equal their plain versions on the same CUDA tensors,
+    every output and slot."""
+    from dwt_tpu_torch.codec import stage1
+    from dwt_tpu_torch.codec.encoder import Encoder
+    from dwt_tpu_torch.ops import lifting, plane_stats
+
+    rng = np.random.default_rng(w * h + n)
+    frames = np.stack([random_image(rng, w, h, c, ("mixed", "noise")[i % 2])
+                       for i in range(n)])
+    enc = Encoder(w, h, c)
+    pyr = enc.pyr
+    x = torch.as_tensor(frames).to(cuda)
+    before = lifting.forward_transform.launches
+    coeff = lifting.forward_transform(x, pyr, c == 3)
+    assert lifting.forward_transform.launches == before + pyr.levels
+    want = lifting.forward_transform_plain(x, pyr, c == 3)
+    torch.cuda.synchronize()
+    assert coeff.dtype == want.dtype and torch.equal(coeff, want)
+    assert torch.equal(lifting.forward_transform(x.to(torch.int32), pyr,
+                                                 c == 3), want)
+    y = want[0].clone()
+    assert torch.equal(lifting.dwt2d_fwd(y, pyr),
+                       lifting.dwt2d_fwd_plain(y, pyr))
+
+    lin = stage1._linearize(coeff, enc._src, pyr, c)
+    segs = stage1.segs_for(pyr, lin.device)
+    args = (lin.reshape(n * c, -1), segs.valid_t, segs.idx_local,
+            segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
+    before = plane_stats.plane_stats.launches
+    got = plane_stats.plane_stats(*args)
+    assert plane_stats.plane_stats.launches == before + 2
+    want = plane_stats.plane_stats_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w_ in zip(["planes", "nS_ck", "lastS_ck", "z0_ck", "zup_ck"],
+                           got, want):
+        assert g.dtype == w_.dtype and torch.equal(g, w_), name
+    assert int(got[0].max()) > 0 and int((got[4] > 0).sum()) > 0
+
+
+def test_stage1_frames_reuses_its_staging_buffer(cuda):
+    """The upload keeps one pinned buffer a frame shape; two calls in a row
+    give each its own frames on the card."""
+    from dwt_tpu_torch.codec.encoder import Encoder
+
+    rng = np.random.default_rng(3)
+    enc = Encoder(64, 48, 3)
+    a, b = (random_image(rng, 64, 48, 3, "noise")[None] for _ in range(2))
+    xa, xb = enc._upload(a), enc._upload(b)
+    assert len(enc._staging) == 1
+    assert np.array_equal(xa.cpu().numpy(), a)
+    assert np.array_equal(xb.cpu().numpy(), b)
+    lin, stats = enc.stage1_frames(a)
+    lin_cpu, stats_cpu = Encoder(64, 48, 3, device="cpu").stage1_frames(a)
+    assert torch.equal(lin.cpu(), lin_cpu)
+    assert torch.equal(stats["T"].cpu(), stats_cpu["T"])

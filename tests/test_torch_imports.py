@@ -2,8 +2,8 @@
 builder, on the card or anywhere; its entry points use the card unless the
 CPU is asked for; the kernel wrappers take their plain path only for CPU
 tensors; and what the port does not support is refused, not
-approximated.  Its benchmark, ``bench_torch``, imports neither JAX nor
-``dwt_tpu`` either."""
+approximated.  Its benchmark, ``bench_torch``, and its measurement
+scripts, ``tools/``, import neither JAX nor ``dwt_tpu`` either."""
 
 import ast
 import os
@@ -19,7 +19,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dwt_tpu_torch").rglob("*.py")) + sorted(
-    (ROOT / "bench_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "bench_torch").rglob("*.py")) + sorted(
+    (ROOT / "tools").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "dwt_tpu", "conftest", "torch.utils.cpp_extension")
 
 
@@ -219,5 +220,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
-        "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu", "pack.cu",
-        "probe.cu", "runtime.cu", "transpose.cu", "vli_scan.cu"]
+        "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu",
+        "lifting.cu", "pack.cu", "plane_stats.cu", "probe.cu", "runtime.cu",
+        "transpose.cu", "vli_scan.cu"]
