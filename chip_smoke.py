@@ -44,13 +44,21 @@ seconds:
              inputs kept: one call of each kernel for each distinct set of
              input shapes (a tile geometry, a token bucket, the batched
              scatter of N tiles as N*C channels), held at once against
-             its plain version on the same CUDA tensors (exact).
+             its plain version on the same CUDA tensors (exact).  Then
+             small tiles (``small_tiles``): a 2736x2736 RGB frame in
+             16x16 tiles, 29,241 of one geometry, more than one
+             sub-batch holds within stage 2's int32 indices; it encodes
+             in two sub-batches (counts reset and read), equal to the same
+             container in sub-batches of 4,096, decodes back to the
+             frame, and stage 1's kernels equal their plain versions on
+             256 of its tiles.
 4. kernels — each kernel again on the 4K main paths' inputs, held against
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
              PyTorch call computes the same function, that call: first
              stage 1's forward transform (colour and lifting, a launch a
-             level) and plane statistics (two kernels); the
+             large level and one for the coarse tail) and plane
+             statistics (one kernel); the
              wrappers of the pack kernel and kernels A and B also in their
              parts (zero fill, order check or unit table, launches);
              kernel B also with its own count launch and unit table, and
@@ -83,8 +91,10 @@ seconds:
              decode's calls (there also at other channel groups), each
              transpose of the VLI scan (the int8 one also by the element
              kernel), each of the VLI order scan's three kernels, stage
-             1's three kernels.  After the timing phase, so that no
-             profiler session runs before it.
+             1's three kernels, and the forward transform launch by
+             launch with the levels each lifts (``tools/stage1_kernels.py``,
+             also at the batch's 7-frame shape in phase 9).  After the
+             timing phase, so that no profiler session runs before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
              ``tcp://127.0.0.1`` port), so their all-gathers and
@@ -262,15 +272,31 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
                 "batch encode")
 # The kernels of the encode path and their launches a sub-batch of the
 # batch mode: one each, the VLI scan's transpose twice (two calls) and its
-# order scan three (one call, three kernels), the forward transform one a
-# level (8 at 1920x1080) and the plane statistics two (one call, two
-# kernels).
-BATCH_KERNELS = {"forward_transform": 8, "plane_stats": 2,
+# order scan three (one call, three kernels); the forward transform's
+# launches are a closed form of the geometry's pyramid, a launch a large
+# level and one for the tail (ops/lifting.py:launch_levels; 5 at
+# 1920x1080): ``sub_batch_launches`` gives them.
+BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
                  "scatter_refbits": 1, "transpose2d": 2, "vli_orders": 3}
 BATCH_CALLS = {"transpose2d": 2}  # wrapper calls a sub-batch, where not 1
 DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
                 "sharded decode")
+# Small tiles whose one geometry needs two sub-batches within stage 2's
+# int32 indices: 171 x 171 = 29,241 tiles of 16x16 RGB, where the pixel
+# bound alone made one sub-batch of them, which the int32 check refused.
+SMALL_TILE = (16, 16)
+SMALL_SIDE = 2736
+SMALL_SUB = 4096  # tiles a sub-batch of the reference container
+
+
+def sub_batch_launches(pyr) -> dict:
+    """``BATCH_KERNELS`` at a geometry: each encode kernel's launches a
+    sub-batch, the forward transform's from its pyramid."""
+    from dwt_tpu_torch.ops import lifting
+
+    return {**BATCH_KERNELS,
+            "forward_transform": len(lifting.launch_levels(pyr))}
 
 
 def max_abs_err(name: str, kernel_out, plain_out) -> int:
@@ -486,11 +512,13 @@ def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
     return total / reps
 
 
-def kernel_ms(torch, fn, match: str, n: int = 10) -> float:
+def kernel_ms(torch, fn, match: str, n: int = 10, per_call: int = 0) -> float:
     """Device time of the kernels whose name holds ``match`` in one
     ``fn()``, from torch.profiler over ``n`` calls: the card's own time,
     without the host's launch time that ``time_ms`` includes.  NaN (not
-    measured) when the profiler records no such kernel."""
+    measured) when the profiler records no such kernel, or a count of
+    them other than ``per_call`` a call (where given) or one that ``n``
+    calls cannot make: it dropped some."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -502,9 +530,11 @@ def kernel_ms(torch, fn, match: str, n: int = 10) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name)
-    return us / 1e3 / n if us > 0 else float("nan")
+    ev = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and match in e.name]
+    if not ev or len(ev) % n or (per_call and len(ev) != per_call * n):
+        return float("nan")  # none, or some dropped by the profiler
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n
 
 
 def u32(t):
@@ -689,8 +719,9 @@ def transpose_routes(torch, x, want) -> None:
 
 VLI_NAMES = ("vli_maps_kernel", "vli_entry_kernel", "vli_replay_kernel")
 # Stage 1's kernels by wrapper, as the profiler names them.
-STAGE1_NAMES = {"forward_transform": ("lift_fwd_kernel",),
-                "plane_stats": ("plane_hist_kernel", "plane_zup_kernel")}
+STAGE1_NAMES = {"forward_transform": ("lift_level_kernel",
+                                      "lift_tail_kernel"),
+                "plane_stats": ("plane_stats_kernel",)}
 
 
 def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
@@ -701,10 +732,15 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
 
     fns = {"forward_transform": lifting.forward_transform,
            "plane_stats": plane_stats.plane_stats}
+    pyr = kept["forward_transform"][1]
+    tail = lifting.tail_level(pyr) > 0
+    per_call = {"lift_level_kernel": len(lifting.launch_levels(pyr)) - tail,
+                "lift_tail_kernel": int(tail), "plane_stats_kernel": 1}
     parts = []
     for name, kernels in STAGE1_NAMES.items():
         args = kept[name]
-        ms = [kernel_ms(torch, lambda: fns[name](*args), k) for k in kernels]
+        ms = [kernel_ms(torch, lambda: fns[name](*args), k,
+                        per_call=per_call[k]) for k in kernels]
         bound, by = bound_of(*kernel_work(torch, name, args))
         next(r for r in rows if r["name"] == name)[key] = sum(ms)
         parts.append(f"{name} {tuple(args[0].shape)}: " + ", ".join(
@@ -798,19 +834,17 @@ def plane_stats_work(torch, args) -> tuple:
     """(bytes, integer operations) the plane statistics must spend on
     their arguments: each row's detail elements read once (4 bytes), the
     pad mask once, the tables written once (int32); and one compare for
-    each element and plane that the boundary-prefix count must look at:
-    the elements of a chunk up to its last index at that plane (from the
-    plain version's tables, on this data)."""
+    each element and each plane up to its 512-element block's top plane,
+    the cumulative counts that the boundary-prefix count is summed from
+    (on this data)."""
     from dwt_tpu_torch.ops import plane_stats as ps
 
-    lin, valid, _, _, unit_chunk, chunk_base = args
+    lin, valid, _, _, _, chunk_base = args
     R, n, nchunk = lin.shape[0], valid.numel(), chunk_base.numel()
     nbytes = 4 * R * n + n + 4 * (R * nchunk * (3 * ps.PMAX + 1) + R)
-    last = ps.plane_stats_plain(*args)[2]
-    first_unit = torch.searchsorted(
-        unit_chunk.long(), torch.arange(nchunk, device=lin.device))
-    first = first_unit * ps.UNIT - chunk_base.long()
-    ops = int((last.long() + 1 - first[None, :, None]).clamp(min=0).sum())
+    q = ps.detail_q(lin[:, lin.shape[1] - n:], valid)
+    top = q.reshape(R, -1, 512).amax(dim=2).clamp(max=ps.PMAX)
+    ops = 512 * int((top.long() + 1).sum())
     return nbytes, ops
 
 
@@ -912,7 +946,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         time_ms(torch, lambda: plane_stats.plane_stats_plain(*args), reps=3),
         nbytes, None, ops)
     progress(f"kernels: plane_stats {tuple(args[0].shape)}: {nbytes} bytes, "
-             f"{ops} compares of the boundary-prefix count")
+             f"{ops} element-plane compares of the block counts")
 
     # 1. gather: (1, H, W, C) coefficients -> (1, C, nlin)
     co, src = got["hilbert_gather"][0]
@@ -1265,6 +1299,96 @@ def stage1_split(torch, enc, imgs: np.ndarray) -> str:
                      for k, (h, d) in res.items())
 
 
+def lift_split(torch, imgs: np.ndarray) -> str:
+    """``tools/stage1_kernels.py``'s split of one forward transform of
+    ``imgs``: each launch's device time (torch.profiler, means of 20
+    calls) with the levels it lifts, their sum, and the call's CUDA-event
+    time, or "not measured" where the profiler dropped kernel events."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+
+    spec = importlib.util.spec_from_file_location(
+        "stage1_kernels", os.path.join(ROOT, "tools", "stage1_kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.split_line(mod.transform(
+        torch, torch.as_tensor(imgs, device="cuda"),
+        compute_pyramid(imgs.shape[2], imgs.shape[1]), 20))
+
+
+def small_tiles(torch, K: Kernels, tiled) -> None:
+    """Phase 3b, sub-batches within stage 2's int32 indices: a
+    ``SMALL_SIDE`` square RGB frame in ``SMALL_TILE`` tiles, one geometry
+    of more tiles than one sub-batch holds.  The pixel bound alone made
+    them one sub-batch, which ``_check_batch`` refuses (shown on the
+    host); ``encode_tiled`` now makes two (``BatchEncoder.max_frames``),
+    each launching every encode kernel (counts reset and read).  Gates:
+    the container equals the same frame's encoded ``SMALL_SUB`` tiles a
+    sub-batch, ``decode_tiled`` of it gives the frame back, and the
+    transform and the plane statistics equal their plain versions on the
+    first 256 tiles."""
+    from dwt_tpu_torch.codec import encoder, stage1
+    from dwt_tpu_torch.ops import lifting, plane_stats
+
+    t0 = time.perf_counter()
+    img = random_image(SMALL_SIDE, SMALL_SIDE, C, seed=1)
+    th, tw = SMALL_TILE
+    groups, n_tiles = tiled.group_tiles(img, SMALL_TILE)
+    enc = tiled.get_batch_encoder(tw, th, C, None)  # encode_tiled's
+    pyr, nlin = enc.pyr, enc.enc._src.numel()
+    old = enc.MAX_PIXELS_PER_DISPATCH // pyr.total
+    bucket = encoder._bucket(encoder.max_tokens(pyr, C))
+    try:
+        encoder._check_batch(min(old, n_tiles), nlin, pyr, C, bucket)
+        raise AssertionError(f"{n_tiles} {tw}x{th} tiles fit one sub-batch")
+    except ValueError as e:
+        refused = str(e)
+    sub = min(old, enc.max_frames)
+    nsub = -(-n_tiles // sub)
+    K.reset()
+    t1 = time.perf_counter()
+    full = tiled.encode_tiled(img, tile=SMALL_TILE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = K.counts()
+    K.check_launched("tiled encode", counts)
+    want = {k: n * nsub for k, n in sub_batch_launches(pyr).items()}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"small tiles: launches {counts}, want {want}")
+    enc.MAX_PIXELS_PER_DISPATCH = SMALL_SUB * pyr.total
+    try:
+        ref = tiled.encode_tiled(img, tile=SMALL_TILE)
+    finally:
+        del enc.MAX_PIXELS_PER_DISPATCH
+    if ref != full:
+        raise AssertionError(f"small tiles: the container differs from the "
+                             f"one of {SMALL_SUB} tiles a sub-batch")
+    out, gray = tiled.decode_tiled(full)
+    if gray or not np.array_equal(out, img):
+        raise AssertionError("small tiles: the decode differs from the frame")
+    x = torch.as_tensor(np.stack([t for _, t in groups[SMALL_TILE][:256]]),
+                        device="cuda")
+    coeff = lifting.forward_transform(x, pyr, True)
+    err = max_abs_err("forward_transform", coeff,
+                      lifting.forward_transform_plain(x, pyr, True))
+    lin = stage1._linearize(coeff, enc.enc._src, pyr, C)
+    segs = stage1.segs_for(pyr, lin.device)
+    args = (lin.reshape(-1, nlin), segs.valid_t, segs.idx_local,
+            segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
+    err = max(err, max_abs_err("plane_stats", plane_stats.plane_stats(*args),
+                               plane_stats.plane_stats_plain(*args)))
+    if err:
+        raise AssertionError(f"small tiles: a stage-1 kernel differs from "
+                             f"its plain version (max abs err {err})")
+    progress(f"e2e: small tiles: {SMALL_SIDE}x{SMALL_SIDE}x{C} in {tw}x{th} "
+             f"tiles, {n_tiles} of one geometry; one sub-batch of them is "
+             f"refused ({refused}); encode_tiled in {nsub} sub-batches of "
+             f"{sub} at most -> {len(full)} bytes in {secs:.2f} s, launches "
+             f"{counts}; equal to the container of {SMALL_SUB} tiles a "
+             f"sub-batch; decode_tiled gives the frame back; the transform "
+             f"and the plane statistics equal their plain versions on 256 "
+             f"tiles; {time.perf_counter() - t0:.1f} s")
+
+
 def sha256_pixels(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
 
@@ -1410,10 +1534,10 @@ def tiled_paths(torch, K: Kernels, tiled, img: np.ndarray) -> tuple:
     if (len(full), digest) != (TILED_BYTES, TILED_SHA256):
         raise AssertionError(f"tiled container differs from the JAX "
                              f"package's: {len(full)} bytes, sha256 {digest}")
-    want = {k: n * groups for k, n in BATCH_KERNELS.items()}
-    # The transform launches once a level of each tile geometry.
-    want["forward_transform"] = sum(compute_pyramid(ww, hh).levels
-                                    for hh, ww in shapes)
+    # Each tile geometry one sub-batch, its transform's launches from its
+    # pyramid.
+    want = {k: sum(sub_batch_launches(compute_pyramid(ww, hh))[k]
+                   for hh, ww in shapes) for k in BATCH_KERNELS}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"the tiled encode's launches {counts} are not "
                              f"one a tile geometry: want {want}")
@@ -1949,7 +2073,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     if (len(blob), digest) != (BATCH_BYTES, BATCH_SHA256):
         raise AssertionError(f"the batch's streams differ from the JAX "
                              f"package's: {len(blob)} bytes, sha256 {digest}")
-    want = {k: n * nsub for k, n in BATCH_KERNELS.items()}
+    want = {k: n * nsub for k, n in sub_batch_launches(enc.pyr).items()}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"batch launches {counts}: want {want}, one a "
                              f"sub-batch")
@@ -2048,6 +2172,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     progress(f"device: stage 1 at the batch of {sub} frames: "
              + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
                              rows, "batch_device_ms"))
+    progress(f"device: the forward transform by launch at the batch of {sub} "
+             f"frames: " + lift_split(torch, frames[:sub]))
     del store
     torch.cuda.empty_cache()
     progress(f"batch: phase 9 {time.perf_counter() - t_phase:.1f} s")
@@ -2125,6 +2251,7 @@ def main(argv: list) -> int:
     lossy_decodes(torch, K, decoder, stream)
     capacity_encode(K, enc, img, stream, info["tokens"])
     full, tiled_scatter = tiled_paths(torch, K, tiled, img)
+    small_tiles(torch, K, tiled)
 
     # 4. kernels against their plain versions, on the main path's inputs
     rows = check_kernels(torch, K, got, launches, tiled_scatter)
@@ -2159,6 +2286,8 @@ def main(argv: list) -> int:
     # 6. device times of kernels 5 and 6 (torch.profiler)
     device_times(torch, *device_inputs)
     del device_inputs
+    progress("device: the forward transform by launch at 4K: "
+             + lift_split(torch, img[None]))
 
     # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
     sharded_phase(torch, K, img, stream, card)
@@ -2173,7 +2302,11 @@ def main(argv: list) -> int:
     # 9. the batch throughput mode: BASELINE config 4
     batch_phase(torch, K, rows, card)
 
-    print(json.dumps({"kernels": rows}))
+    # A time not measured (NaN: the profiler dropped the kernel's events)
+    # prints as null.
+    print(json.dumps({"kernels": [
+        {k: None if isinstance(v, float) and v != v else v
+         for k, v in row.items()} for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -45,6 +45,39 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _batch_needs(n: int, nlin: int, pyr, channels: int,
+                 padded_T: int) -> dict:
+    """The int32 index ranges of one stage-2 launch over ``n`` frames (see
+    :func:`_check_batch`), each linear in ``n``."""
+    return {
+        "stream words": n * _stream_words(pyr, channels, padded_T),
+        "token pairs": n * (padded_T // 2 + compact.WTOK_BIG + 256),
+        "packed elements": n * channels * nlin + compact.E,
+        "token slots": n * (padded_T + 1),
+    }
+
+
+def max_tokens(pyr, channels: int) -> int:
+    """The most token slots (``stats["T"]``) a frame of the geometry can
+    need, from the format: a root band of ``pix0`` coefficients gives a
+    channel at most 1 + 2 * pix0 tokens, the steps' base starts C slots
+    later, every detail coefficient turns significant at one plane at
+    most (2 tokens), each of the C * L * PMAX steps adds at most one
+    refinement-run token and one pad slot, and one flush token ends the
+    stream."""
+    steps = channels * pyr.levels * PMAX
+    return 2 * channels * (1 + pyr.total) + 2 * steps + 1
+
+
+def max_batch(nlin: int, pyr, channels: int, padded_T: int) -> int:
+    """The largest ``n`` for which :func:`_check_batch` passes (0 when not
+    even one frame does)."""
+    at0 = _batch_needs(0, nlin, pyr, channels, padded_T)
+    at1 = _batch_needs(1, nlin, pyr, channels, padded_T)
+    return max(0, min((2**31 - 1 - at0[k]) // (at1[k] - at0[k])
+                      for k in at0))
+
+
 def _check_batch(n: int, nlin: int, pyr, channels: int,
                  padded_T: int) -> None:
     """The int32 bounds of one stage-2 launch over ``n`` frames laid end to
@@ -53,14 +86,9 @@ def _check_batch(n: int, nlin: int, pyr, channels: int,
     (n stream buffers), kernel A's pair windows (n pair buffers), the
     packed elements' index and the token slots must stay below 2^31.
     Raises before anything is allocated: a sub-batch is never split behind
-    the caller's back (lower ``BatchEncoder.MAX_PIXELS_PER_DISPATCH``
-    instead)."""
-    need = {
-        "stream words": n * _stream_words(pyr, channels, padded_T),
-        "token pairs": n * (padded_T // 2 + compact.WTOK_BIG + 256),
-        "packed elements": n * channels * nlin + compact.E,
-        "token slots": n * (padded_T + 1),
-    }
+    the caller's back (``BatchEncoder`` sizes its sub-batches by
+    :func:`max_batch`)."""
+    need = _batch_needs(n, nlin, pyr, channels, padded_T)
     over = {k: v for k, v in need.items() if v >= 2**31}
     if over:
         raise ValueError(

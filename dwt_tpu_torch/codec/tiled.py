@@ -56,12 +56,21 @@ class BatchEncoder:
         self.enc = _enc.get_encoder(width, height, channels, device)
         self.pyr = self.enc.pyr
         self.channels = channels
+        # Frames a sub-batch can hold within stage 2's int32 indices at the
+        # largest token bucket a frame of this geometry can reach.
+        self.max_frames = _enc.max_batch(
+            self.enc._src.numel(), self.pyr, channels,
+            _enc._bucket(_enc.max_tokens(self.pyr, channels)))
 
     def header(self) -> bytes:
         return self.enc.header()
 
     def _chunks(self, imgs: np.ndarray):
-        chunk = max(1, self.MAX_PIXELS_PER_DISPATCH // self.pyr.total)
+        """Sub-batches of ``imgs``: at most ``MAX_PIXELS_PER_DISPATCH``
+        pixels and ``max_frames`` frames each (the bytes do not depend on
+        the grouping)."""
+        chunk = max(1, min(self.MAX_PIXELS_PER_DISPATCH // self.pyr.total,
+                           self.max_frames))
         return (imgs[s:s + chunk] for s in range(0, imgs.shape[0], chunk))
 
     def stage1_batches(self, imgs: np.ndarray) -> list:

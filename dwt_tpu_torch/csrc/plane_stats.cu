@@ -1,7 +1,7 @@
 // The encoder's plane statistics: per-chunk plane histograms,
 // last-significant positions, zero counts and boundary-prefix zero counts
-// of the linearized detail coefficients, and each row's top plane, in two
-// launches.
+// of the linearized detail coefficients, and each row's top plane, in one
+// launch.
 //
 // No TPU kernel to replace: the JAX package computes them as XLA
 // (dwt_tpu/codec/encoder.py:_plane_stats, one-hot passes over the planes,
@@ -12,204 +12,250 @@
 //
 // Input: lin, R rows of nlin int32 (a frame's channel a row), whose last n
 // elements are the detail axis; valid, the (n,) pad mask; unit_chunk, the
-// chunk of each UNIT-element unit of the detail axis (chunks are whole
-// units: segments and chunks are multiples of 8192 elements); chunk_base,
-// the detail-axis start of each chunk's level segment.  An element's
-// level-local index is its position less its chunk's base.  Its plane q is
-// the top set bit of |x| (31 - clz), -1 for a valid zero.
+// chunk of each UNIT-element unit of the detail axis (chunks are 1 to
+// CHUNK_UNITS whole units, in order); chunk_base, the detail-axis start of
+// each chunk's level segment.  An element's level-local index is its
+// position less its chunk's base.  Its plane q is the top set bit of |x|
+// (31 - clz), -1 for a valid zero.
 //
-// Output, into tables the wrapper zeroes: nS (R, nchunk, 29) the count of
-// valid elements at plane p; last1 (R, nchunk, 29) one more than the
-// largest level-local index at plane p (0: none); z0 (R, nchunk) the valid
-// zeros; zup (R, nchunk, 29) the valid elements with q < p at a level-local
-// index <= last1 - 1 of the same chunk and plane; planes (R,) one more
-// than the row's largest q (0 for a row of zeros).  Every sum and maximum
-// is an integer atomic: the result does not depend on the order of the
-// blocks.
+// Output: nS (R, nchunk, 29) the count of valid elements at plane p;
+// lastS (R, nchunk, 29) the largest level-local index at plane p (-1:
+// none); z0 (R, nchunk) the valid zeros; zup (R, nchunk, 29) the valid
+// elements with q < p at a level-local index <= lastS of the same chunk
+// and plane; planes (R,) one more than the row's largest q (0 for a row of
+// zeros), an integer atomic maximum into a table the wrapper zeroes.  A
+// chunk's tables are written by the one block that owns it: the result
+// does not depend on the order of the blocks.
 //
-// Bound: the coefficients read once (4 bytes an element) and the mask
-// (1 byte an element), or the compares of the boundary-prefix count (an
-// element and plane for each element of a chunk up to the chunk's last
-// index at that plane) at the card's INT32 rate, whichever is larger for
-// the data (chip_smoke.py reports both).
+// Bound: bytes, the coefficients read once (4 bytes an element) and the
+// mask once (1 byte an element).  The first version (two launches) spent
+// two thirds of its time in the boundary-prefix count, 29 compare-and-adds
+// for each element (about 2 G integer operations at 4K), and wrote and
+// read back an int8 copy of every element's plane (25 MB at 4K).  This
+// design removes both:
 //
-// 1. plane_hist_kernel: one CUDA block a unit of one row (32 elements a
-//    thread, 16-byte loads).  A warp finds the lanes that share a plane
-//    with __match_any_sync: the lowest adds their count to the block's
-//    histogram in shared memory, the highest (the largest index: positions
-//    rise with the lane) its index to the block's maximum.  It writes each
-//    element's q as int8 (127 for a pad, which no plane counts) for pass 2,
-//    and adds the block's tables into the chunk's.
-// 2. plane_zup_kernel: the same blocks, after pass 1 has set every chunk's
-//    last1.  Each thread keeps 29 counters and, for each of its elements,
-//    adds 1 to plane p when q < p and the index is at most the chunk's
-//    last index at p; a warp reduction and one atomic a plane follow.  A
-//    unit that lies wholly past every plane's last index is skipped.
+// plane_stats_kernel: one CUDA block a chunk and group of rows.  The
+// block stages the chunk's mask once as bits in shared memory for all its
+// rows.  For each row, a warp takes a 512-element block (32 lanes x 16
+// elements, 16-byte loads), computes q + 1 of each element as a byte (127
+// for a pad) into the chunk's byte array in shared memory, and keeps the
+// block's cumulative counts #{q < p} for p = 0..29: with the bytes packed
+// four to a word, one subtract and mask (SWAR) compares four elements
+// with p at once, and only the planes up to the block's largest q are
+// counted (above it the count is the block's valid count).  Then a warp a
+// plane finishes the chunk: nS from the counts' differences, the last
+// block that holds plane p from them, lastS from that block's bytes, and
+// zup as the counts of the blocks before it plus a recount of that one
+// block's bytes up to lastS.  No element is compared with every plane,
+// and nothing but the tables leaves the block.
 #include "common.cuh"
 
-constexpr int PMAX = 29;     // bitplanes of the format (ops/plane_stats.py)
-constexpr int UNIT = 8192;   // elements a block (codec/stage1.py: ALIGN)
-constexpr int THREADS = 256;
-constexpr int PAD_Q = 127;   // q of a pad element: no plane counts it
+constexpr int PMAX = 29;         // bitplanes of the format (ops/plane_stats.py)
+constexpr int UNIT = 8192;       // elements a unit (codec/stage1.py: ALIGN)
+constexpr int CHUNK_UNITS = 8;   // units a chunk at most (compact.E / UNIT)
+constexpr int CHUNK_MAX = CHUNK_UNITS * UNIT;
+constexpr int BLK = 512;         // elements a warp's block
+constexpr int NB_MAX = CHUNK_MAX / BLK;
+constexpr int NT = PMAX + 1;     // cumulative counts a block: #{q < p}, p <= 29
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned HI = 0x80808080u, ONES = 0x01010101u;
+constexpr unsigned PAD_U = 127;  // q + 1 of a pad: no plane counts it
+constexpr size_t SMEM = CHUNK_MAX + CHUNK_MAX / 8
+                        + NB_MAX * NT * sizeof(unsigned short);
 
-__device__ __forceinline__ int plane_of(int x, bool valid) {
-  const int mag = x < 0 ? -x : x;  // INT_MIN stays negative: a "zero"
-  return !valid ? PAD_Q : (mag > 0 ? 31 - __clz(mag) : -1);
+// Bytes of w with value < p + 1, as bit 7 of each byte (every byte < 128).
+__device__ __forceinline__ unsigned below(unsigned w, int p) {
+  return ~((w | HI) - (unsigned)(p + 1) * ONES) & HI;
 }
 
-// Row and unit of this CUDA block, the unit's chunk and its level base.
-struct Unit {
-  int64_t row;
-  int64_t pos0;  // first detail-axis position
-  int chunk, base;
-  __device__ Unit(const int* unit_chunk, const int* chunk_base,
-                  int64_t nunits) {
-    row = blockIdx.x / nunits;
-    const int64_t u = blockIdx.x % nunits;
-    pos0 = u * UNIT;
-    chunk = unit_chunk[u];
-    base = chunk_base[chunk];
-  }
-};
+// Bytes of w equal to v, as bit 7 of each byte (exact for every byte).
+__device__ __forceinline__ unsigned equal(unsigned w, int v) {
+  const unsigned x = w ^ ((unsigned)v * ONES);
+  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & HI;
+}
 
-__global__ void __launch_bounds__(THREADS) plane_hist_kernel(
+// Bit 7 of the bytes of a lane's word k (elements 128k + 4 lane + 0..3)
+// at positions up to `last` in the block.
+__device__ __forceinline__ unsigned upto(int last, int k, int lane) {
+  const int m = last - (128 * k + 4 * lane) + 1;  // bytes that count
+  return m >= 4 ? HI : (m <= 0 ? 0u : HI & ((1u << (8 * m)) - 1));
+}
+
+__global__ void __launch_bounds__(THREADS) plane_stats_kernel(
     const int* __restrict__ lin, const unsigned char* __restrict__ valid,
     const int* __restrict__ unit_chunk, const int* __restrict__ chunk_base,
-    signed char* __restrict__ q8, int* __restrict__ nS,
-    int* __restrict__ last1, int* __restrict__ z0, int* __restrict__ planes,
-    int64_t nlin, int64_t n, int nchunk) {
-  __shared__ int hist[PMAX], last[PMAX], zeros, top;
-  const Unit un(unit_chunk, chunk_base, n / UNIT);
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (tid < PMAX) {
-    hist[tid] = 0;
-    last[tid] = -1;
+    int* __restrict__ nS, int* __restrict__ lastS, int* __restrict__ z0,
+    int* __restrict__ zup, int* __restrict__ planes, int64_t rows,
+    int64_t nlin, int64_t n, int nchunk, int nunits, int group,
+    int ngroups) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  unsigned char* q1 = sm;                                 // q + 1, a byte each
+  unsigned* vbits = (unsigned*)(sm + CHUNK_MAX);          // the mask, a bit each
+  unsigned short* cnt = (unsigned short*)(vbits + CHUNK_MAX / 32);
+  __shared__ int wmax[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (int)(blockIdx.x / ngroups);
+  const int64_t r0 = (int64_t)(blockIdx.x % ngroups) * group;
+  const int64_t r1 = r0 + group < rows ? r0 + group : rows;
+
+  // The chunk's units: unit u's chunk is at most u and at least u / 8, so
+  // they lie in [chunk, 8 chunk + 8); count those before it and up to it.
+  int before = 0, upto_c = 0;
+  const int wend = min(nunits, CHUNK_UNITS * chunk + CHUNK_UNITS);
+  for (int u0 = chunk; u0 < wend; u0 += THREADS) {
+    const int u = u0 + tid;
+    const int c = u < wend ? __ldg(&unit_chunk[u]) : 0x7fffffff;
+    before += __syncthreads_count(c < chunk);
+    upto_c += __syncthreads_count(c <= chunk);
   }
-  if (tid == 0) {
-    zeros = 0;
-    top = -1;
+  const int units = upto_c - before;
+  if (units < 1 || units > CHUNK_UNITS) __trap();  // not the tables' layout
+  const int64_t pos0 = (int64_t)(chunk + before) * UNIT;
+  const int len = units * UNIT, nblk = len / BLK;
+  const int first = (int)(pos0 - __ldg(&chunk_base[chunk]));  // its index
+
+  // The mask, once for every row of the group.
+  for (int k = tid; k < len / 32; k += THREADS) {
+    const uint4* v = (const uint4*)(valid + pos0 + 32 * k);
+    const uint4 a = __ldg(v), b = __ldg(v + 1);
+    const unsigned wv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bits |= ((wv[i] >> (8 * j)) & 1u) << (4 * i + j);
+    vbits[k] = bits;
   }
   __syncthreads();
-  const int* x = lin + un.row * nlin + (nlin - n) + un.pos0;
-  const unsigned char* v = valid + un.pos0;
-  signed char* qo = q8 + un.row * n + un.pos0;
-  int nz = 0, qmax = -1;
-#pragma unroll 2
-  for (int j = 0; j < UNIT / (4 * THREADS); ++j) {
-    const int off = 4 * (j * THREADS + tid);
-    const int4 xv = *(const int4*)(x + off);
-    const uchar4 vv = *(const uchar4*)(v + off);
-    const int q[4] = {plane_of(xv.x, vv.x), plane_of(xv.y, vv.y),
-                      plane_of(xv.z, vv.z), plane_of(xv.w, vv.w)};
-    *(char4*)(qo + off) = make_char4(q[0], q[1], q[2], q[3]);
+
+  for (int64_t row = r0; row < r1; ++row) {
+    const int* x = lin + row * nlin + (nlin - n) + pos0;
+    int qtop = -1;
+    for (int b = warp; b < nblk; b += WARPS) {
+      unsigned wq[4];
+      int qmax = -1, nv = 0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      nz += __popc(__ballot_sync(FULL, q[e] == -1));
-      if (q[e] != PAD_Q) qmax = max(qmax, q[e]);
-      const unsigned m = __match_any_sync(FULL, q[e]);
-      if (q[e] >= 0 && q[e] < PMAX) {
-        if (lane == __ffs(m) - 1) atomicAdd(&hist[q[e]], __popc(m));
-        if (lane == 31 - __clz(m))
-          atomicMax(&last[q[e]], (int)(un.pos0 + off + e - un.base));
+      for (int k = 0; k < 4; ++k) {
+        const int e = b * BLK + 128 * k + 4 * lane;
+        const int4 xv = __ldg((const int4*)(x + e));
+        const unsigned vb = (vbits[e >> 5] >> (e & 31)) & 0xfu;
+        const int xs[4] = {xv.x, xv.y, xv.z, xv.w};
+        unsigned word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // q + 1 (|INT_MIN| is no magnitude: a "zero", as in the plain
+          // version, whose int32 abs leaves it negative).
+          const unsigned mag = xs[j] < 0 ? 0u - (unsigned)xs[j]
+                                         : (unsigned)xs[j];
+          const int u = mag - 1u < 0x7fffffffu ? 32 - __clz(mag) : 0;
+          const bool ok = (vb >> j) & 1u;
+          word |= (ok ? (unsigned)u : PAD_U) << (8 * j);
+          if (ok) qmax = max(qmax, u - 1);
+        }
+        nv += __popc(vb);
+        wq[k] = word;
+        ((unsigned*)q1)[e >> 2] = word;
+      }
+      const int m = __reduce_max_sync(FULL, qmax);  // the block's top plane
+      const int valid_n = __reduce_add_sync(FULL, nv);
+      unsigned short* cb = cnt + b * NT;
+      const int top = min(m, PMAX);  // planes counted one by one
+      for (int p = 0; p <= top; ++p) {
+        int c = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) c += __popc(below(wq[k], p));
+        c = __reduce_add_sync(FULL, c);
+        if (lane == 0) cb[p] = (unsigned short)c;
+      }
+      if (lane > top && lane < NT) cb[lane] = (unsigned short)valid_n;
+      qtop = max(qtop, m);
+    }
+    if (lane == 0) wmax[warp] = qtop;
+    __syncthreads();
+
+    int cm = -1;  // the chunk's top plane
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) cm = max(cm, wmax[w]);
+    const int64_t ck = row * nchunk + chunk;
+    if (tid == 0 && cm >= 0) atomicMax(&planes[row], cm + 1);
+    // Task PMAX: the zeros; task p < PMAX: plane p.
+    for (int p = warp; p <= PMAX; p += WARPS) {
+      if (p == PMAX) {
+        int z = 0;
+        for (int b = lane; b < nblk; b += 32) z += cnt[b * NT];
+        z = __reduce_add_sync(FULL, z);
+        if (lane == 0) z0[ck] = z;
+        continue;
+      }
+      int ns = 0, blast = -1;
+      if (p <= cm)
+        for (int b = lane; b < nblk; b += 32) {
+          const int at = cnt[b * NT + p + 1] - cnt[b * NT + p];
+          ns += at;
+          if (at) blast = b;
+        }
+      ns = __reduce_add_sync(FULL, ns);
+      blast = __reduce_max_sync(FULL, blast);
+      int last = -1, zu = 0;
+      if (blast >= 0) {  // the last block that holds plane p
+        unsigned wq[4];
+        int pos = -1;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wq[k] = ((const unsigned*)q1)[(blast * BLK + 128 * k) / 4 + lane];
+#pragma unroll
+        for (int k = 3; k >= 0; --k) {
+          const unsigned eq = equal(wq[k], p + 1);
+          if (pos < 0 && eq) pos = 128 * k + 4 * lane + (31 - __clz(eq)) / 8;
+        }
+        pos = __reduce_max_sync(FULL, pos);
+        for (int b = lane; b < blast; b += 32) zu += cnt[b * NT + p];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          zu += __popc(below(wq[k], p) & upto(pos, k, lane));
+        zu = __reduce_add_sync(FULL, zu);
+        last = first + blast * BLK + pos;
+      }
+      if (lane == 0) {
+        nS[ck * PMAX + p] = ns;
+        lastS[ck * PMAX + p] = last;
+        zup[ck * PMAX + p] = zu;
       }
     }
-  }
-  qmax = __reduce_max_sync(FULL, qmax);
-  if (lane == 0) {
-    atomicAdd(&zeros, nz);  // every lane counted the warp's zeros
-    atomicMax(&top, qmax);
-  }
-  __syncthreads();
-  const int64_t cp = (un.row * nchunk + un.chunk) * PMAX;
-  if (tid < PMAX) {
-    if (hist[tid]) atomicAdd(&nS[cp + tid], hist[tid]);
-    if (last[tid] >= 0) atomicMax(&last1[cp + tid], last[tid] + 1);
-  } else if (tid == PMAX) {
-    if (zeros) atomicAdd(&z0[un.row * nchunk + un.chunk], zeros);
-  } else if (tid == PMAX + 1) {
-    if (top >= 0) atomicMax(&planes[un.row], top + 1);
+    __syncthreads();  // q1, cnt and wmax are the next row's
   }
 }
 
-__global__ void __launch_bounds__(THREADS) plane_zup_kernel(
-    const signed char* __restrict__ q8, const int* __restrict__ unit_chunk,
-    const int* __restrict__ chunk_base, const int* __restrict__ last1,
-    int* __restrict__ zup, int64_t n, int nchunk) {
-  __shared__ int acc[PMAX];
-  const Unit un(unit_chunk, chunk_base, n / UNIT);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int64_t cp = (un.row * nchunk + un.chunk) * PMAX;
-  const int first = (int)(un.pos0 - un.base);  // the unit's first index
-  int lastp[PMAX], cnt[PMAX], lmax = -1;
-#pragma unroll
-  for (int p = 0; p < PMAX; ++p) {
-    lastp[p] = __ldg(&last1[cp + p]) - 1;
-    lmax = max(lmax, lastp[p]);
-    cnt[p] = 0;
-  }
-  if (lmax < first) return;  // uniform: no element of the unit counts
-  if (tid < PMAX) acc[tid] = 0;
-  __syncthreads();
-  const signed char* qi = q8 + un.row * n + un.pos0;
-  for (int j = 0; j < UNIT / (16 * THREADS); ++j) {
-    const int off = 16 * (j * THREADS + tid);
-    const int4 raw = *(const int4*)(qi + off);
-    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int q = (signed char)(w[e >> 2] >> (8 * (e & 3)));
-      const int idx = first + off + e;
-#pragma unroll
-      for (int p = 0; p < PMAX; ++p) cnt[p] += (q < p) & (idx <= lastp[p]);
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < PMAX; ++p) {
-    const int s = __reduce_add_sync(FULL, cnt[p]);
-    if (lane == 0 && s) atomicAdd(&acc[p], s);
-  }
-  __syncthreads();
-  if (tid < PMAX && acc[tid]) atomicAdd(&zup[cp + tid], acc[tid]);
-}
-
-static int blocks(int64_t rows, int64_t n, unsigned* g) {
-  if (rows < 0 || n < 0 || n % UNIT) return (int)cudaErrorInvalidValue;
-  const int64_t b = rows * (n / UNIT);
-  if (b > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  *g = (unsigned)b;
-  return 0;
-}
-
-// lin (rows, nlin) int32, valid (n,) -> q8 (rows, n) int8 and the tables
-// nS, last1 (rows, nchunk, 29), z0 (rows, nchunk), planes (rows,), which
-// the caller has zeroed.
-extern "C" int dwt_plane_hist(const void* lin, const void* valid,
-                              const void* unit_chunk, const void* chunk_base,
-                              void* q8, void* nS, void* last1, void* z0,
-                              void* planes, int64_t rows, int64_t nlin,
-                              int64_t n, int nchunk, void* stream) {
-  unsigned g;
-  if (const int rc = blocks(rows, n, &g)) return rc;
-  if (nlin < n) return (int)cudaErrorInvalidValue;
-  if (g == 0) return 0;
-  plane_hist_kernel<<<g, THREADS, 0, (cudaStream_t)stream>>>(
+// lin (rows, nlin) int32, valid (n,) -> nS, lastS, zup (rows, nchunk, 29),
+// z0 (rows, nchunk) and planes (rows,), which the caller has zeroed; a
+// block a chunk and `group` rows.
+extern "C" int dwt_plane_stats(const void* lin, const void* valid,
+                               const void* unit_chunk, const void* chunk_base,
+                               void* nS, void* lastS, void* z0, void* zup,
+                               void* planes, int64_t rows, int64_t nlin,
+                               int64_t n, int nchunk, int group,
+                               void* stream) {
+  if (rows < 0 || n < 0 || n % UNIT || nlin < n || nchunk < 0 || group < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nunits = n / UNIT;
+  if (nchunk > nunits || nunits > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int64_t ngroups = (rows + group - 1) / group;
+  const int64_t blocks = nchunk * ngroups;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  if (blocks == 0) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      plane_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  plane_stats_kernel<<<(unsigned)blocks, THREADS, SMEM,
+                       (cudaStream_t)stream>>>(
       (const int*)lin, (const unsigned char*)valid, (const int*)unit_chunk,
-      (const int*)chunk_base, (signed char*)q8, (int*)nS, (int*)last1,
-      (int*)z0, (int*)planes, nlin, n, nchunk);
-  return (int)cudaGetLastError();
-}
-
-// q8 (rows, n) and last1 -> zup (rows, nchunk, 29), zeroed by the caller.
-extern "C" int dwt_plane_zup(const void* q8, const void* unit_chunk,
-                             const void* chunk_base, const void* last1,
-                             void* zup, int64_t rows, int64_t n, int nchunk,
-                             void* stream) {
-  unsigned g;
-  if (const int rc = blocks(rows, n, &g)) return rc;
-  if (g == 0) return 0;
-  plane_zup_kernel<<<g, THREADS, 0, (cudaStream_t)stream>>>(
-      (const signed char*)q8, (const int*)unit_chunk,
-      (const int*)chunk_base, (const int*)last1, (int*)zup, n, nchunk);
+      (const int*)chunk_base, (int*)nS, (int*)lastS, (int*)z0, (int*)zup,
+      (int*)planes, rows, nlin, n, nchunk, (int)nunits, group,
+      (int)ngroups);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Integer CDF 5/3 lifting, forward and inverse (port of
-``dwt_tpu/ops/lifting.py``), and the encoder's forward transform (kernel
+``dwt_tpu/ops/lifting.py``), and the encoder's forward transform (kernels
 ``csrc/lifting.cu``).
 
 Every division truncates toward zero (C semantics, never Python's floor);
@@ -8,13 +8,16 @@ neighbours, and no update on the last even sample of an odd-N signal.
 
 :func:`forward_transform` takes N (N, H, W, C) frames to their (N, H, W,
 C) int32 coefficients, the YCoCg-R colour transform first for RGB.  On the
-card one ``lift_fwd_kernel`` launch a level (``launches`` grows by
-``pyr.levels``): uint8 frames are read as bytes, the colour transform is
-applied as the finest level loads, each level's detail quadrants go
-straight into the coefficients and its LL quadrant into one of two
-ping-pong buffers, the next level's input.  On the CPU:
-:func:`forward_transform_plain`, whole-axis slice arithmetic over all rows
-or columns of a level at once (:func:`dwt2d_fwd_plain`).
+card (:func:`launch_levels`): one ``lift_level_kernel`` launch for each
+large level, finest first, then one ``lift_tail_kernel`` launch for every
+level from the first whose input holds at most ``TAIL_SAMPLES`` samples a
+channel (``launches`` grows by ``len(launch_levels(pyr))``).  uint8
+frames are read as bytes and the colour transform is applied as the
+finest level loads; each large level's detail quadrants go straight into
+the coefficients and its LL quadrant into one of two ping-pong buffers,
+the next launch's input.  On the CPU: :func:`forward_transform_plain`,
+whole-axis slice arithmetic over all rows or columns of a level at once
+(:func:`dwt2d_fwd_plain`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,14 @@ from ..geometry import Pyramid
 from ..runtime import build
 from ._launch import on_card
 from .color import rgb_to_ycocg
+
+# Samples a channel of the first level the tail kernel lifts in shared
+# memory (int32: 64 KB a block).
+TAIL_SAMPLES = 16384
+# Warps a large level's launch aims for: row pairs a warp (a power of two,
+# 16 at most) are halved until the launch has at least this many.
+WARP_TARGET = 4096
+STRIP_PAIRS = 30  # column pairs a warp of a large level stores (csrc PAIRS)
 
 
 def _tdiv(a: torch.Tensor, d: int) -> torch.Tensor:
@@ -121,12 +132,40 @@ def forward_transform_plain(frames: torch.Tensor, pyr: Pyramid,
     return dwt2d_fwd_plain(data, pyr)
 
 
+def launch_levels(pyr: Pyramid) -> list:
+    """The levels each launch of :func:`forward_transform` lifts on the
+    card, finest first: one large level a launch, then every level from
+    the first whose input has at most ``TAIL_SAMPLES`` samples in one
+    launch.  Its length is the launch count, ``L - t + 1`` for a tail
+    from level t (``L`` when no level fits)."""
+    t = tail_level(pyr)
+    return ([(l,) for l in range(pyr.levels, t, -1)]
+            + ([tuple(range(t, 0, -1))] if t else []))
+
+
+def tail_level(pyr: Pyramid) -> int:
+    """The first level, finest first, whose input has at most
+    ``TAIL_SAMPLES`` samples a channel (0: none)."""
+    return next((l for l in range(pyr.levels, 0, -1)
+                 if pyr.heights[l] * pyr.widths[l] <= TAIL_SAMPLES), 0)
+
+
+def band_pairs(n: int, h: int, w: int) -> int:
+    """Row pairs a warp of one large level's launch over n frames of h x
+    w: halved from 16 until the launch has ``WARP_TARGET`` warps."""
+    strips = -(-((w + 1) // 2) // STRIP_PAIRS)
+    bp = 16
+    while bp > 1 and n * strips * -(-((h + 1) // 2) // bp) < WARP_TARGET:
+        bp //= 2
+    return bp
+
+
 def forward_transform(frames: torch.Tensor, pyr: Pyramid,
                       colour: bool) -> torch.Tensor:
     """(N, H, W, C) frames (uint8, or any dtype that converts to int32) ->
     (N, H, W, C) int32 coefficients of ``dwt2d_fwd(rgb_to_ycocg(frames))``
     (``colour``, C == 3) or ``dwt2d_fwd(frames)``.  The frames are left as
-    they were.  On the card ``pyr.levels`` launches."""
+    they were.  On the card ``len(launch_levels(pyr))`` launches."""
     if frames.dim() != 4 or tuple(frames.shape[1:3]) != (pyr.height,
                                                          pyr.width):
         raise ValueError(f"forward_transform: frames of shape "
@@ -138,36 +177,46 @@ def forward_transform(frames: torch.Tensor, pyr: Pyramid,
     if not on_card("forward_transform", frames):
         return forward_transform_plain(frames, pyr, colour)
     N, H, W, C = frames.shape
-    if C not in (1, 3) or N > 65535:
-        raise ValueError(f"forward_transform: the kernel takes 1 or 3 "
-                         f"channels and at most 65535 frames, not {C} and "
-                         f"{N}")
+    if C not in (1, 3):
+        raise ValueError(f"forward_transform: the kernels take 1 or 3 "
+                         f"channels, not {C}")
     if frames.dtype not in (torch.uint8, torch.int32):
         frames = frames.to(torch.int32)
     dev = frames.device
     coeff = torch.empty((N, H, W, C), dtype=torch.int32, device=dev)
-    L = pyr.levels
-    # Ping-pong LL buffers, sized for the first two LL images (each later
-    # one is smaller than its buffer); the last level writes coeff's LL.
+    L, t = pyr.levels, tail_level(pyr)
+    groups = launch_levels(pyr)
+    # Ping-pong LL buffers for the large levels' LL quadrants, sized for
+    # the first two (each later one is smaller than its buffer); with no
+    # tail the last level writes coeff's LL.
     bufs = [torch.empty(N * pyr.heights[l] * pyr.widths[l] * C,
                         dtype=torch.int32, device=dev)
-            for l in (L - 1, L - 2) if l >= 1]
+            for l in (L - 1, L - 2)[:len(groups) - 1] if l >= 1]
     lib, stream = build.library(), build.stream_of(frames)
     src, u8 = frames, frames.dtype == torch.uint8
     s_frame, s_row = H * W * C, W * C
-    for step, l in enumerate(range(L, 0, -1)):
+    for step, levels in enumerate(groups):
+        l = levels[0]
         h, w = pyr.heights[l], pyr.widths[l]
-        hl, wl = pyr.heights[l - 1], pyr.widths[l - 1]
-        if l == 1:
-            ll, ll_frame, ll_row = coeff, H * W * C, W * C
+        first = int(colour and l == L)
+        if l <= t:
+            build.check(lib.dwt_lift_tail(
+                src.data_ptr(), int(u8), first, s_frame, s_row,
+                coeff.data_ptr(), H * W * C, W * C, N, h, w, C, len(levels),
+                stream), "forward_transform")
         else:
-            ll, ll_frame, ll_row = bufs[step % 2], hl * wl * C, wl * C
-        build.check(lib.dwt_lift_fwd(
-            src.data_ptr(), int(u8), int(colour and l == L), s_frame, s_row,
-            coeff.data_ptr(), H * W * C, W * C, ll.data_ptr(), ll_frame,
-            ll_row, N, h, w, C, stream), "forward_transform")
+            hl, wl = pyr.heights[l - 1], pyr.widths[l - 1]
+            if l == 1:
+                ll, ll_frame, ll_row = coeff, H * W * C, W * C
+            else:
+                ll, ll_frame, ll_row = bufs[step % 2], hl * wl * C, wl * C
+            build.check(lib.dwt_lift_level(
+                src.data_ptr(), int(u8), first, s_frame, s_row,
+                coeff.data_ptr(), H * W * C, W * C, ll.data_ptr(), ll_frame,
+                ll_row, N, h, w, C, band_pairs(N, h, w), stream),
+                "forward_transform")
+            src, u8, s_frame, s_row = ll, False, ll_frame, ll_row
         forward_transform.launches += 1
-        src, u8, s_frame, s_row = ll, False, ll_frame, ll_row
     return coeff
 
 

@@ -14,9 +14,13 @@ plane p; ``lastS_ck`` the largest level-local index at plane p (-1:
 none); ``z0_ck`` (R, nchunk) the zeros; ``zup_ck`` (R, nchunk, PMAX) the
 elements with q < p at an index up to ``lastS_ck`` of the same plane.
 
-On the card two launches a call (``plane_hist_kernel``: histograms, last
-indices, zeros, top planes and each element's q as int8;
-``plane_zup_kernel``: the boundary-prefix zeros).  On the CPU:
+On the card one launch a call (``plane_stats_kernel``: a block a chunk
+and group of rows, the chunk's planes as bytes and each 512-element
+block's cumulative plane counts in shared memory, then a warp a plane
+for the chunk's tables).  A block reads its chunk's mask once for its
+rows; one row a block is the default, since more blocks beat fewer mask
+reads on the H100 (PERF.md §6), and the blocks of a chunk are adjacent,
+so its other rows find the mask in L2.  On the CPU:
 :func:`plane_stats_plain`, the one-hot passes.
 """
 
@@ -30,7 +34,7 @@ from ._launch import need, on_card
 # Bitplane bound of the format: magnitudes stay below 2^29 because bits
 # 29/30 are the reference's sig/ref coding flags (encode.c:115-128).
 PMAX = 29
-UNIT = 8192   # detail elements a block of the kernels (codec/stage1.py:ALIGN)
+UNIT = 8192   # detail elements a unit of the chunk tables (stage1.py:ALIGN)
 GP = 8        # planes a one-hot pass of the plain version: bounds temporaries
 
 _I32 = torch.int32
@@ -112,16 +116,20 @@ def _check(lin, valid, idx_local, block_chunk):
 
 
 def _check_units(lin, valid, unit_chunk, chunk_base):
-    """The kernels' tables: every chunk a whole number of units (as the
-    scan-order layout's ALIGN gives them), 16-byte rows."""
+    """The kernel's tables: every chunk a whole number of units (as the
+    scan-order layout's ALIGN gives them; at most ``compact.E`` elements,
+    as ``stage1._Segs`` cuts them), 16-byte rows."""
     need("plane_stats unit_chunk", unit_chunk, _I32, 1)
     need("plane_stats chunk_base", chunk_base, _I32, 1)
     n = valid.numel()
     if n % UNIT or lin.shape[1] % 4 or unit_chunk.numel() != n // UNIT:
         raise ValueError(
-            f"plane_stats: the kernels take chunks of whole {UNIT}-element "
+            f"plane_stats: the kernel takes chunks of whole {UNIT}-element "
             f"units; a detail axis of {n} elements in rows of "
             f"{lin.shape[1]} has {unit_chunk.numel()} units")
+    if lin.data_ptr() % 16 or valid.data_ptr() % 16:
+        raise ValueError("plane_stats: the kernel reads lin and valid in "
+                         "16-byte words: their storage must start on one")
 
 
 def plane_stats_plain(lin, valid, idx_local, block_chunk, unit_chunk,
@@ -136,11 +144,12 @@ def plane_stats_plain(lin, valid, idx_local, block_chunk, unit_chunk,
 
 
 def plane_stats(lin, valid, idx_local, block_chunk, unit_chunk,
-                chunk_base) -> tuple:
+                chunk_base, group: int = 1) -> tuple:
     """(R, nlin) int32 linearized coefficients -> (planes, nS_ck, lastS_ck,
-    z0_ck, zup_ck), int32.  On the card two launches (``launches`` grows
-    by 2); the kernels compute the level-local index from ``chunk_base``
-    and read neither ``idx_local`` nor ``block_chunk``."""
+    z0_ck, zup_ck), int32.  On the card one launch (``launches`` grows by
+    1) of ``group`` rows a block; the kernel computes the level-local
+    index from ``chunk_base`` and reads neither ``idx_local`` nor
+    ``block_chunk``."""
     _check(lin, valid, idx_local, block_chunk)
     if not on_card("plane_stats", lin, valid, unit_chunk, chunk_base):
         return plane_stats_plain(lin, valid, idx_local, block_chunk,
@@ -148,29 +157,23 @@ def plane_stats(lin, valid, idx_local, block_chunk, unit_chunk,
     _check_units(lin, valid, unit_chunk, chunk_base)
     R, nlin = lin.shape
     n, nchunk = valid.numel(), chunk_base.numel()
-    dev = lin.device
-    # One zeroed buffer for every table: nS, last1 (lastS + 1), zup, z0,
-    # planes.
+    # One zeroed buffer for every table: nS, lastS, zup, z0, planes (the
+    # kernel writes every slot but the planes' atomic maxima).
     tk = R * nchunk * PMAX
-    tab = torch.zeros(3 * tk + R * nchunk + R, dtype=_I32, device=dev)
-    nS, last1, zup = (tab[i * tk:(i + 1) * tk].view(R, nchunk, PMAX)
+    tab = torch.zeros(3 * tk + R * nchunk + R, dtype=_I32, device=lin.device)
+    nS, lastS, zup = (tab[i * tk:(i + 1) * tk].view(R, nchunk, PMAX)
                       for i in range(3))
     z0 = tab[3 * tk:3 * tk + R * nchunk].view(R, nchunk)
     planes = tab[3 * tk + R * nchunk:]
-    q8 = torch.empty((R, n), dtype=torch.int8, device=dev)
-    lib, stream = build.library(), build.stream_of(lin)
-    build.check(lib.dwt_plane_hist(
+    lib = build.library()
+    build.check(lib.dwt_plane_stats(
         lin.data_ptr(), valid.data_ptr(), unit_chunk.data_ptr(),
-        chunk_base.data_ptr(), q8.data_ptr(), nS.data_ptr(),
-        last1.data_ptr(), z0.data_ptr(), planes.data_ptr(), R, nlin, n,
-        nchunk, stream), "plane_stats hist")
+        chunk_base.data_ptr(), nS.data_ptr(), lastS.data_ptr(),
+        z0.data_ptr(), zup.data_ptr(), planes.data_ptr(), R, nlin, n,
+        nchunk, group, build.stream_of(lin)),
+        "plane_stats")
     plane_stats.launches += 1
-    build.check(lib.dwt_plane_zup(
-        q8.data_ptr(), unit_chunk.data_ptr(), chunk_base.data_ptr(),
-        last1.data_ptr(), zup.data_ptr(), R, n, nchunk, stream),
-        "plane_stats zup")
-    plane_stats.launches += 1
-    return planes, nS, last1 - 1, z0, zup
+    return planes, nS, lastS, z0, zup
 
 
 plane_stats.launches = 0

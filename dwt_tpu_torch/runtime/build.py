@@ -64,15 +64,17 @@ ENTRY_POINTS = {
     # (x, maps, seg_in, out, TB, R, nblk, stream)
     "dwt_vli_replay": (_P, _P, _P, _P, _I, _L, _I, _P),
     # (src, src_u8, colour, src_frame, src_row, coeff, co_frame, co_row, ll,
-    #  ll_frame, ll_row, n, h, w, C, stream)
-    "dwt_lift_fwd": (_P, _I, _I, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I,
-                     _I, _P),
-    # (lin, valid, unit_chunk, chunk_base, q8, nS, last1, z0, planes, rows,
-    #  nlin, n, nchunk, stream)
-    "dwt_plane_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
-                       _P),
-    # (q8, unit_chunk, chunk_base, last1, zup, rows, n, nchunk, stream)
-    "dwt_plane_zup": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
+    #  ll_frame, ll_row, n, h, w, C, bp, stream)
+    "dwt_lift_level": (_P, _I, _I, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I,
+                       _I, _I, _I, _P),
+    # (src, src_u8, colour, src_frame, src_row, coeff, co_frame, co_row, n,
+    #  h, w, C, nlev, stream)
+    "dwt_lift_tail": (_P, _I, _I, _L, _L, _P, _L, _L, _I, _I, _I, _I, _I,
+                      _P),
+    # (lin, valid, unit_chunk, chunk_base, nS, lastS, z0, zup, planes,
+    #  rows, nlin, n, nchunk, group, stream)
+    "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
+                        _I, _P),
 }
 
 

@@ -803,10 +803,11 @@ STAGE1_SHAPES = [
 
 @pytest.mark.parametrize("w,h,c,n", STAGE1_SHAPES)
 def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
-    """The forward transform (one launch a level; uint8 and int32 frames,
-    and ``dwt2d_fwd`` without the colour step) and the plane statistics
-    (two launches) equal their plain versions on the same CUDA tensors,
-    every output and slot."""
+    """The forward transform (``launch_levels``: a launch a large level and
+    one for the tail; uint8 and int32 frames, and ``dwt2d_fwd`` without
+    the colour step) and the plane statistics (one launch, at the default
+    rows a block and at others) equal their plain versions on the same
+    CUDA tensors, every output and slot."""
     from dwt_tpu_torch.codec import stage1
     from dwt_tpu_torch.codec.encoder import Encoder
     from dwt_tpu_torch.ops import lifting, plane_stats
@@ -819,7 +820,8 @@ def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
     x = torch.as_tensor(frames).to(cuda)
     before = lifting.forward_transform.launches
     coeff = lifting.forward_transform(x, pyr, c == 3)
-    assert lifting.forward_transform.launches == before + pyr.levels
+    assert lifting.forward_transform.launches == before + len(
+        lifting.launch_levels(pyr))
     want = lifting.forward_transform_plain(x, pyr, c == 3)
     torch.cuda.synchronize()
     assert coeff.dtype == want.dtype and torch.equal(coeff, want)
@@ -835,13 +837,39 @@ def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
             segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
     before = plane_stats.plane_stats.launches
     got = plane_stats.plane_stats(*args)
-    assert plane_stats.plane_stats.launches == before + 2
+    assert plane_stats.plane_stats.launches == before + 1
     want = plane_stats.plane_stats_plain(*args)
     torch.cuda.synchronize()
     for name, g, w_ in zip(["planes", "nS_ck", "lastS_ck", "z0_ck", "zup_ck"],
                            got, want):
         assert g.dtype == w_.dtype and torch.equal(g, w_), name
     assert int(got[0].max()) > 0 and int((got[4] > 0).sum()) > 0
+    for group in (1, 2, n * c):  # rows a block: one mask read for a group
+        again = plane_stats.plane_stats(*args, group=group)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w_) for g, w_ in zip(again, want)), group
+
+
+def test_transform_takes_any_frame_count(cuda):
+    """More frames than a grid dimension's 65,535 in one transform (8x8
+    grey: the tail kernel alone; 16x16 RGB with a level of its own first
+    when the tail threshold is lowered), equal to the plain version."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    rng = np.random.default_rng(3)
+    for w, c, tail in ((8, 1, lifting.TAIL_SAMPLES), (16, 3, 100)):
+        pyr = compute_pyramid(w, w)
+        x = torch.as_tensor(rng.integers(0, 256, (70_000, w, w, c),
+                                         dtype=np.uint8)).to(cuda)
+        saved, lifting.TAIL_SAMPLES = lifting.TAIL_SAMPLES, tail
+        try:
+            got = lifting.forward_transform(x, pyr, c == 3)
+        finally:
+            lifting.TAIL_SAMPLES = saved
+        torch.cuda.synchronize()
+        assert torch.equal(got, lifting.forward_transform_plain(x, pyr,
+                                                                c == 3))
 
 
 def test_stage1_frames_reuses_its_staging_buffer(cuda):
