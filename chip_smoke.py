@@ -92,8 +92,8 @@ seconds:
              transpose of the VLI scan (the int8 one also by the element
              kernel), each of the VLI order scan's three kernels, stage
              1's three kernels, and the forward transform launch by
-             launch with the levels each lifts (``tools/stage1_kernels.py``,
-             also at the batch's 7-frame shape in phase 9).  After the
+             launch with the levels each lifts (also at the batch's
+             7-frame shape in phase 9).  After the
              timing phase, so that no profiler session runs before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
@@ -137,7 +137,8 @@ seconds:
              bytes and SHA-256 must equal the JAX package's (constants
              below), each encode kernel must launch once a sub-batch (10;
              the transpose 20, the VLI order scan's three kernels 30, the
-             forward transform a level, 80, the plane statistics 20), and
+             forward transform ``launch_levels`` a sub-batch, 50, the plane
+             statistics 10), and
              each stream must equal the
              single-stream encoder's.  Then warm MP/s of the batch in
              turns with the single-stream encoder looped over the same
@@ -512,13 +513,14 @@ def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
     return total / reps
 
 
-def kernel_ms(torch, fn, match: str, n: int = 10, per_call: int = 0) -> float:
-    """Device time of the kernels whose name holds ``match`` in one
-    ``fn()``, from torch.profiler over ``n`` calls: the card's own time,
-    without the host's launch time that ``time_ms`` includes.  NaN (not
-    measured) when the profiler records no such kernel, or a count of
-    them other than ``per_call`` a call (where given) or one that ``n``
-    calls cannot make: it dropped some."""
+def kernel_events(torch, fn, match: str, n: int = 10,
+                  per_call: int = 0) -> list:
+    """[(name, device us)] of the kernels whose name holds ``match`` in
+    ``n`` calls of ``fn()`` after a warm one, in launch order, from
+    torch.profiler: the card's own time, without the host's launch time
+    that ``time_ms`` includes.  None when the profiler records no such
+    kernel, or a count of them other than ``per_call`` a call (where
+    given) or one that ``n`` calls cannot make: it dropped some."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -530,11 +532,32 @@ def kernel_ms(torch, fn, match: str, n: int = 10, per_call: int = 0) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and match in e.name]
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name),
+                key=lambda e: e.time_range.start)
     if not ev or len(ev) % n or (per_call and len(ev) != per_call * n):
-        return float("nan")  # none, or some dropped by the profiler
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n
+        return None  # none, or some dropped by the profiler
+    return [(e.name, e.time_range.elapsed_us()) for e in ev]
+
+
+def kernel_ms(torch, fn, match: str, n: int = 10, per_call: int = 0) -> float:
+    """Device ms of the kernels whose name holds ``match`` in one
+    ``fn()``, summed (``kernel_events`` over ``n`` calls); NaN (not
+    measured) where the profiler dropped some."""
+    ev = kernel_events(torch, fn, match, n, per_call)
+    return float("nan") if ev is None else sum(t for _, t in ev) / 1e3 / n
+
+
+def launch_ms(torch, fn, match: str, per_call: int, n: int = 20) -> list:
+    """[(kernel, device ms)] of each of the ``per_call`` launches whose
+    name holds ``match`` in one ``fn()``, in launch order, means of ``n``
+    calls (``kernel_events``); None where the profiler dropped some."""
+    ev = kernel_events(torch, fn, match, n, per_call)
+    if ev is None:
+        return None
+    return [(ev[i][0].split("(")[0].split("<")[0].split()[-1],
+             sum(ev[r * per_call + i][1] for r in range(n)) / n / 1e3)
+            for i in range(per_call)]
 
 
 def u32(t):
@@ -1300,19 +1323,28 @@ def stage1_split(torch, enc, imgs: np.ndarray) -> str:
 
 
 def lift_split(torch, imgs: np.ndarray) -> str:
-    """``tools/stage1_kernels.py``'s split of one forward transform of
-    ``imgs``: each launch's device time (torch.profiler, means of 20
-    calls) with the levels it lifts, their sum, and the call's CUDA-event
-    time, or "not measured" where the profiler dropped kernel events."""
+    """One forward transform of ``imgs`` launch by launch: each launch's
+    device time (``launch_ms``) with the levels it lifts, their sum, and
+    the call's CUDA-event time, or "not measured" where the profiler
+    dropped kernel events."""
     from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
 
-    spec = importlib.util.spec_from_file_location(
-        "stage1_kernels", os.path.join(ROOT, "tools", "stage1_kernels.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.split_line(mod.transform(
-        torch, torch.as_tensor(imgs, device="cuda"),
-        compute_pyramid(imgs.shape[2], imgs.shape[1]), 20))
+    x = torch.as_tensor(imgs, device="cuda")
+    pyr = compute_pyramid(imgs.shape[2], imgs.shape[1])
+    groups = lifting.launch_levels(pyr)
+
+    def fn():
+        return lifting.forward_transform(x, pyr, True)
+
+    ms = launch_ms(torch, fn, "lift_", len(groups))
+    events = f"events {time_ms(torch, fn, reps=20):.4f} ms"
+    if ms is None:
+        return f"not measured (the profiler dropped kernel events); {events}"
+    return "; ".join(f"levels {list(g)} from {pyr.widths[g[0]]}x"
+                     f"{pyr.heights[g[0]]} {m:.4f} ms"
+                     for g, (_, m) in zip(groups, ms)) \
+        + f"; device {sum(m for _, m in ms):.4f} ms, {events}"
 
 
 def small_tiles(torch, K: Kernels, tiled) -> None:

@@ -34,9 +34,10 @@
 // read back an int8 copy of every element's plane (25 MB at 4K).  This
 // design removes both:
 //
-// plane_stats_kernel: one CUDA block a chunk and group of rows.  The
-// block stages the chunk's mask once as bits in shared memory for all its
-// rows.  For each row, a warp takes a 512-element block (32 lanes x 16
+// plane_stats_kernel: one CUDA block a chunk and row; a chunk's blocks
+// are adjacent, so the rows after the first find its mask in L2.  The
+// block stages the chunk's mask as bits in shared memory.  A warp takes a
+// 512-element block (32 lanes x 16
 // elements, 16-byte loads), computes q + 1 of each element as a byte (127
 // for a pad) into the chunk's byte array in shared memory, and keeps the
 // block's cumulative counts #{q < p} for p = 0..29: with the bytes packed
@@ -52,7 +53,7 @@
 
 constexpr int PMAX = 29;         // bitplanes of the format (ops/plane_stats.py)
 constexpr int UNIT = 8192;       // elements a unit (codec/stage1.py: ALIGN)
-constexpr int CHUNK_UNITS = 8;   // units a chunk at most (compact.E / UNIT)
+constexpr int CHUNK_UNITS = 8;   // units a chunk at most (plane_stats.py)
 constexpr int CHUNK_MAX = CHUNK_UNITS * UNIT;
 constexpr int BLK = 512;         // elements a warp's block
 constexpr int NB_MAX = CHUNK_MAX / BLK;
@@ -87,18 +88,16 @@ __global__ void __launch_bounds__(THREADS) plane_stats_kernel(
     const int* __restrict__ lin, const unsigned char* __restrict__ valid,
     const int* __restrict__ unit_chunk, const int* __restrict__ chunk_base,
     int* __restrict__ nS, int* __restrict__ lastS, int* __restrict__ z0,
-    int* __restrict__ zup, int* __restrict__ planes, int64_t rows,
-    int64_t nlin, int64_t n, int nchunk, int nunits, int group,
-    int ngroups) {
+    int* __restrict__ zup, int* __restrict__ planes, unsigned rows,
+    int64_t nlin, int64_t n, int nchunk, int nunits) {
   extern __shared__ __align__(16) unsigned char sm[];
   unsigned char* q1 = sm;                                 // q + 1, a byte each
   unsigned* vbits = (unsigned*)(sm + CHUNK_MAX);          // the mask, a bit each
   unsigned short* cnt = (unsigned short*)(vbits + CHUNK_MAX / 32);
   __shared__ int wmax[WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = (int)(blockIdx.x / ngroups);
-  const int64_t r0 = (int64_t)(blockIdx.x % ngroups) * group;
-  const int64_t r1 = r0 + group < rows ? r0 + group : rows;
+  const int chunk = (int)(blockIdx.x / rows);  // 32-bit: no 64-bit divide
+  const int64_t row = blockIdx.x % rows;
 
   // The chunk's units: unit u's chunk is at most u and at least u / 8, so
   // they lie in [chunk, 8 chunk + 8); count those before it and up to it.
@@ -111,12 +110,14 @@ __global__ void __launch_bounds__(THREADS) plane_stats_kernel(
     upto_c += __syncthreads_count(c <= chunk);
   }
   const int units = upto_c - before;
-  if (units < 1 || units > CHUNK_UNITS) __trap();  // not the tables' layout
+  // Not the tables' layout: the wrapper and dwt_plane_stats refuse the
+  // layouts they can see (chunks of more than CHUNK_UNITS units).
+  if (units < 1 || units > CHUNK_UNITS) __trap();
   const int64_t pos0 = (int64_t)(chunk + before) * UNIT;
   const int len = units * UNIT, nblk = len / BLK;
   const int first = (int)(pos0 - __ldg(&chunk_base[chunk]));  // its index
 
-  // The mask, once for every row of the group.
+  // The mask, a bit an element.
   for (int k = tid; k < len / 32; k += THREADS) {
     const uint4* v = (const uint4*)(valid + pos0 + 32 * k);
     const uint4 a = __ldg(v), b = __ldg(v + 1);
@@ -131,120 +132,118 @@ __global__ void __launch_bounds__(THREADS) plane_stats_kernel(
   }
   __syncthreads();
 
-  for (int64_t row = r0; row < r1; ++row) {
-    const int* x = lin + row * nlin + (nlin - n) + pos0;
-    int qtop = -1;
-    for (int b = warp; b < nblk; b += WARPS) {
-      unsigned wq[4];
-      int qmax = -1, nv = 0;
+  const int* x = lin + row * nlin + (nlin - n) + pos0;
+  int qtop = -1;
+  for (int b = warp; b < nblk; b += WARPS) {
+    unsigned wq[4];
+    int qmax = -1, nv = 0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int e = b * BLK + 128 * k + 4 * lane;
-        const int4 xv = __ldg((const int4*)(x + e));
-        const unsigned vb = (vbits[e >> 5] >> (e & 31)) & 0xfu;
-        const int xs[4] = {xv.x, xv.y, xv.z, xv.w};
-        unsigned word = 0;
+    for (int k = 0; k < 4; ++k) {
+      const int e = b * BLK + 128 * k + 4 * lane;
+      const int4 xv = __ldg((const int4*)(x + e));
+      const unsigned vb = (vbits[e >> 5] >> (e & 31)) & 0xfu;
+      const int xs[4] = {xv.x, xv.y, xv.z, xv.w};
+      unsigned word = 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // q + 1 (|INT_MIN| is no magnitude: a "zero", as in the plain
-          // version, whose int32 abs leaves it negative).
-          const unsigned mag = xs[j] < 0 ? 0u - (unsigned)xs[j]
-                                         : (unsigned)xs[j];
-          const int u = mag - 1u < 0x7fffffffu ? 32 - __clz(mag) : 0;
-          const bool ok = (vb >> j) & 1u;
-          word |= (ok ? (unsigned)u : PAD_U) << (8 * j);
-          if (ok) qmax = max(qmax, u - 1);
-        }
-        nv += __popc(vb);
-        wq[k] = word;
-        ((unsigned*)q1)[e >> 2] = word;
+      for (int j = 0; j < 4; ++j) {
+        // q + 1 (|INT_MIN| is no magnitude: a "zero", as in the plain
+        // version, whose int32 abs leaves it negative).
+        const unsigned mag = xs[j] < 0 ? 0u - (unsigned)xs[j]
+                                       : (unsigned)xs[j];
+        const int u = mag - 1u < 0x7fffffffu ? 32 - __clz(mag) : 0;
+        const bool ok = (vb >> j) & 1u;
+        word |= (ok ? (unsigned)u : PAD_U) << (8 * j);
+        if (ok) qmax = max(qmax, u - 1);
       }
-      const int m = __reduce_max_sync(FULL, qmax);  // the block's top plane
-      const int valid_n = __reduce_add_sync(FULL, nv);
-      unsigned short* cb = cnt + b * NT;
-      const int top = min(m, PMAX);  // planes counted one by one
-      for (int p = 0; p <= top; ++p) {
-        int c = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) c += __popc(below(wq[k], p));
-        c = __reduce_add_sync(FULL, c);
-        if (lane == 0) cb[p] = (unsigned short)c;
-      }
-      if (lane > top && lane < NT) cb[lane] = (unsigned short)valid_n;
-      qtop = max(qtop, m);
+      nv += __popc(vb);
+      wq[k] = word;
+      ((unsigned*)q1)[e >> 2] = word;
     }
-    if (lane == 0) wmax[warp] = qtop;
-    __syncthreads();
+    const int m = __reduce_max_sync(FULL, qmax);  // the block's top plane
+    const int valid_n = __reduce_add_sync(FULL, nv);
+    unsigned short* cb = cnt + b * NT;
+    const int top = min(m, PMAX);  // planes counted one by one
+    for (int p = 0; p <= top; ++p) {
+      int c = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c += __popc(below(wq[k], p));
+      c = __reduce_add_sync(FULL, c);
+      if (lane == 0) cb[p] = (unsigned short)c;
+    }
+    if (lane > top && lane < NT) cb[lane] = (unsigned short)valid_n;
+    qtop = max(qtop, m);
+  }
+  if (lane == 0) wmax[warp] = qtop;
+  __syncthreads();
 
-    int cm = -1;  // the chunk's top plane
+  int cm = -1;  // the chunk's top plane
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) cm = max(cm, wmax[w]);
-    const int64_t ck = row * nchunk + chunk;
-    if (tid == 0 && cm >= 0) atomicMax(&planes[row], cm + 1);
-    // Task PMAX: the zeros; task p < PMAX: plane p.
-    for (int p = warp; p <= PMAX; p += WARPS) {
-      if (p == PMAX) {
-        int z = 0;
-        for (int b = lane; b < nblk; b += 32) z += cnt[b * NT];
-        z = __reduce_add_sync(FULL, z);
-        if (lane == 0) z0[ck] = z;
-        continue;
-      }
-      int ns = 0, blast = -1;
-      if (p <= cm)
-        for (int b = lane; b < nblk; b += 32) {
-          const int at = cnt[b * NT + p + 1] - cnt[b * NT + p];
-          ns += at;
-          if (at) blast = b;
-        }
-      ns = __reduce_add_sync(FULL, ns);
-      blast = __reduce_max_sync(FULL, blast);
-      int last = -1, zu = 0;
-      if (blast >= 0) {  // the last block that holds plane p
-        unsigned wq[4];
-        int pos = -1;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          wq[k] = ((const unsigned*)q1)[(blast * BLK + 128 * k) / 4 + lane];
-#pragma unroll
-        for (int k = 3; k >= 0; --k) {
-          const unsigned eq = equal(wq[k], p + 1);
-          if (pos < 0 && eq) pos = 128 * k + 4 * lane + (31 - __clz(eq)) / 8;
-        }
-        pos = __reduce_max_sync(FULL, pos);
-        for (int b = lane; b < blast; b += 32) zu += cnt[b * NT + p];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          zu += __popc(below(wq[k], p) & upto(pos, k, lane));
-        zu = __reduce_add_sync(FULL, zu);
-        last = first + blast * BLK + pos;
-      }
-      if (lane == 0) {
-        nS[ck * PMAX + p] = ns;
-        lastS[ck * PMAX + p] = last;
-        zup[ck * PMAX + p] = zu;
-      }
+  for (int w = 0; w < WARPS; ++w) cm = max(cm, wmax[w]);
+  const int64_t ck = row * nchunk + chunk;
+  if (tid == 0 && cm >= 0) atomicMax(&planes[row], cm + 1);
+  // Task PMAX: the zeros; task p < PMAX: plane p.
+  for (int p = warp; p <= PMAX; p += WARPS) {
+    if (p == PMAX) {
+      int z = 0;
+      for (int b = lane; b < nblk; b += 32) z += cnt[b * NT];
+      z = __reduce_add_sync(FULL, z);
+      if (lane == 0) z0[ck] = z;
+      continue;
     }
-    __syncthreads();  // q1, cnt and wmax are the next row's
+    int ns = 0, blast = -1;
+    if (p <= cm)
+      for (int b = lane; b < nblk; b += 32) {
+        const int at = cnt[b * NT + p + 1] - cnt[b * NT + p];
+        ns += at;
+        if (at) blast = b;
+      }
+    ns = __reduce_add_sync(FULL, ns);
+    blast = __reduce_max_sync(FULL, blast);
+    int last = -1, zu = 0;
+    if (blast >= 0) {  // the last block that holds plane p
+      unsigned wq[4];
+      int pos = -1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wq[k] = ((const unsigned*)q1)[(blast * BLK + 128 * k) / 4 + lane];
+#pragma unroll
+      for (int k = 3; k >= 0; --k) {
+        const unsigned eq = equal(wq[k], p + 1);
+        if (pos < 0 && eq) pos = 128 * k + 4 * lane + (31 - __clz(eq)) / 8;
+      }
+      pos = __reduce_max_sync(FULL, pos);
+      for (int b = lane; b < blast; b += 32) zu += cnt[b * NT + p];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        zu += __popc(below(wq[k], p) & upto(pos, k, lane));
+      zu = __reduce_add_sync(FULL, zu);
+      last = first + blast * BLK + pos;
+    }
+    if (lane == 0) {
+      nS[ck * PMAX + p] = ns;
+      lastS[ck * PMAX + p] = last;
+      zup[ck * PMAX + p] = zu;
+    }
   }
 }
 
 // lin (rows, nlin) int32, valid (n,) -> nS, lastS, zup (rows, nchunk, 29),
 // z0 (rows, nchunk) and planes (rows,), which the caller has zeroed; a
-// block a chunk and `group` rows.
+// block a chunk and row.
 extern "C" int dwt_plane_stats(const void* lin, const void* valid,
                                const void* unit_chunk, const void* chunk_base,
                                void* nS, void* lastS, void* z0, void* zup,
                                void* planes, int64_t rows, int64_t nlin,
-                               int64_t n, int nchunk, int group,
-                               void* stream) {
-  if (rows < 0 || n < 0 || n % UNIT || nlin < n || nchunk < 0 || group < 1)
+                               int64_t n, int nchunk, void* stream) {
+  if (rows < 0 || n < 0 || n % UNIT || nlin < n || nchunk < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t nunits = n / UNIT;
-  if (nchunk > nunits || nunits > 0x7fffffff)
+  // Chunks of 1 to CHUNK_UNITS whole units: no more chunks than units and
+  // no more units than CHUNK_UNITS a chunk.
+  if (nchunk > nunits || nunits > (int64_t)CHUNK_UNITS * nchunk
+      || nunits > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const int64_t ngroups = (rows + group - 1) / group;
-  const int64_t blocks = nchunk * ngroups;
+  const int64_t blocks = nchunk * rows;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   if (blocks == 0) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -255,7 +254,6 @@ extern "C" int dwt_plane_stats(const void* lin, const void* valid,
                        (cudaStream_t)stream>>>(
       (const int*)lin, (const unsigned char*)valid, (const int*)unit_chunk,
       (const int*)chunk_base, (int*)nS, (int*)lastS, (int*)z0, (int*)zup,
-      (int*)planes, rows, nlin, n, nchunk, (int)nunits, group,
-      (int)ngroups);
+      (int*)planes, (unsigned)rows, nlin, n, nchunk, (int)nunits);
   return (int)cudaGetLastError();
 }

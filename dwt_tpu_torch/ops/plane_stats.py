@@ -15,13 +15,11 @@ none); ``z0_ck`` (R, nchunk) the zeros; ``zup_ck`` (R, nchunk, PMAX) the
 elements with q < p at an index up to ``lastS_ck`` of the same plane.
 
 On the card one launch a call (``plane_stats_kernel``: a block a chunk
-and group of rows, the chunk's planes as bytes and each 512-element
-block's cumulative plane counts in shared memory, then a warp a plane
-for the chunk's tables).  A block reads its chunk's mask once for its
-rows; one row a block is the default, since more blocks beat fewer mask
-reads on the H100 (PERF.md §6), and the blocks of a chunk are adjacent,
-so its other rows find the mask in L2.  On the CPU:
-:func:`plane_stats_plain`, the one-hot passes.
+and row, the chunk's planes as bytes and each 512-element block's
+cumulative plane counts in shared memory, then a warp a plane for the
+chunk's tables; the blocks of a chunk are adjacent, so its other rows
+find the mask in L2).  On the CPU: :func:`plane_stats_plain`, the
+one-hot passes.
 """
 
 from __future__ import annotations
@@ -29,12 +27,14 @@ from __future__ import annotations
 import torch
 
 from ..runtime import build
+from . import compact
 from ._launch import need, on_card
 
 # Bitplane bound of the format: magnitudes stay below 2^29 because bits
 # 29/30 are the reference's sig/ref coding flags (encode.c:115-128).
 PMAX = 29
 UNIT = 8192   # detail elements a unit of the chunk tables (stage1.py:ALIGN)
+CHUNK_UNITS = 8  # units a chunk at most in the kernel's shared memory
 GP = 8        # planes a one-hot pass of the plain version: bounds temporaries
 
 _I32 = torch.int32
@@ -117,16 +117,23 @@ def _check(lin, valid, idx_local, block_chunk):
 
 def _check_units(lin, valid, unit_chunk, chunk_base):
     """The kernel's tables: every chunk a whole number of units (as the
-    scan-order layout's ALIGN gives them; at most ``compact.E`` elements,
-    as ``stage1._Segs`` cuts them), 16-byte rows."""
+    scan-order layout's ALIGN gives them), at most ``CHUNK_UNITS`` of them
+    (``compact.E`` elements, as ``stage1._Segs`` cuts them), 16-byte
+    rows."""
     need("plane_stats unit_chunk", unit_chunk, _I32, 1)
     need("plane_stats chunk_base", chunk_base, _I32, 1)
-    n = valid.numel()
-    if n % UNIT or lin.shape[1] % 4 or unit_chunk.numel() != n // UNIT:
+    n, nchunk = valid.numel(), chunk_base.numel()
+    if compact.E > CHUNK_UNITS * UNIT:
         raise ValueError(
-            f"plane_stats: the kernel takes chunks of whole {UNIT}-element "
-            f"units; a detail axis of {n} elements in rows of "
-            f"{lin.shape[1]} has {unit_chunk.numel()} units")
+            f"plane_stats: chunks of up to compact.E = {compact.E} elements "
+            f"exceed the kernel's {CHUNK_UNITS} units of {UNIT}")
+    if (n % UNIT or lin.shape[1] % 4 or unit_chunk.numel() != n // UNIT
+            or not nchunk <= n // UNIT <= CHUNK_UNITS * nchunk):
+        raise ValueError(
+            f"plane_stats: the kernel takes chunks of 1 to {CHUNK_UNITS} "
+            f"whole {UNIT}-element units; a detail axis of {n} elements in "
+            f"rows of {lin.shape[1]} has {unit_chunk.numel()} units for "
+            f"{nchunk} chunks")
     if lin.data_ptr() % 16 or valid.data_ptr() % 16:
         raise ValueError("plane_stats: the kernel reads lin and valid in "
                          "16-byte words: their storage must start on one")
@@ -144,12 +151,11 @@ def plane_stats_plain(lin, valid, idx_local, block_chunk, unit_chunk,
 
 
 def plane_stats(lin, valid, idx_local, block_chunk, unit_chunk,
-                chunk_base, group: int = 1) -> tuple:
+                chunk_base) -> tuple:
     """(R, nlin) int32 linearized coefficients -> (planes, nS_ck, lastS_ck,
     z0_ck, zup_ck), int32.  On the card one launch (``launches`` grows by
-    1) of ``group`` rows a block; the kernel computes the level-local
-    index from ``chunk_base`` and reads neither ``idx_local`` nor
-    ``block_chunk``."""
+    1); the kernel computes the level-local index from ``chunk_base`` and
+    reads neither ``idx_local`` nor ``block_chunk``."""
     _check(lin, valid, idx_local, block_chunk)
     if not on_card("plane_stats", lin, valid, unit_chunk, chunk_base):
         return plane_stats_plain(lin, valid, idx_local, block_chunk,
@@ -170,7 +176,7 @@ def plane_stats(lin, valid, idx_local, block_chunk, unit_chunk,
         lin.data_ptr(), valid.data_ptr(), unit_chunk.data_ptr(),
         chunk_base.data_ptr(), nS.data_ptr(), lastS.data_ptr(),
         z0.data_ptr(), zup.data_ptr(), planes.data_ptr(), R, nlin, n,
-        nchunk, group, build.stream_of(lin)),
+        nchunk, build.stream_of(lin)),
         "plane_stats")
     plane_stats.launches += 1
     return planes, nS, lastS, z0, zup

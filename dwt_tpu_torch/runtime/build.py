@@ -74,7 +74,7 @@ ENTRY_POINTS = {
     # (lin, valid, unit_chunk, chunk_base, nS, lastS, z0, zup, planes,
     #  rows, nlin, n, nchunk, group, stream)
     "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
-                        _I, _P),
+                        _P),
 }
 
 

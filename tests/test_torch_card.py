@@ -805,9 +805,8 @@ STAGE1_SHAPES = [
 def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
     """The forward transform (``launch_levels``: a launch a large level and
     one for the tail; uint8 and int32 frames, and ``dwt2d_fwd`` without
-    the colour step) and the plane statistics (one launch, at the default
-    rows a block and at others) equal their plain versions on the same
-    CUDA tensors, every output and slot."""
+    the colour step) and the plane statistics (one launch) equal their
+    plain versions on the same CUDA tensors, every output and slot."""
     from dwt_tpu_torch.codec import stage1
     from dwt_tpu_torch.codec.encoder import Encoder
     from dwt_tpu_torch.ops import lifting, plane_stats
@@ -844,10 +843,6 @@ def test_stage1_kernels_equal_plain(cuda, w, h, c, n):
                            got, want):
         assert g.dtype == w_.dtype and torch.equal(g, w_), name
     assert int(got[0].max()) > 0 and int((got[4] > 0).sum()) > 0
-    for group in (1, 2, n * c):  # rows a block: one mask read for a group
-        again = plane_stats.plane_stats(*args, group=group)
-        torch.cuda.synchronize()
-        assert all(torch.equal(g, w_) for g, w_ in zip(again, want)), group
 
 
 def test_transform_takes_any_frame_count(cuda):

@@ -516,3 +516,27 @@ def test_stats_plan_boundary_block(rng, edge):
     last = got[2][:, 1]
     assert (last[:, 20] % 512 == at % 512).all()
     assert (last[:, 21] == 9 * 512 + at).all() and (got[4][:, 1, 21] > 0).all()
+
+
+@pytest.mark.parametrize("case", ["wide chunk", "empty chunk", "large E"])
+def test_plane_stats_checks_its_tables(monkeypatch, case):
+    """The kernel's wrapper refuses, on the host, a layout whose chunks
+    cannot all hold 1 to ``CHUNK_UNITS`` units: more units than that many
+    a chunk, more chunks than units, or ``compact.E`` above that size."""
+    from dwt_tpu_torch.ops import compact
+    from dwt_tpu_torch.ops import plane_stats as ps
+
+    nchunk, nunits = {"wide chunk": (1, ps.CHUNK_UNITS + 1),
+                      "empty chunk": (3, 2), "large E": (1, 1)}[case]
+    if case == "large E":
+        monkeypatch.setattr(compact, "E", ps.CHUNK_UNITS * ps.UNIT + 1)
+    n = nunits * ps.UNIT
+    lin = torch.zeros((1, n), dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool)
+    unit_chunk = torch.zeros(nunits, dtype=torch.int32)
+    chunk_base = torch.zeros(nchunk, dtype=torch.int32)
+    with pytest.raises(ValueError, match="units"):
+        ps._check_units(lin, valid, unit_chunk, chunk_base)
+    if case == "large E":  # the encoder's own layout passes
+        monkeypatch.undo()
+        ps._check_units(lin, valid, unit_chunk, chunk_base)

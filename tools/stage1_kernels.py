@@ -1,162 +1,102 @@
 #!/usr/bin/env python3
-"""Stage 1's kernels on one CUDA card, launch by launch.
+"""Stage 1's two kernels on one CUDA card, launch by launch.
 
-    python3 tools/stage1_kernels.py [--root DIR] [--reps N] [--tail N]
-                                    [--warps N]
+    python3 tools/stage1_kernels.py [--root DIR] [--reps N]
 
 ``--root`` names the checkout whose ``dwt_tpu_torch`` is measured (default:
-this one), so one command can measure two trees in turns.  Two shapes: one
-3840x2160 RGB frame (``tests/imagegen.py``'s "mixed" image, seed 0) and a
-sub-batch of seven 1920x1080 frames (seeds 0-6), as the encoder hands them
-to its two stage-1 kernels:
+this one), so one command can measure two trees in turns; the measuring
+code is this checkout's ``chip_smoke.py`` (``launch_ms``, ``time_ms``).
+Two shapes: one 3840x2160 RGB frame (``tests/imagegen.py``'s "mixed"
+image, seed 0) and a sub-batch of seven 1920x1080 frames (seeds 0-6), as
+the encoder hands them to its two stage-1 kernels:
 
 * the forward transform (``ops/lifting.py:forward_transform``, uint8,
-  colour on): each launch's device time in launch order, labelled with the
-  levels it lifts (``lifting.launch_levels`` where the tree has it, else
-  one level a launch, finest first) and its first level's input size;
-* the plane statistics (``ops/plane_stats.py:plane_stats``) of the frames'
-  linearized coefficients: each kernel's device time, and where the tree's
-  wrapper takes ``group`` (rows a block), the kernel at two rows a block
-  and at all rows a block beside its default.
+  colour on);
+* the plane statistics (``ops/plane_stats.py:plane_stats``) of the
+  frames' linearized coefficients.
 
-``--tail`` sets ``lifting.TAIL_SAMPLES`` (the tail kernel's first level)
-and ``--warps`` ``lifting.WARP_TARGET`` (the warps a large level's launch
-aims for), where the tree has them, for the run.  Device times are torch.profiler's,
-means of ``--reps`` calls after a warm one; CUDA events around the whole
-call give its time with the gaps between launches.  Prints one JSON line a shape, with the card's name and
-power limit.  Needs a card; exits 1 without one.
+For each, every launch of one call, in launch order, with its kernel and
+device time (torch.profiler, means of ``--reps`` calls after a warm one;
+the launches a call are the wrapper's ``launches`` count), their sum, and
+CUDA events around the whole call, which include the gaps between
+launches and the wrapper's zero fills.  Prints one JSON line a shape, with
+the card's name and power limit.  Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import subprocess
 import sys
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 
 def frames(root: str, w: int, h: int, n: int):
     import numpy as np
 
-    spec = importlib.util.spec_from_file_location(
-        "imagegen", os.path.join(root, "tests", "imagegen.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return np.stack([mod.random_image(np.random.default_rng(s), w, h, 3,
+    gen = load("imagegen", os.path.join(root, "tests", "imagegen.py"))
+    return np.stack([gen.random_image(np.random.default_rng(s), w, h, 3,
                                       "mixed") for s in range(n)])
 
 
-def launch_levels(lifting, pyr) -> list:
-    """The levels each launch lifts, finest first, as tuples."""
-    if hasattr(lifting, "launch_levels"):
-        return [tuple(g) for g in lifting.launch_levels(pyr)]
-    return [(l,) for l in range(pyr.levels, 0, -1)]
-
-
-def per_launch(torch, fn, reps: int, match: str, launches: int) -> tuple:
-    """([(kernel name, device ms)] of each of the ``launches`` launches
-    whose name holds ``match`` in one ``fn()``, in launch order, means of
-    ``reps`` calls, or None when the profiler dropped some of their
-    events in three tries; CUDA-event ms of one call, mean)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def launches(smoke, torch, wrapper, fn, match: str, reps: int) -> dict:
+    """Each launch of one ``fn()`` (``wrapper.launches`` of them) whose
+    kernel name holds ``match``: [kernel, device ms] in launch order, or
+    None where the profiler dropped events; the sum; the events' ms."""
+    before = wrapper.launches
     fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and match in e.name),
-                    key=lambda e: e.time_range.start)
-        if len(ev) == launches * reps:
-            break
-    k = launches
-    out = None if len(ev) != k * reps else [
-        (ev[i].name.split("(")[0].split("<")[0].split()[-1],
-         sum(ev[r * k + i].time_range.elapsed_us() for r in range(reps))
-         / reps / 1e3) for i in range(k)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end) / reps
+    per_call = wrapper.launches - before
+    ms = smoke.launch_ms(torch, fn, match, per_call, reps)
+    return {"launches": ms, "device_ms": None if ms is None else
+            sum(m for _, m in ms),
+            "events_ms": smoke.time_ms(torch, fn, reps=reps)}
 
 
-def transform(torch, x, pyr, reps: int) -> dict:
-    """The split of one forward transform of the (N, H, W, 3) frames x
-    (None: not measured, the profiler dropped kernel events)."""
-    from dwt_tpu_torch.ops import lifting
-
-    groups = launch_levels(lifting, pyr)
-    ms, events = per_launch(
-        torch, lambda: lifting.forward_transform(x, pyr, True), reps, "lift",
-        len(groups))
-    if ms is None:
-        return None
-    return {"launches": [
-        {"levels": list(g), "input": f"{pyr.widths[g[0]]}x"
-         f"{pyr.heights[g[0]]}", "kernel": k, "device_ms": m}
-        for g, (k, m) in zip(groups, ms)],
-        "device_ms": sum(m for _, m in ms), "events_ms": events}
-
-
-def statistics(torch, x, pyr, reps: int) -> dict:
-    """The plane statistics of the frames x's linearized coefficients, at
-    the wrapper's default rows a block and, where it takes ``group``, at
-    2 and at all rows."""
+def measure(smoke, torch, x, reps: int) -> dict:
+    """Both kernels on the (N, H, W, 3) uint8 frames ``x``."""
     from dwt_tpu_torch.codec import stage1
     from dwt_tpu_torch.codec.encoder import get_encoder
     from dwt_tpu_torch.ops import lifting, plane_stats
 
     n, h, w, c = x.shape
     enc = get_encoder(w, h, c)
-    lin = stage1._linearize(lifting.forward_transform(x, pyr, True),
-                            enc._src, pyr, c)
+    pyr = enc.pyr
+    ft = lifting.forward_transform
+    lin = stage1._linearize(ft(x, pyr, True), enc._src, pyr, c)
     segs = stage1.segs_for(pyr, lin.device)
     args = (lin.reshape(n * c, -1), segs.valid_t, segs.idx_local,
             segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
-    groups = {"default": {}}
-    if "group" in inspect.signature(plane_stats.plane_stats).parameters:
-        groups.update({f"group {g}": {"group": g} for g in (2, n * c)})
-    out = {"rows": n * c, "chunks": segs.nchunk}
-    launches = plane_stats.plane_stats.launches
-    plane_stats.plane_stats(*args)
-    launches = plane_stats.plane_stats.launches - launches
-    for label, kw in groups.items():
-        ms, events = per_launch(
-            torch, lambda: plane_stats.plane_stats(*args, **kw), reps,
-            "plane_", launches)
-        out[label] = None if ms is None else {
-            "kernels": dict(ms), "device_ms": sum(m for _, m in ms),
-            "events_ms": events}
-    return out
+    return {"transform": launches(smoke, torch, ft,
+                                  lambda: ft(x, pyr, True), "lift", reps),
+            "statistics": launches(
+                smoke, torch, plane_stats.plane_stats,
+                lambda: plane_stats.plane_stats(*args), "plane_", reps)}
 
 
-def split_line(res) -> str:
-    """A line of :func:`transform`'s result."""
-    if res is None:
-        return "not measured (the profiler dropped kernel events)"
-    return "; ".join(f"levels {l['levels']} from {l['input']} "
-                     f"{l['device_ms']:.4f} ms" for l in res["launches"]) \
-        + f"; device {res['device_ms']:.4f} ms, events {res['events_ms']:.4f} ms"
+def line(res: dict) -> str:
+    if res["launches"] is None:
+        return (f"not measured (the profiler dropped kernel events), "
+                f"events {res['events_ms']:.4f} ms")
+    return ", ".join(f"{k} {m:.4f}" for k, m in res["launches"]) \
+        + (f"; device {res['device_ms']:.4f} ms, events "
+           f"{res['events_ms']:.4f} ms")
 
 
 def main(argv: list) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--tail", type=int, default=0)
-    ap.add_argument("--warps", type=int, default=0)
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -166,14 +106,7 @@ def main(argv: list) -> int:
         print("stage1_kernels: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import lifting
-
-    if args.tail:
-        lifting.TAIL_SAMPLES = args.tail
-    if args.warps:
-        lifting.WARP_TARGET = args.warps
-
+    smoke = load("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -181,23 +114,11 @@ def main(argv: list) -> int:
     for label, (w, h, n) in (("4K frame", (3840, 2160, 1)),
                              ("7 1080p frames", (1920, 1080, 7))):
         x = torch.as_tensor(frames(root, w, h, n)).cuda()
-        pyr = compute_pyramid(w, h)
-        res = {"transform": transform(torch, x, pyr, args.reps),
-               "statistics": statistics(torch, x, pyr, args.reps)}
+        res = measure(smoke, torch, x, args.reps)
         print(json.dumps({"root": root, "shape": label, "card": card,
-                          "tail_samples": getattr(lifting, "TAIL_SAMPLES",
-                                                  None),
-                          "warp_target": getattr(lifting, "WARP_TARGET", None),
                           **res}), flush=True)
-        s = res["statistics"]
-        print(f"{label}: transform {split_line(res['transform'])}; "
-              f"statistics ({s['rows']} rows, {s['chunks']} chunks) "
-              + "; ".join(
-                  f"{k} " + ("not measured" if v is None else
-                             f"device {v['device_ms']:.4f} ms, events "
-                             f"{v['events_ms']:.4f} ms")
-                  for k, v in s.items() if k not in ("rows", "chunks"))
-              + f" on {card}", flush=True)
+        print(f"{label}: transform {line(res['transform'])}; statistics "
+              f"{line(res['statistics'])} on {card}", flush=True)
     return 0
 
 
