@@ -65,14 +65,18 @@ seconds:
              its refinement bits, 1-bits and block runs counted; kernel 5
              with the run table the decoder keeps and with the one its
              wrapper derives, the table's size, and kernel 5 at the tiled
-             decode's kept calls, held also at other channel groups; the
-             transposes with the bytes a thread moves, the int8 one held
-             also by the element kernel; the VLI order scan's three
-             kernels (bound by bytes or by integer operations, whichever
-             is larger), and one whole 4K ``_vli_orders`` with them and
-             with the eager scan (the plain version) in turns, by CUDA
-             events and by the host clock; the tile engines' probe as
-             its one host call, and one cold
+             decode's kept calls, held also at other channel groups;
+             kernel 6, which no path runs since the VLI order scan reads
+             the token arrays in place, on seeded tensors of the shapes
+             the scan gave it (the 4K frame's int32 and int8 and the
+             7-frame batch's), with the bytes a thread moves, the int8
+             one held also by the element kernel; the VLI order scan's
+             one kernel (bound by bytes or by integer operations,
+             whichever is larger), how its rows and tiles collapsed on
+             the 4K tokens, and one whole 4K ``_vli_orders`` by CUDA
+             events and by the host clock, in turns with the parent
+             tree's where ``--parent DIR`` names one; the tile engines'
+             probe as its one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; stage 1 by pass,
@@ -88,12 +92,12 @@ seconds:
              upload, the batched tails and the rest (download, mosaic).
 6. device  — the device time of kernels 5 and 6 by torch.profiler,
              beside their bounds: kernel 5 at 4K and at the tiled
-             decode's calls (there also at other channel groups), each
-             transpose of the VLI scan (the int8 one also by the element
-             kernel), each of the VLI order scan's three kernels, stage
-             1's three kernels, and the forward transform launch by
-             launch with the levels each lifts (also at the batch's
-             7-frame shape in phase 9).  After the
+             decode's calls (there also at other channel groups), kernel
+             6 on its seeded tensors (the int8 one also by the element
+             kernel), the VLI order scan's kernel, stage 1's three
+             kernels, and the forward transform launch by launch with
+             the levels each lifts (the scan and stage 1 also at the
+             batch's 7-frame shape in phase 9).  After the
              timing phase, so that no profiler session runs before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
@@ -136,22 +140,25 @@ seconds:
              frames, 1 of 1), in ``Kernels.path``: the streams' total
              bytes and SHA-256 must equal the JAX package's (constants
              below), each encode kernel must launch once a sub-batch (10;
-             the transpose 20, the VLI order scan's three kernels 30, the
-             forward transform ``launch_levels`` a sub-batch, 50, the plane
-             statistics 10), and
-             each stream must equal the
-             single-stream encoder's.  Then warm MP/s of the batch in
+             the forward transform ``launch_levels`` a sub-batch, 50),
+             and each stream must equal the single-stream encoder's.  How
+             the VLI order scan's rows and tiles collapsed on a 7-frame
+             sub-batch's tokens.  Then warm MP/s of the batch in
              turns with the single-stream encoder looped over the same
              frames, the copies and the peak memory of one 7-frame
              sub-batch, stage 1 of a 7-frame sub-batch by pass, and each
              encode kernel's wrapper time at the 7-frame shape beside its
-             bound, stage 1's kernels also by torch.profiler (also in the
+             bound, stage 1's kernels and the VLI order scan's also by
+             torch.profiler (also in the
              kernels' JSON: ``batch_launches``, ``batch_ms``,
              ``batch_bound_ms``, ``batch_device_ms``).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
 the two-rank run of phase 7 (it needs two cards), and prints no result
-lines.
+lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
+phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
+DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
+with this one's.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -245,7 +252,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # at 1.98 GHz, a quarter of the data sheet's 67 TFLOP/s float32 (an FMA
 # counts two there, on 128 FP32 lanes an SM).
 INT32_OPS_PER_S = 67e12 / 4
-# Integer operations the VLI order scan spends on one active token: its
+# Integer operations the VLI order scan is counted for on one active
+# token (a scan that knows no entry order carries all 31): its
 # block's map at the 31 entry states, 8 words of four states with 5
 # operations each (compare, mask, add, max, saturating subtract), and the
 # replay's one state, 5 more.
@@ -272,15 +280,18 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
                 "sharded tiled encode", "budgeted sharded tiled encode",
                 "batch encode")
 # The kernels of the encode path and their launches a sub-batch of the
-# batch mode: one each, the VLI scan's transpose twice (two calls) and its
-# order scan three (one call, three kernels); the forward transform's
-# launches are a closed form of the geometry's pyramid, a launch a large
-# level and one for the tail (ops/lifting.py:launch_levels; 5 at
-# 1920x1080): ``sub_batch_launches`` gives them.
+# batch mode: one each; the forward transform's launches are a closed form
+# of the geometry's pyramid, a launch a large level and one for the tail
+# (ops/lifting.py:launch_levels; 5 at 1920x1080): ``sub_batch_launches``
+# gives them.
 BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
-                 "scatter_refbits": 1, "transpose2d": 2, "vli_orders": 3}
-BATCH_CALLS = {"transpose2d": 2}  # wrapper calls a sub-batch, where not 1
+                 "scatter_refbits": 1, "vli_orders": 1}
+# Kernel 6, on no path: seeded tensors of the shapes the VLI order scan
+# gave it (the (nblk, 128) int32 parameters in, the int8 orders back) at
+# the 4K frame's token bucket and a 7-frame 1080p sub-batch's.
+TRANSPOSE_SHAPES = {"4K": ((245_760, 128), (128, 245_760)),
+                    "batch": ((430_080, 128), (128, 430_080))}
 DECODE_PATHS = ("decode", "tiled decode", "budgeted tiled decode",
                 "sharded decode")
 # Small tiles whose one geometry needs two sub-batches within stage 2's
@@ -345,7 +356,7 @@ class Kernels:
                       (stage1, "hilbert_gather"), (stage1, "plane_stats"),
                       (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
-                      (decoder, "hilbert_scatter"), (tokens, "transpose2d"),
+                      (decoder, "hilbert_scatter"),
                       (tokens, "vli_orders"), (sharded, "hilbert_gather"),
                       (halo, "dwt2d_fwd")]
         # Each site's kernel wrapper and its plain version.
@@ -364,8 +375,6 @@ class Kernels:
                                 compact.scatter_refbits_plain),
             "hilbert_scatter": (hilbert_scatter.hilbert_scatter,
                                 hilbert_scatter.hilbert_scatter_plain),
-            "transpose2d": (transpose.transpose2d,
-                            transpose.transpose2d_plain),
             "vli_orders": (vli_scan.vli_orders, vli_scan.vli_orders_plain),
         }
         self.rows = [
@@ -401,11 +410,12 @@ class Kernels:
             ("hilbert_scatter", hilbert_scatter.hilbert_scatter,
              "dwt_tpu_torch/csrc/hilbert_scatter.cu",
              "dwt_tpu/ops/pallas_hilbert.py:538", DECODE_PATHS),
-            # The VLI order scan's two transposes, int32 in, int8 out.
+            # Kernel 6: no path runs it (nor the JAX package's), since
+            # the VLI order scan reads the token arrays in place.
             ("transpose2d", transpose.transpose2d,
              "dwt_tpu_torch/csrc/transpose.cu",
-             "dwt_tpu/ops/pallas_transpose.py:57", ENCODE_PATHS),
-            # The VLI order scan between them: three kernels a call.  No
+             "dwt_tpu/ops/pallas_transpose.py:57", ()),
+            # The VLI order scan: one kernel a call.  No
             # TPU kernel: it replaces the JAX package's XLA scan.
             ("vli_orders", vli_scan.vli_orders,
              "dwt_tpu_torch/csrc/vli_scan.cu",
@@ -740,7 +750,7 @@ def transpose_routes(torch, x, want) -> None:
                                  f"differs from its plain version")
 
 
-VLI_NAMES = ("vli_maps_kernel", "vli_entry_kernel", "vli_replay_kernel")
+VLI_NAME = "vli_orders_kernel"
 # Stage 1's kernels by wrapper, as the profiler names them.
 STAGE1_NAMES = {"forward_transform": ("lift_level_kernel",
                                       "lift_tail_kernel"),
@@ -778,13 +788,13 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
     at the tiled decode's calls, there also at each channel group of
-    ``SCATTER_GROUPS``; each VLI scan transpose, the int8 one also by the
-    element kernel; each of the VLI order scan's three kernels at 4K;
-    stage 1's kernels at 4K (into ``rows``).  Run last, so that no
-    profiler session comes before the timing phase that a parent's script
-    would not run either."""
+    ``SCATTER_GROUPS``; kernel 6 on its seeded 4K tensors, the int8 one
+    also by the element kernel; the VLI order scan's kernel and stage 1's
+    kernels at 4K (into ``rows``).  Run last, so that no profiler session
+    comes before the timing phase that a parent's script would not run
+    either."""
     from dwt_tpu_torch.ops import hilbert_scatter as hs
-    from dwt_tpu_torch.ops import transpose, vli_scan
+    from dwt_tpu_torch.ops import transpose
 
     for i, (lin, src, sq_ptr, runs) in enumerate([scatter_4k]
                                                  + tiled_scatter):
@@ -802,6 +812,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                  f"(group {hs.GROUP}), bound {bound:.4f} ms, share "
                  f"{bound / dev:.2f}"
                  + (f"; by channel group, ms: {groups}" if groups else ""))
+    wrapper_ms = 0.0
     for x in transposes:
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
         routes = []
@@ -809,21 +820,96 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
             out = torch.empty(x.shape[::-1], dtype=x.dtype, device=x.device)
             ms = kernel_ms(torch, lambda: transpose.launch(x, out, vec),
                            "transpose")
+            wrapper_ms += ms if vec == transpose.vector_bytes(x) else 0.0
             routes.append(f"{vec} bytes a thread {ms:.4f} ms, share "
                           f"{bound / ms:.2f}")
         progress(f"device: transpose2d {tuple(x.shape)} {x.dtype}, bound "
                  f"{bound:.4f} ms: {'; '.join(routes)} (1 byte a thread: "
                  f"the element kernel)")
-    x, nblk = vli
-    bound, by = bound_of(*vli_work(torch, x))
-    ms = [kernel_ms(torch, lambda: vli_scan.vli_orders(x, nblk), name)
-          for name in VLI_NAMES]
-    progress(f"device: vli_orders {tuple(x.shape)}, nblk {nblk}: "
-             + ", ".join(f"{n} {m:.4f} ms" for n, m in zip(VLI_NAMES, ms))
-             + f"; together {sum(ms):.4f} ms, bound {bound:.4f} ms by {by}, "
-             f"share {bound / sum(ms):.2f}")
+    next(r for r in rows if r["name"] == "transpose2d")["device_ms"] = \
+        wrapper_ms
+    progress("device: " + vli_device(torch, *vli, rows, "device_ms"))
     progress("device: stage 1 at 4K: " + stage1_device(torch, stage1_kept,
                                                       rows, "device_ms"))
+
+
+def vli_device(torch, val, vli, rows: list, key: str) -> str:
+    """The VLI order scan kernel's device time (torch.profiler) on (N, T)
+    tokens, into ``rows[...][key]``; returns a line of it beside its
+    bound."""
+    from dwt_tpu_torch.ops import vli_scan
+
+    ms = kernel_ms(torch, lambda: vli_scan.vli_orders(val, vli), VLI_NAME,
+                   per_call=1)
+    bound, by = bound_of(*vli_work(torch, val, vli))
+    next(r for r in rows if r["name"] == "vli_orders")[key] = ms
+    return (f"vli_orders {tuple(val.shape)} (row stride {val.stride(0)}): "
+            f"{ms:.4f} ms, bound {bound:.4f} ms by {by}, share "
+            f"{bound / ms:.2f}")
+
+
+def vli_collapse(torch, val, vli) -> str:
+    """How the VLI order scan's rows (``SPAN`` tokens of a tile) and tiles
+    (``TILE`` tokens of a frame) collapse on (N, T) tokens: the rows
+    whose map at all 31 entry orders is a constant by their end, the
+    median and largest token count after which it became one, and the
+    tiles whose map, the rows' composed, is a constant (plain PyTorch on
+    the card, from ``tokens._vli_ab``)."""
+    from dwt_tpu_torch.codec import tokens
+    from dwt_tpu_torch.ops import vli_scan as V
+
+    N, T = val.shape
+    per = -(-T // V.TILE)
+    x = torch.zeros((N, per * V.TILE), dtype=torch.int32, device=val.device)
+    x[:, :T] = tokens._vli_ab(val, vli)
+    rows = x.reshape(-1, V.SPAN)
+    a, b, act = (rows - 1) & 31, ((rows - 1) >> 5) & 31, rows > 0
+    s = torch.arange(31, dtype=torch.int32,
+                     device=val.device).expand(rows.shape[0], 31)
+    at = torch.full((rows.shape[0],), V.SPAN + 1, dtype=torch.int32,
+                    device=val.device)
+    for i in range(V.SPAN):
+        ns = torch.clamp(torch.maximum(s, a[:, i:i + 1] + (
+            s >= b[:, i:i + 1]).to(torch.int32)) - 2, 0, 30)
+        s = torch.where(act[:, i:i + 1], ns, s)
+        at = torch.where((at > V.SPAN) & (s[:, 0] == s[:, 30]), i + 1, at)
+    done = at <= V.SPAN
+    maps = s.long().reshape(-1, V.THREADS, 31)
+    F = torch.arange(31, device=val.device).expand(maps.shape[0], 31)
+    for r in range(V.THREADS):
+        F = torch.gather(maps[:, r], 1, F)
+    tiles = int((F[:, 0] == F[:, 30]).sum())
+    real = at[done].float()
+    return (f"{int(done.sum())} of {rows.shape[0]} rows of {V.SPAN} tokens "
+            f"collapsed ({float(done.float().mean()):.4f}), after a median "
+            f"of {float(real.median()) if real.numel() else float('nan')} "
+            f"tokens, at most {int(at[done].max()) if real.numel() else 0}; "
+            f"{tiles} of {maps.shape[0]} tiles of {V.TILE} tokens with a "
+            f"constant map")
+
+
+def as_finished(t):
+    """(N, T) ``t`` as the token finisher leaves its arrays: each row
+    followed by a spare slot (row stride T + 1)."""
+    buf = t.new_zeros((t.shape[0], t.shape[1] + 1))
+    buf[:, :t.shape[1]] = t
+    return buf[:, :t.shape[1]]
+
+
+def load_tree(root: str):
+    """``codec.tokens`` of the ``dwt_tpu_torch`` package of the checkout
+    at ``root``, imported as ``parent_dwt_tpu_torch`` (its kernels built
+    into ``root/build``)."""
+    import importlib
+
+    pkg = os.path.join(os.path.abspath(root), "dwt_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_dwt_tpu_torch", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_dwt_tpu_torch.codec.tokens")
 
 
 def bound_of(nbytes: int, ops: int = 0) -> tuple:
@@ -835,12 +921,12 @@ def bound_of(nbytes: int, ops: int = 0) -> tuple:
                                                              "bytes")
 
 
-def vli_work(torch, x) -> tuple:
+def vli_work(torch, val, vli) -> tuple:
     """(bytes, integer operations) the VLI order scan must spend on its
-    (TB, R) int32 parameters ``x``: x read once and the int8 orders
-    written once (5 bytes a token), and ``VLI_OPS_PER_TOKEN`` a token that
-    is a VLI value (x > 0; the others are no-ops)."""
-    return 5 * x.numel(), VLI_OPS_PER_TOKEN * int((x > 0).sum())
+    (N, T) int32 values and bool flags: both read once and the int32
+    orders written once (9 bytes a token), and ``VLI_OPS_PER_TOKEN`` a
+    token that is a VLI value (the others are no-ops)."""
+    return 9 * val.numel(), VLI_OPS_PER_TOKEN * int(vli.sum())
 
 
 def transform_work(torch, args) -> tuple:
@@ -877,7 +963,7 @@ def kernel_work(torch, name: str, args) -> tuple:
     statistics, whose bound they may set; the others are bound by their
     bytes."""
     if name == "vli_orders":
-        return vli_work(torch, args[0])
+        return vli_work(torch, *args)
     if name == "forward_transform":
         return transform_work(torch, args)
     if name == "plane_stats":
@@ -920,9 +1006,12 @@ def encode_kernel_bytes(torch, name: str, args) -> int:
 
 
 def check_kernels(torch, K: Kernels, got: dict, launches: dict,
-                  tiled_scatter: list) -> list:
+                  tiled_scatter: list, transposes: dict,
+                  parent: str | None) -> list:
     """Phase 4: each kernel against its plain version, and its times
-    (kernel 5 also at the tiled decode's kept calls)."""
+    (kernel 5 also at the tiled decode's kept calls, kernel 6 on its
+    seeded tensors ``transposes``, the VLI order scan's whole call also
+    of the ``parent`` checkout, where given)."""
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
@@ -1115,90 +1204,110 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
              f"the wrapper deriving it on the host {derive_ms:.3f} ms")
     scatter_at_tiles(torch, tiled_scatter)
 
-    # 6. the VLI scan's two transposes (int32 (nblk, TB) in, int8 (TB,
-    # nblk) out): each held to its plain version and timed alone; the row
-    # gives the two summed, i.e. the cost of one encode.  Each reads and
+    # 6. kernel 6, which no path runs: seeded tensors of the shapes the
+    # VLI order scan gave it (int32 (nblk, 128) in, int8 (128, nblk) out),
+    # each held to its plain version and timed alone; the row gives the
+    # 4K pair summed, its batch keys the 7-frame pair.  Each reads and
     # writes its tensor once; ``x.T.contiguous()`` is the library call.
-    parts, ks, ps = [], [], []
-    for (x,) in got["transpose2d"]:
-        k, p = transpose.transpose2d(x), transpose.transpose2d_plain(x)
-        max_abs_err("transpose2d", k, p)  # shape and dtype
-        ks.append(k.reshape(-1).to(torch.int32))
-        ps.append(p.reshape(-1).to(torch.int32))
-        parts.append((
-            time_ms(torch, lambda: transpose.transpose2d(x)),
-            time_ms(torch, lambda: transpose.transpose2d_plain(x)),
-            encode_kernel_bytes(torch, "transpose2d", (x,)),
-            time_ms(torch, lambda: x.T.contiguous())))
-        bound = parts[-1][2] / HBM_BYTES_PER_S * 1e3
-        if x.dtype == torch.int8:
-            transpose_routes(torch, x, p)
-        progress(f"kernels: transpose2d {tuple(x.shape)} {x.dtype} "
-                 f"({transpose.vector_bytes(x)} bytes a thread): "
-                 f"{parts[-1][0]:.4f} ms (plain {parts[-1][1]:.3f} ms, "
-                 f"library {parts[-1][3]:.3f} ms, bound {bound:.4f} ms, "
-                 f"share {bound / parts[-1][0]:.2f})")
+    parts, ks, ps = {}, [], []
+    for key, xs in transposes.items():
+        for x in xs:
+            k, p = transpose.transpose2d(x), transpose.transpose2d_plain(x)
+            err = max_abs_err("transpose2d", k, p)
+            if err:
+                raise AssertionError(f"transpose2d {tuple(x.shape)}: kernel "
+                                     f"differs from its plain version (max "
+                                     f"abs err {err})")
+            if key == "4K":
+                ks.append(k.reshape(-1).to(torch.int32))
+                ps.append(p.reshape(-1).to(torch.int32))
+            parts.setdefault(key, []).append((
+                time_ms(torch, lambda: transpose.transpose2d(x)),
+                time_ms(torch, lambda: transpose.transpose2d_plain(x)),
+                encode_kernel_bytes(torch, "transpose2d", (x,)),
+                time_ms(torch, lambda: x.T.contiguous())))
+            t = parts[key][-1]
+            bound = t[2] / HBM_BYTES_PER_S * 1e3
+            if x.dtype == torch.int8:
+                transpose_routes(torch, x, p)
+            progress(f"kernels: transpose2d {key} {tuple(x.shape)} "
+                     f"{x.dtype} ({transpose.vector_bytes(x)} bytes a "
+                     f"thread): {t[0]:.4f} ms (plain {t[1]:.3f} ms, library "
+                     f"{t[3]:.3f} ms, bound {bound:.4f} ms, share "
+                     f"{bound / t[0]:.2f})")
     row("transpose2d", torch.cat(ks), torch.cat(ps),
-        *(sum(t[i] for t in parts) for i in range(4)))
+        *(sum(t[i] for t in parts["4K"]) for i in range(4)))
+    out[-1].update(batch_ms=sum(t[0] for t in parts["batch"]),
+                   batch_bound_ms=bound_of(sum(t[2]
+                                               for t in parts["batch"]))[0])
 
-    # 7. the VLI order scan between them, on the (TB, nblk) int32
-    # parameters: three kernels, held to the plain version (the eager
-    # passes of the parent's scan); no PyTorch call computes this function.
-    # Then one whole ``_vli_orders`` call (both transposes and the scan)
-    # and the same with the eager scan, by CUDA events and by the host
-    # clock around a synchronised call: the scan's share of the tokens
-    # half before and after.
-    x, nblk = got["vli_orders"][0]
-    nbytes, ops = vli_work(torch, x)
-    row("vli_orders", vli_scan.vli_orders(x, nblk),
-        vli_scan.vli_orders_plain(x, nblk),
-        time_ms(torch, lambda: vli_scan.vli_orders(x, nblk)),
-        time_ms(torch, lambda: vli_scan.vli_orders_plain(x, nblk), reps=3),
+    # 7. the VLI order scan: one kernel on the 4K encode's (1, padded_T)
+    # token values and flags, held to its plain version (``_vli_ab`` and
+    # the parent's eager passes); no PyTorch call computes this function.
+    # How its rows and tiles collapse on these tokens; then one whole
+    # ``_vli_orders`` call, in turns with the parent's where one is given.
+    val, vli = got["vli_orders"][0]
+    nbytes, ops = vli_work(torch, val, vli)
+    row("vli_orders", vli_scan.vli_orders(val, vli),
+        vli_scan.vli_orders_plain(val, vli),
+        time_ms(torch, lambda: vli_scan.vli_orders(val, vli)),
+        time_ms(torch, lambda: vli_scan.vli_orders_plain(val, vli), reps=3),
         nbytes, None, ops)
-    progress(f"kernels: vli_orders {tuple(x.shape)}, nblk {nblk}: "
-             f"{nbytes} bytes, {ops} integer operations "
-             f"({int((x > 0).sum())} VLI tokens of {x.numel()})")
-    vli_whole(torch, x.shape[0] * nblk, nblk)
+    progress(f"kernels: vli_orders {tuple(val.shape)}: {nbytes} bytes, "
+             f"{ops} integer operations ({int(vli.sum())} VLI tokens of "
+             f"{val.numel()})")
+    progress("kernels: vli_orders on the 4K tokens: "
+             + vli_collapse(torch, val, vli))
+    vli_whole(torch, val, vli, parent)
     return out
 
 
-def vli_whole(torch, padded_T: int, nblk: int) -> None:
-    """One 4K ``tokens._vli_orders`` (its two transposes around the scan)
-    with the scan's kernels and with its plain version, the parent's
-    eager passes, in turns, on the same tokens: by CUDA events around the
-    call and by the host clock around a call that ends synchronised."""
-    from dwt_tpu_torch.codec import tokens
-    from dwt_tpu_torch.ops import vli_scan
+def seeded_transposes(torch) -> dict:
+    """Kernel 6's inputs: ``TRANSPOSE_SHAPES``, int32 then int8, seeded."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    return {key: [torch.randint(-2**31, 2**31, i32, generator=gen,
+                                dtype=torch.int32, device="cuda"),
+                  torch.randint(-128, 128, i8, generator=gen,
+                                dtype=torch.int8, device="cuda")]
+            for key, (i32, i8) in TRANSPOSE_SHAPES.items()}
 
-    rng = np.random.default_rng(0)
-    val = torch.as_tensor((rng.integers(0, 2**20, padded_T)
-                           >> rng.integers(0, 20, padded_T))
-                          .astype(np.int32), device="cuda")[None]
-    vli = torch.as_tensor(rng.random(padded_T) < 0.6, device="cuda")[None]
+
+def vli_whole(torch, val, vli, parent: str | None) -> None:
+    """One 4K ``tokens._vli_orders`` on the 4K encode's tokens, by CUDA
+    events around the call and by the host clock around a call that ends
+    synchronised; where ``parent`` names a checkout, the same call of its
+    ``dwt_tpu_torch`` in turns (this tree, the parent, the parent, this
+    tree), each held to this tree's orders."""
+    from dwt_tpu_torch.codec import tokens
+
+    trees = {"this tree": tokens}
+    order = ["this tree", "this tree"]
+    if parent:
+        trees["parent"] = load_tree(parent)
+        _, secs = sys.modules["parent_dwt_tpu_torch.runtime.build"].build()
+        progress(f"kernels: the parent's kernels ({parent}) built in "
+                 f"{secs:.1f} s")
+        order = ["this tree", "parent", "parent", "this tree"]
+    padded_T = val.shape[1]
     want = tokens._vli_orders(val, vli, padded_T)
     times = {}
-    for name in ("kernels", "eager", "eager", "kernels"):
-        if name == "eager":
-            tokens.vli_orders = vli_scan.vli_orders_plain
-        try:
-            got = tokens._vli_orders(val, vli, padded_T)
-            if not torch.equal(got, want):
-                raise AssertionError(f"_vli_orders {name} differs")
-            ev = time_ms(torch, lambda: tokens._vli_orders(val, vli,
-                                                           padded_T), reps=3)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tokens._vli_orders(val, vli, padded_T)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        finally:
-            tokens.vli_orders = vli_scan.vli_orders
-        times.setdefault(name, []).append(f"{ev:.3f} ms events, "
+    for name in order:
+        mod = trees[name]
+        got = mod._vli_orders(val, vli, padded_T)
+        if not torch.equal(got, want):
+            raise AssertionError(f"_vli_orders of {name} differs")
+        ev = time_ms(torch, lambda: mod._vli_orders(val, vli, padded_T),
+                     reps=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod._vli_orders(val, vli, padded_T)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        times.setdefault(name, []).append(f"{ev:.4f} ms events, "
                                           f"{wall:.3f} ms host")
-    progress(f"kernels: one _vli_orders at 4K ({padded_T} tokens, {nblk} "
-             f"blocks): with the scan's kernels {'; '.join(times['kernels'])}"
-             f"; with the eager scan (the parent's passes) "
-             f"{'; '.join(times['eager'])}")
+    progress(f"kernels: one _vli_orders at 4K ({padded_T} tokens): "
+             + "; ".join(f"{k} {', '.join(v)}" for k, v in times.items())
+             + ("" if parent else " (no --parent given)"))
 
 
 def busy_ms(events, DeviceType) -> float:
@@ -2076,8 +2185,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     ``Kernels.path`` (kernel inputs kept and held against the plain
     versions).  Gates: the 64 streams' total bytes and SHA-256 equal the
     JAX package's, each stream equals the single-stream encoder's on the
-    card, and each encode kernel launched once a sub-batch (the transpose
-    twice, the VLI order scan's three kernels once each).  Then warm MP/s
+    card, and each encode kernel launched once a sub-batch.  Then warm MP/s
     of the batch in turns with a loop of the single-stream encoder over
     the same frames, the copies and the peak memory of one 7-frame
     sub-batch, and each kernel's wrapper time at the 7-frame shape beside
@@ -2110,9 +2218,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         raise AssertionError(f"batch launches {counts}: want {want}, one a "
                              f"sub-batch")
     progress(f"batch: launches one a sub-batch: {want} (compact_tokens: a "
-             f"count and a place launch each; vli_orders: its three "
-             f"kernels); a loop over the frames would make {BATCH_N} and "
-             f"{2 * BATCH_N}")
+             f"count and a place launch each); a loop over the frames would "
+             f"make {BATCH_N} and {2 * BATCH_N}")
     progress(f"batch: kernels equal to their plain versions: "
              f"{held_line(K.hold(store))}")
 
@@ -2160,9 +2267,11 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
              f"max_memory_allocated, on {card}")
 
     # Each kernel's wrapper at the 7-frame shape (the first sub-batch's
-    # kept call; the transposes summed), beside its bound.
+    # kept call; the VLI order scan's tokens laid out again as the token
+    # finisher leaves them: a kept call is a contiguous copy), beside its
+    # bound.
     from dwt_tpu_torch.ops import (compact, hilbert_gather, lifting, pack,
-                                   plane_stats, transpose, vli_scan)
+                                   plane_stats, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
@@ -2171,7 +2280,6 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         "hilbert_gather": lambda a: hilbert_gather.hilbert_gather(*a),
         "compact_tokens": lambda a: compact.compact_tokens(*a[:4]),
         "pack_words": lambda a: pack.pack_words(*a, order_flag=flag),
-        "transpose2d": lambda a: transpose.transpose2d(*a),
         "vli_orders": lambda a: vli_scan.vli_orders(*a),
     }
     parts = []
@@ -2179,7 +2287,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         name = row["name"]
         if name not in BATCH_KERNELS:
             continue
-        kept = store[name][:BATCH_CALLS.get(name, 1)]
+        kept = store[name][:1]
+        if name == "vli_orders":
+            kept = [tuple(as_finished(t) for t in kept[0])]
         if name == "scatter_refbits":
             ms = sum(time_ms(torch, compact.scatter_refbits, setup=lambda a=a: (
                 a[0], a[1], a[2].clone(), a[3], a[4])) for a in kept)
@@ -2204,6 +2314,11 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     progress(f"device: stage 1 at the batch of {sub} frames: "
              + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
                              rows, "batch_device_ms"))
+    val, vli = (as_finished(t) for t in store["vli_orders"][0])
+    progress(f"device: at the batch of {sub} frames, "
+             + vli_device(torch, val, vli, rows, "batch_device_ms"))
+    progress(f"batch: vli_orders on a {sub}-frame sub-batch's tokens: "
+             + vli_collapse(torch, val, vli))
     progress(f"device: the forward transform by launch at the batch of {sub} "
              f"frames: " + lift_split(torch, frames[:sub]))
     del store
@@ -2214,8 +2329,10 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
 def main(argv: list) -> int:
     import torch
 
-    if argv not in ([], ["--two-ranks"]):
-        print("usage: python3 chip_smoke.py [--two-ranks]", file=sys.stderr)
+    parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
+    if argv not in ([], ["--two-ranks"]) and not parent:
+        print("usage: python3 chip_smoke.py [--two-ranks | --parent DIR]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2238,7 +2355,7 @@ def main(argv: list) -> int:
     progress(f"build: {len(build.sources())} sources, one nvcc process "
              f"each, in parallel, and a link, "
              f"{secs:.1f} s -> {os.path.relpath(path, ROOT)}")
-    if argv:
+    if argv == ["--two-ranks"]:
         if torch.cuda.device_count() < 2:
             raise RuntimeError("--two-ranks needs two cards")
         two_ranks(torch)
@@ -2286,11 +2403,13 @@ def main(argv: list) -> int:
     small_tiles(torch, K, tiled)
 
     # 4. kernels against their plain versions, on the main path's inputs
-    rows = check_kernels(torch, K, got, launches, tiled_scatter)
+    transposes = seeded_transposes(torch)
+    rows = check_kernels(torch, K, got, launches, tiled_scatter, transposes,
+                         parent)
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
-                     [x for (x,) in got["transpose2d"]], got["vli_orders"][0],
+                     transposes["4K"], got["vli_orders"][0],
                      {k: got[k][0] for k in STAGE1_NAMES}, rows)
-    del got, tiled_scatter
+    del got, tiled_scatter, transposes
     torch.cuda.empty_cache()
 
     # 5. timing: warm encodes

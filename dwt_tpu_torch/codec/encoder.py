@@ -6,8 +6,7 @@ and the emit half (codec/emit.py), writing the same ``.dwt`` bytes as the
 JAX package and the reference C encoder.  CUDA kernels run on the
 path: the forward transform and the plane statistics, the linearization
 gather (and its one-time probe when an encoder is built), compaction
-kernels A and B, the VLI scan's transposes and order scan, and the
-codeword packer.  The stages take a leading frame axis:
+kernels A and B, the VLI order scan, and the codeword packer.  The stages take a leading frame axis:
 ``Encoder.stage1_frames`` and ``Encoder.emit_frames`` run N frames of the
 geometry through one pipeline (``codec/tiled.py``'s batch mode), and one
 stream is the case N = 1 (``Encoder.stage1``, ``Encoder.emit``).

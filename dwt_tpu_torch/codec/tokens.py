@@ -17,15 +17,17 @@ import torch
 from ..geometry import Pyramid
 from ..ops import compact
 from ..ops.compact import compact_tokens
-from ..ops.transpose import transpose2d
+# Not called on the encode path since the VLI order scan reads the token
+# arrays in place; the benchmark wraps ``tokens.transpose2d`` by this name.
+from ..ops.transpose import transpose2d  # noqa: F401
 from ..ops.vli_scan import vli_orders
 from .stage1 import PMAX, _Segs, _excl_cumsum, _ilog2, segs_for
 
 _I32 = torch.int32
 
-# Sequential steps of the VLI order scan (tokens per block); the blocks'
-# transition maps compose in a chain (``ops/vli_scan.py``).  Any power of
-# two that divides the token bucket gives the same orders.
+# Tokens a block of the VLI order scan's plain version
+# (``ops/vli_scan.py:vli_orders_plain``); any power of two that divides the
+# token bucket gives the same orders.
 VLI_BLOCK = 128
 
 
@@ -247,28 +249,14 @@ def _vli_ab(tok_val, tok_vli):
 
 def _vli_orders(tok_val, tok_vli, padded_T: int):
     """Exact adaptive-VLI order state (vli.h:67-84) at every token of
-    (N, padded_T) token arrays.
-
-    The order is a chain over NSTATE values through every VLI token of a
-    frame.  The tokens split into blocks of TB, the frames' blocks laid
-    side by side as the columns of one (TB, N * nblk) transposed parameter
-    array (kernel 6), and :func:`vli_orders` (``csrc/vli_scan.cu``) scans
-    it in three launches: each block's transition map over all NSTATE
-    entry states, with a segment's maps composed; a walk over each frame's
-    segments from state 0 (no state carries across frames); and a replay
-    of each block from its true entry state, recording every token's order
-    before its own transition.  A second transpose turns the int8 orders
-    back.  Five launches a call on the card, whatever N and padded_T are;
-    on the CPU the scan's plain version (eager loops of TB steps).
-    """
-    TB = VLI_BLOCK
-    while padded_T % TB:
-        TB //= 2
-    nblk = padded_T // TB
-    N = tok_val.shape[0]
-    # (TB, N * nblk)
-    x = transpose2d(_vli_ab(tok_val, tok_vli).reshape(N * nblk, TB))
-    return transpose2d(vli_orders(x, nblk)).reshape(N, padded_T).to(_I32)
+    (N, padded_T) token arrays: :func:`vli_orders`, one launch of
+    ``csrc/vli_scan.cu`` on the card over the arrays as they lie (each
+    token's :func:`_vli_ab` parameters computed in the kernel, no
+    transpose), whatever N and padded_T are; its plain version on the
+    CPU.  The order is a chain over NSTATE values through every VLI token
+    of a frame, from order 0; no order carries across frames.  ``padded_T``
+    is the arrays' width (the JAX package's signature)."""
+    return vli_orders(tok_val, tok_vli)
 
 
 def _stage2_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):

@@ -1,242 +1,411 @@
 // The encoder's adaptive-VLI order scan (vli.h:67-84): the order state
-// entering every token of N frames' token arrays, as three launches.
+// entering every token of N frames' token arrays, in one launch.
 //
-// No TPU kernel to replace: the JAX package runs the scan as XLA, a
-// lax.scan over each block's tokens and an associative_scan over the
-// blocks' transition maps (dwt_tpu/codec/encoder.py:745, _vli_orders),
-// one compiled program on the TPU.  The plain PyTorch version
-// (ops/vli_scan.py:vli_orders_plain) does the same passes eagerly: two
-// loops of TB steps and a Hillis-Steele composition, about 2,000 launches
-// a call.
+// No TPU kernel to replace: the JAX package runs the whole of
+// dwt_tpu/codec/encoder.py:_vli_orders as XLA (the transition parameters
+// of _vli_ab, a lax.scan over each block's tokens and an associative_scan
+// over the blocks' transition maps), one compiled program on the TPU.
+// The plain PyTorch version (ops/vli_scan.py:vli_orders_plain) makes the
+// same passes eagerly: _vli_ab, a transpose, two loops of 128 steps, a
+// Hillis-Steele composition and a transpose back.
 //
-// Input: x, the (TB, R) int32 transition parameters, R = N * nblk block
-// columns (frame f's blocks are columns f*nblk .. f*nblk + nblk - 1), a
-// token's +1-biased (a | b << 5), 0 for a token that is no VLI value.  An
-// active token takes state s to clamp(max(s, a + (s >= b)) - 2, 0, 30).
-// Output: the (TB, R) int8 orders, each token's state before its own
-// transition; a frame's first block enters in state 0.
+// Input: val, the (N, T) int32 token values, and vli, the (N, T) bool
+// flags of the tokens that are VLI values, both read in place (rows of
+// unit stride, each row at its own stride: the token finisher's arrays
+// keep a spare slot after each frame).  A VLI token of value v has
+// A = ilog2(v) (0 for v < 1) and B = ceil_log2(2^(A+1) - v) (in int32,
+// as tokens.py:_vli_ab computes it: 2 << 30 wraps), and takes order s to
+// clamp(max(s, A + (s >= B)) - 2, 0, 30); another token leaves it.
+// Output: the (N, T) int32 orders, each token's order before its own
+// transition; every frame starts in order 0.
 //
-// Bound: bytes or operations, whichever is larger for the data (x read
-// once, the orders written once, 5 bytes a token; and the maps' updates,
-// 31 states for each active token).  The design reads x twice (126 MB at
-// 4K each time, more than the 50 MB L2) and keeps the rest small: 32
-// bytes a block column of maps, 32 a segment of aggregates.
+// Bound: bytes, each token's 5 bytes read once and its 4-byte order
+// written once.  Every transition is non-decreasing in s, so every
+// composed map is too: once a walk gives f(0) == f(30), the map is a
+// constant and the exit order no longer depends on the entry order.  On
+// encoder tokens that happens within a few dozen tokens.  So:
 //
-// 1. vli_maps_kernel: one thread a block column, one CUDA block a segment
-//    of SEG columns of one frame.  A thread walks its TB tokens (a warp
-//    reads 32 consecutive words of a row: coalesced) with the column's
-//    map of the 31 entry states in registers, two states a 32-bit word,
-//    and writes it as 32 bytes.  The map's update is integer work, which
-//    bounds this kernel: Hopper's DPX max of three 16-bit pairs
-//    (__vimax3_u16x2) does max(s, a + (s >= b), 2) in one instruction,
-//    where four states a word by the byte SIMD intrinsics (__vcmpgeu4,
-//    __vmaxu4, __vsubus4) cost several instructions each on this card.
-//    The segment's maps also go to shared memory, where one warp
-//    composes them, lane e walking entry state e through the SEG maps:
-//    the segment's aggregate map.
-// 2. vli_entry_kernel: one CUDA block a frame walks the frame's segment
-//    aggregates in order from state 0 (a chain of dependent shared-memory
-//    reads, about 960 at 4K), staged through shared memory in chunks:
-//    each segment's entry state.
-// 3. vli_replay_kernel: one CUDA block a segment walks the segment's maps
-//    from its entry state (one thread, shared memory), giving each block
-//    column's entry state; then one thread a column replays its TB tokens
-//    and writes each token's order (a warp writes 32 consecutive bytes).
+// vli_orders_kernel: one CUDA block a tile of TILE consecutive tokens of
+// one frame, tiles numbered by an atomic ticket (a tile's predecessors are
+// then resident or done).  The block reads the tile's values and flags
+// once (16-byte words where the rows allow), computes each token's
+// (A, B, VLI) as a 16-bit word in registers, and stores the tile in
+// shared memory, one row of SPAN tokens a thread, rows padded by 16 bytes
+// so that a warp's 16-byte reads of eight rows hit distinct banks (no
+// transpose in device memory).  Each thread walks its row with two states
+// a 32-bit word, f(0) and f(30), one DPX max of three 16-bit pairs
+// (__vimax3_u16x2) a token; from the first 8-token chunk entered with
+// f(0) == f(30) on, it writes each token's order over its parameter.  A
+// row that never collapses with a VLI token in it walks again with its
+// map at all 31 orders (16 words); a row without one is the identity.
+// The block composes its rows into the tile's aggregate: a constant is
+// published at once as the tile's inclusive order, which cuts the chain;
+// otherwise the identity or the 31-byte map, and then a single-pass
+// decoupled look-back (Merrill and Garland) by one warp over the
+// predecessors' status words (release and acquire, the maps composed by
+// shuffles) gives the tile's entry order, and its inclusive one is
+// published.  Rows whose entry comes from a constant row earlier in the
+// tile replay their first chunks while the look-back runs; the others
+// after it.  Last, the orders leave as int32, 16 bytes a thread.
 //
-// The work is O(R * 31) where a composition scan over the blocks is
-// O(R * 31 * log R), and the launches are 3 whatever N and nblk are.
+// The status words and ticket live in a scratch the wrapper zeroes once
+// a device and stream; the block that finishes last clears them for the
+// next call.  Offsets are int64: N * T may pass 2^31.
 #include "common.cuh"
 
-constexpr int SEG = 256;       // block columns a segment (threads a block)
-constexpr int MAP = 32;        // bytes a map: 31 states and a spare lane
-constexpr int ROWW = 9;        // words a shared map row (36 bytes: 9 is
-                               // odd, so a warp's row writes miss no bank)
-constexpr int CHUNK = 512;     // aggregates a frame walk stages at once
-constexpr int ENTRY_THREADS = 256;
-constexpr int UNROLL = 8;      // tokens whose loads are issued together
+constexpr int THREADS = 128;          // threads a tile
+constexpr int SPAN = 128;             // tokens a thread's row
+constexpr int CHUNK = 8;              // tokens a 16-byte shared word
+constexpr int TILE = THREADS * SPAN;  // tokens a tile
+constexpr int ROW = SPAN / CHUNK + 1; // 16-byte words a row: one of pad
+constexpr int UNROLL = 8;             // loads a thread keeps in flight
+constexpr unsigned VLI = 1u << 11;    // a token's word: A | B << 5 | VLI
+constexpr unsigned IDENT = 32u << 5;  // a token that is no VLI value
+// Tile status kinds, in bits 0-1 (0: not published); an inclusive order
+// in bits 2-6.
+constexpr unsigned INC = 1, AGG_ID = 2, AGG_MAP = 3;
 
-// One active token on two states a word (16-bit halves):
-// max(s, a + (s >= b), 2) - 2.  States stay below 32, so a + (s >= b) <=
-// 32 and the result <= 30: the clamp at 30 never binds.  s >= b is the
-// top bit of (s | 0x8000) - b in each half (no borrow crosses halves).
-__device__ __forceinline__ void step_map(unsigned (&m)[MAP / 2], int v) {
-  if (v <= 0) return;
-  const unsigned p = (unsigned)(v - 1);
-  const unsigned aa = (p & 31u) * 0x00010001u;
-  const unsigned bb = ((p >> 5) & 31u) * 0x00010001u;
-#pragma unroll
-  for (int k = 0; k < MAP / 2; ++k) {
-    const unsigned ge = (((m[k] | 0x80008000u) - bb) >> 15) & 0x00010001u;
-    m[k] = __vimax3_u16x2(m[k], aa + ge, 0x00020002u) - 0x00020002u;
-  }
+// A token's word from its value and flag (tokens.py:_vli_ab less its +1
+// bias: 0 there is IDENT here).
+__device__ __forceinline__ unsigned token_word(int v, bool vli) {
+  if (!vli) return IDENT;
+  const int a = v >= 1 ? 31 - __clz(v) : 0;
+  const int rem = (int)((2u << a) - (unsigned)v);
+  const int b = rem <= 1 ? 0 : 32 - __clz(rem - 1);
+  return (unsigned)a | (unsigned)b << 5 | VLI;
 }
 
-__device__ __forceinline__ int step_state(int s, int v) {
-  if (v <= 0) return s;
-  const unsigned p = (unsigned)(v - 1);
-  const int a = (int)(p & 31u), b = (int)((p >> 5) & 31u);
-  return min(max(max(s, a + (s >= b)) - 2, 0), 30);
+// One token (its word in both 16-bit halves of w2) on two orders a word:
+// s -> max(s, a + (s >= b), d) - d with d = 2 for a VLI token (the max
+// with 2 is the clamp at 0) and, for another, a = 0, b = 32, d = 0: the
+// identity.  Orders stay below 32, so a + (s >= b) <= 32 and the result
+// <= 30: the clamp at 30 never binds.  s >= b is the top bit of
+// (s | 0x8000) - b in each half (no borrow crosses halves).
+__device__ __forceinline__ unsigned step(unsigned m, unsigned w2) {
+  const unsigned aa = w2 & 0x001F001Fu;
+  const unsigned bb = (w2 >> 5) & 0x003F003Fu;
+  const unsigned dd = (w2 >> 10) & 0x00020002u;
+  const unsigned ge = (((m | 0x80008000u) - bb) >> 15) & 0x00010001u;
+  return __vimax3_u16x2(m, aa + ge, dd) - dd;
 }
 
-// Frame f, segment j of CUDA block g; the segment's column count.
-struct Seg {
-  int64_t r0;  // first block column
-  int cnt;
-  __device__ Seg(int g, int nblk, int nseg) {
-    const int f = g / nseg, j = g % nseg;
-    r0 = (int64_t)f * nblk + (int64_t)j * SEG;
-    cnt = min(SEG, nblk - j * SEG);
-  }
+// The low and the high token word of a shared 32-bit word, in both halves.
+__device__ __forceinline__ unsigned lo2(unsigned q) {
+  return __byte_perm(q, 0, 0x1010);
+}
+__device__ __forceinline__ unsigned hi2(unsigned q) {
+  return __byte_perm(q, 0, 0x3232);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+struct Tile {
+  uint4 rows[THREADS * ROW];             // token words, then orders
+  unsigned char maps[THREADS][32];       // general rows' maps
+  unsigned char agg[32];                 // a map on its way to or from L2
+  unsigned char cval[THREADS];           // constant rows' exit orders
+  unsigned cmask[THREADS / 32];          // rows whose map is a constant
+  unsigned gmask[THREADS / 32];          // rows with a general map
+  unsigned ticket;
+  int entry;                             // the tile's entry order
+  int last;                              // this block finished last
 };
 
-__global__ void __launch_bounds__(SEG) vli_maps_kernel(
-    const int* __restrict__ x, unsigned char* __restrict__ maps,
-    unsigned char* __restrict__ agg, int tb, int64_t R, int nblk,
-    int nseg) {
-  __shared__ unsigned smap[SEG * ROWW];
-  const Seg seg(blockIdx.x, nblk, nseg);
-  const int i = threadIdx.x;
-  if (i < seg.cnt) {
-    const int64_t r = seg.r0 + i;
-    unsigned m[MAP / 2];  // word k: states 2k (low half) and 2k + 1
-#pragma unroll
-    for (int k = 0; k < MAP / 2; ++k) m[k] = 0x00010000u + 0x00020002u * k;
-    const int* col = x + r;
-    int t = 0;
-    for (; t + UNROLL <= tb; t += UNROLL) {
-      int v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(col + (t + u) * R);
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) step_map(m, v[u]);
+// Applies the general maps of rows [from, to) to s, in row order.
+__device__ __forceinline__ int through(const Tile& sh, int s, int from,
+                                       int to) {
+  for (int w = from >> 5; w <= (to - 1) >> 5 && from < to; ++w) {
+    unsigned m = sh.gmask[w];
+    if (w == from >> 5) m &= ~0u << (from & 31);
+    if (w == (to - 1) >> 5) m &= ~0u >> (31 - ((to - 1) & 31));
+    while (m) {
+      s = sh.maps[w * 32 + __ffs(m) - 1][s];
+      m &= m - 1;
     }
-    for (; t < tb; ++t) step_map(m, __ldg(col + t * R));
-    unsigned w[MAP / 4];  // a byte a state: the low bytes of two words
-#pragma unroll
-    for (int k = 0; k < MAP / 4; ++k)
-      w[k] = __byte_perm(m[2 * k], m[2 * k + 1], 0x6420);
-    uint4* dst = (uint4*)(maps + r * MAP);
-    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-#pragma unroll
-    for (int k = 0; k < MAP / 4; ++k) smap[i * ROWW + k] = w[k];
   }
-  __syncthreads();
-  if (i < MAP) {
-    const unsigned char* sb = (const unsigned char*)smap;
-    int s = i;
-    for (int c = 0; c < seg.cnt; ++c) s = sb[c * ROWW * 4 + s];
-    agg[(int64_t)blockIdx.x * MAP + i] = (unsigned char)s;
+  return s;
+}
+
+// The last row below t whose map is a constant, or -1.
+__device__ __forceinline__ int last_const(const Tile& sh, int t) {
+  for (int w = (t - 1) >> 5; w >= 0 && t > 0; --w) {
+    unsigned m = sh.cmask[w];
+    if (w == (t - 1) >> 5) m &= ~0u >> (31 - ((t - 1) & 31));
+    if (m) return w * 32 + 31 - __clz(m);
+  }
+  return -1;
+}
+
+// Replays the first ``chunks`` chunks of a row from order s, writing each
+// token's order over its word.
+__device__ __forceinline__ void replay(uint4* row, int chunks, int s) {
+  unsigned m = (unsigned)s * 0x00010001u;
+  for (int c = 0; c < chunks; ++c) {
+    const uint4 q = row[c];
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+    unsigned o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned a = m & 0xFFFFu;
+      m = step(m, lo2(w[k]));
+      o[k] = a | (m & 0xFFFFu) << 16;
+      m = step(m, hi2(w[k]));
+    }
+    row[c] = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
-__global__ void __launch_bounds__(ENTRY_THREADS) vli_entry_kernel(
-    const unsigned char* __restrict__ agg,
-    unsigned char* __restrict__ seg_in, int nseg) {
-  __shared__ uint4 sagg[CHUNK * MAP / 16];
-  const int64_t base = (int64_t)blockIdx.x * nseg;
-  const uint4* src = (const uint4*)(agg + base * MAP);
-  const unsigned char* sb = (const unsigned char*)sagg;
-  int s = 0;  // thread 0's state entering the next segment
-  for (int j0 = 0; j0 < nseg; j0 += CHUNK) {
-    const int n = min(CHUNK, nseg - j0);
-    for (int w = threadIdx.x; w < n * MAP / 16; w += ENTRY_THREADS)
-      sagg[w] = src[(int64_t)j0 * MAP / 16 + w];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int c = 0; c < n; ++c) {
-        seg_in[base + j0 + c] = (unsigned char)s;
-        s = sb[c * MAP + s];
+__global__ void __launch_bounds__(THREADS) vli_orders_kernel(
+    const int* __restrict__ val, int64_t val_row,
+    const unsigned char* __restrict__ vli, int64_t vli_row,
+    int* __restrict__ out, int64_t T, int tiles_per_frame, int vec,
+    unsigned* __restrict__ ctr, unsigned* __restrict__ status,
+    uint4* __restrict__ tile_maps) {
+  __shared__ Tile sh;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) sh.ticket = atomicAdd(&ctr[0], 1u);
+  __syncthreads();
+  const unsigned tile = sh.ticket;
+  const int64_t f = tile / tiles_per_frame;
+  const int j = (int)(tile % tiles_per_frame);
+  const int64_t t0 = (int64_t)j * TILE;
+  const int n = T - t0 < TILE ? (int)(T - t0) : TILE;  // tokens here
+  const int* vrow = val + f * val_row + t0;
+  const unsigned char* frow = vli + f * vli_row + t0;
+  int* orow = out + f * T + t0;
+  unsigned short* words = (unsigned short*)sh.rows;  // token x: (x / SPAN)
+                                                     // * ROW * 8 + x % SPAN
+
+  // 1. Stage the tile's token words.
+  if (vec & 1) {  // 16 bytes of values and 4 of flags: 4 tokens a load
+    for (int i0 = 0; i0 < TILE / 4 / THREADS; i0 += UNROLL) {
+      int4 v[UNROLL];
+      unsigned fl[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int x = 4 * (t + THREADS * (i0 + u));
+        v[u] = make_int4(0, 0, 0, 0);
+        fl[u] = 0;
+        if (x < n) {
+          v[u] = __ldg((const int4*)(vrow + x));
+          fl[u] = __ldg((const unsigned*)(frow + x));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int x = 4 * (t + THREADS * (i0 + u));
+        const unsigned p0 = token_word(v[u].x, fl[u] & 0xFFu);
+        const unsigned p1 = token_word(v[u].y, (fl[u] >> 8) & 0xFFu);
+        const unsigned p2 = token_word(v[u].z, (fl[u] >> 16) & 0xFFu);
+        const unsigned p3 = token_word(v[u].w, fl[u] >> 24);
+        *(uint2*)(words + (x / SPAN) * ROW * CHUNK + x % SPAN) =
+            make_uint2(p0 | p1 << 16, p2 | p3 << 16);
       }
     }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(SEG) vli_replay_kernel(
-    const int* __restrict__ x, const unsigned char* __restrict__ maps,
-    const unsigned char* __restrict__ seg_in, signed char* __restrict__ out,
-    int tb, int64_t R, int nblk, int nseg) {
-  __shared__ uint4 smaps[SEG * MAP / 16];
-  __shared__ unsigned char entry[SEG];
-  const Seg seg(blockIdx.x, nblk, nseg);
-  const int i = threadIdx.x;
-  const uint4* src = (const uint4*)(maps + seg.r0 * MAP);
-  for (int w = i; w < seg.cnt * MAP / 16; w += SEG) smaps[w] = src[w];
-  __syncthreads();
-  if (i == 0) {
-    const unsigned char* sb = (const unsigned char*)smaps;
-    int s = seg_in[blockIdx.x];
-    for (int c = 0; c < seg.cnt; ++c) {
-      entry[c] = (unsigned char)s;
-      s = sb[c * MAP + s];
+  } else {  // a token a load, any alignment
+    for (int i0 = 0; i0 < SPAN; i0 += UNROLL) {
+      int v[UNROLL];
+      bool fl[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int x = t + THREADS * (i0 + u);
+        v[u] = 0;
+        fl[u] = false;
+        if (x < n) {
+          v[u] = __ldg(vrow + x);
+          fl[u] = __ldg(frow + x) != 0;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int x = t + THREADS * (i0 + u);
+        words[(x / SPAN) * ROW * CHUNK + x % SPAN] =
+            (unsigned short)token_word(v[u], fl[u]);
+      }
     }
   }
   __syncthreads();
-  if (i >= seg.cnt) return;
-  const int64_t r = seg.r0 + i;
-  const int* col = x + r;
-  signed char* o = out + r;
-  int s = entry[i];
-  int t = 0;
-  for (; t + UNROLL <= tb; t += UNROLL) {
-    int v[UNROLL];
+
+  // 2. Walk the row with f(0) and f(30); orders from the first chunk
+  // entered with a constant map on.
+  uint4* row = sh.rows + t * ROW;
+  unsigned m = 30u << 16;
+  int known = 0;  // chunks before the constant suffix
+  unsigned any = 0;
+  for (int c = 0; c < SPAN / CHUNK; ++c) {
+    const uint4 q = row[c];
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+    const bool fixed = (m & 0xFFFFu) == (m >> 16);
+    known = fixed ? known : c + 1;
+    unsigned o[4];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(col + (t + u) * R);
+    for (int k = 0; k < 4; ++k) {
+      const unsigned a = m & 0xFFFFu;
+      m = step(m, lo2(w[k]));
+      o[k] = a | (m & 0xFFFFu) << 16;
+      m = step(m, hi2(w[k]));
+      any |= w[k];
+    }
+    if (fixed) row[c] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  const bool is_const = (m & 0xFFFFu) == (m >> 16);
+  const bool general = !is_const && (any & (VLI | VLI << 16));
+  if (is_const) sh.cval[t] = (unsigned char)m;
+  if (general) {  // the row's map at all 31 orders, two a word
+    unsigned mm[16];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      o[(t + u) * R] = (signed char)s;
-      s = step_state(s, v[u]);
+    for (int k = 0; k < 16; ++k) mm[k] = 0x00010000u + 0x00020002u * k;
+    for (int c = 0; c < SPAN / CHUNK; ++c) {
+      const uint4 q = row[c];
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned w2 = h ? hi2(w[k]) : lo2(w[k]);
+#pragma unroll
+          for (int s = 0; s < 16; ++s) mm[s] = step(mm[s], w2);
+        }
+      }
+    }
+    uint4* dst = (uint4*)sh.maps[t];
+    unsigned b[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      b[k] = __byte_perm(mm[2 * k], mm[2 * k + 1], 0x6420);
+    dst[0] = make_uint4(b[0], b[1], b[2], b[3]);
+    dst[1] = make_uint4(b[4], b[5], b[6], b[7]);
+  }
+  const unsigned cb = __ballot_sync(~0u, is_const);
+  const unsigned gb = __ballot_sync(~0u, general);
+  if (lane == 0) {
+    sh.cmask[warp] = cb;
+    sh.gmask[warp] = gb;
+  }
+  __syncthreads();
+
+  // 3. Warp 0: the tile's aggregate, its status, the look-back.
+  const int p = last_const(sh, t);
+  if (warp == 0) {
+    const int L = last_const(sh, THREADS);
+    // F(lane): the tile's map at entry order ``lane`` (a constant when a
+    // row's is).
+    const int F = through(sh, L >= 0 ? sh.cval[L] : lane, L + 1, THREADS);
+    const int F0 = __shfl_sync(~0u, F, 0), F30 = __shfl_sync(~0u, F, 30);
+    unsigned* mine = status + tile;
+    const bool inclusive = j == 0 || F0 == F30;
+    if (inclusive) {
+      if (lane == 0) st_release(mine, INC | (unsigned)F0 << 2);
+    } else {
+      const bool ident = __ballot_sync(~0u, F == lane) == ~0u;
+      if (!ident) {
+        sh.agg[lane] = (unsigned char)F;
+        __syncwarp();
+        if (lane == 0) {
+          tile_maps[2 * (int64_t)tile] = ((const uint4*)sh.agg)[0];
+          tile_maps[2 * (int64_t)tile + 1] = ((const uint4*)sh.agg)[1];
+          __threadfence();
+        }
+        __syncwarp();
+      }
+      if (lane == 0) st_release(mine, ident ? AGG_ID : AGG_MAP);
+    }
+    // The entry order, which row 0 needs whatever the tile's aggregate.
+    // H(lane): the order entering this tile from order ``lane`` entering
+    // the oldest predecessor read so far.  The frame's first tile
+    // publishes its inclusive order at once, so the walk ends there.
+    int e = 0, H = lane;
+    for (int64_t q = (int64_t)tile - 1; j > 0; --q) {
+      unsigned st = 0;
+      if (lane == 0) {
+        while ((st = ld_acquire(status + q)) == 0) __nanosleep(32);
+        if ((st & 3) == AGG_MAP) {
+          ((uint4*)sh.agg)[0] = __ldcg(tile_maps + 2 * q);
+          ((uint4*)sh.agg)[1] = __ldcg(tile_maps + 2 * q + 1);
+        }
+      }
+      st = __shfl_sync(~0u, st, 0);
+      __syncwarp();
+      if ((st & 3) == INC) {
+        e = __shfl_sync(~0u, H, (int)(st >> 2));
+        break;
+      }
+      if ((st & 3) == AGG_MAP) H = __shfl_sync(~0u, H, sh.agg[lane]);
+      __syncwarp();
+    }
+    if (!inclusive) {
+      const int inc = __shfl_sync(~0u, F, e);
+      if (lane == 0) st_release(mine, INC | (unsigned)inc << 2);
+    }
+    if (lane == 0) sh.entry = e;
+  }
+
+  // 4. Replay each row's first chunks from its entry order: rows after a
+  // constant row at once, the others once the look-back is done.
+  if (p >= 0 && t * SPAN < n)
+    replay(row, known, through(sh, sh.cval[p], p + 1, t));
+  __syncthreads();
+  if (p < 0 && t * SPAN < n) replay(row, known, through(sh, sh.entry, 0, t));
+  __syncthreads();
+
+  // 5. The orders out, as int32.
+  if (vec & 2) {  // T % 4 == 0: 16 bytes a store
+    for (int x = 4 * t; x < n; x += 4 * THREADS) {
+      const uint2 o = *(const uint2*)(words + (x / SPAN) * ROW * CHUNK +
+                                      x % SPAN);
+      *(int4*)(orow + x) = make_int4(o.x & 0xFFFF, o.x >> 16, o.y & 0xFFFF,
+                                     o.y >> 16);
+    }
+  } else {
+    for (int x = t; x < n; x += THREADS)
+      orow[x] = words[(x / SPAN) * ROW * CHUNK + x % SPAN];
+  }
+
+  // 6. The block that finishes last clears the statuses and counters.
+  if (t == 0) {
+    __threadfence();
+    sh.last = atomicAdd(&ctr[1], 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (sh.last) {
+    for (unsigned i = t; i < gridDim.x; i += THREADS) status[i] = 0;
+    if (t == 0) {
+      ctr[0] = 0;
+      ctr[1] = 0;
     }
   }
-  for (; t < tb; ++t) {
-    o[t * R] = (signed char)s;
-    s = step_state(s, __ldg(col + t * R));
-  }
 }
 
-static inline int segments(int nblk) { return (nblk + SEG - 1) / SEG; }
-
-static inline int64_t blocks(int64_t R, int nblk) {
-  return R / nblk * segments(nblk);
-}
-
-// x (tb, R) int32 -> maps (R, 32) and agg (R / nblk * nseg, 32) uint8.
-extern "C" int dwt_vli_maps(const void* x, void* maps, void* agg, int tb,
-                            int64_t R, int nblk, void* stream) {
-  if (nblk <= 0 || tb <= 0 || R % nblk) return (int)cudaErrorInvalidValue;
-  const int64_t g = blocks(R, nblk);
-  if (g == 0) return 0;
-  if (g > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  vli_maps_kernel<<<(unsigned)g, SEG, 0, (cudaStream_t)stream>>>(
-      (const int*)x, (unsigned char*)maps, (unsigned char*)agg, tb, R, nblk,
-      segments(nblk));
-  return (int)cudaGetLastError();
-}
-
-// agg (nframes * nseg, 32) -> seg_in (nframes * nseg,) uint8.
-extern "C" int dwt_vli_entry(const void* agg, void* seg_in, int64_t nframes,
-                             int nblk, void* stream) {
-  if (nblk <= 0) return (int)cudaErrorInvalidValue;
-  if (nframes == 0) return 0;
-  if (nframes > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  vli_entry_kernel<<<(unsigned)nframes, ENTRY_THREADS, 0,
-                     (cudaStream_t)stream>>>(
-      (const unsigned char*)agg, (unsigned char*)seg_in, segments(nblk));
-  return (int)cudaGetLastError();
-}
-
-// x (tb, R) int32, maps, seg_in -> out (tb, R) int8.
-extern "C" int dwt_vli_replay(const void* x, const void* maps,
-                              const void* seg_in, void* out, int tb,
-                              int64_t R, int nblk, void* stream) {
-  if (nblk <= 0 || tb <= 0 || R % nblk) return (int)cudaErrorInvalidValue;
-  const int64_t g = blocks(R, nblk);
-  if (g == 0) return 0;
-  if (g > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  vli_replay_kernel<<<(unsigned)g, SEG, 0, (cudaStream_t)stream>>>(
-      (const int*)x, (const unsigned char*)maps,
-      (const unsigned char*)seg_in, (signed char*)out, tb, R, nblk,
-      segments(nblk));
+// val (N, T) int32 at row stride val_row, vli (N, T) bool at vli_row ->
+// out (N, T) int32; scratch: 16 + 36 * cap zeroed bytes (two counters, a
+// 32-byte map and a 4-byte status a tile), cap >= the tiles.  vec: bit 0,
+// 16-byte loads (every row of both inputs 16-byte aligned); bit 1, 16-byte
+// stores (T % 4 == 0).
+extern "C" int dwt_vli_orders(const void* val, int64_t val_row,
+                              const void* vli, int64_t vli_row, void* out,
+                              int64_t nframes, int64_t T, void* scratch,
+                              int64_t cap, int vec, void* stream) {
+  if (nframes < 0 || T < 0 || cap < 0) return (int)cudaErrorInvalidValue;
+  if (nframes == 0 || T == 0) return 0;
+  const int64_t per = (T + TILE - 1) / TILE;
+  const int64_t tiles = nframes * per;
+  if (tiles > cap || per > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  unsigned char* s = (unsigned char*)scratch;
+  vli_orders_kernel<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)val, val_row, (const unsigned char*)vli, vli_row,
+      (int*)out, T, (int)per, vec, (unsigned*)s,
+      (unsigned*)(s + 16 + 32 * cap), (uint4*)(s + 16));
   return (int)cudaGetLastError();
 }

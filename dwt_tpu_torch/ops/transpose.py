@@ -4,10 +4,12 @@ Port of ``dwt_tpu/ops/pallas_transpose.py:transpose2d``: (R, C) -> (C, R)
 for int32, uint32 and int8, any R and C, with the JAX package's output
 dtypes: int32 -> int32, int8 -> int8, and uint32 -> int32 (the same bit
 patterns; ``torch.uint32`` has no arithmetic on the CPU, so the port
-carries such words as int32 anyway).  ``codec/tokens.py:_vli_orders``
-runs it twice a call (once a sub-batch of frames), around the VLI order
-scan's kernels (``ops/vli_scan.py``): the (N * nblk, TB) int32 transition
-parameters in, and the (TB, N * nblk) int8 orders back.
+carries such words as int32 anyway).  Like the JAX package's, it has no
+caller on the encode path: the VLI order scan (``ops/vli_scan.py``),
+which ran it twice a call around its kernels until it read the token
+arrays in place, no longer does; ``codec/tokens.py`` keeps the name for
+the benchmark, and ``chip_smoke.py`` holds it at the shapes the scan gave
+it.
 
 The CUDA source has two kernels: one element a thread through a 32x32
 shared tile (int32, and int8 shapes whose sides are not multiples of 16),

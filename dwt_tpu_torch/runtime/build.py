@@ -57,12 +57,9 @@ ENTRY_POINTS = {
     "dwt_transpose": (_P, _P, _L, _L, _I, _I, _P),
     # (tile, idx, out, bad, n, stream)
     "dwt_engine_probe": (_P, _P, _P, _P, _I, _P),
-    # (x, maps, agg, TB, R, nblk, stream)
-    "dwt_vli_maps": (_P, _P, _P, _I, _L, _I, _P),
-    # (agg, seg_in, nframes, nblk, stream)
-    "dwt_vli_entry": (_P, _P, _L, _I, _P),
-    # (x, maps, seg_in, out, TB, R, nblk, stream)
-    "dwt_vli_replay": (_P, _P, _P, _P, _I, _L, _I, _P),
+    # (val, val_row, vli, vli_row, out, nframes, T, scratch, cap, vec,
+    #  stream)
+    "dwt_vli_orders": (_P, _L, _P, _L, _P, _L, _L, _P, _L, _I, _P),
     # (src, src_u8, colour, src_frame, src_row, coeff, co_frame, co_row, ll,
     #  ll_frame, ll_row, n, h, w, C, bp, stream)
     "dwt_lift_level": (_P, _I, _I, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I,

@@ -370,13 +370,15 @@ def _streams(size) -> list:
 
 
 def _launches() -> list:
-    """The encode kernels' launch counts, then the scatter kernel's."""
+    """The encode kernels' launch counts, then the scatter kernel's.  The
+    transpose (kernel 6) is not among them: no encode launches it, and
+    its own configuration holds it."""
     from .ops import (compact, hilbert_gather, hilbert_scatter, lifting,
-                      pack, plane_stats, transpose, vli_scan)
+                      pack, plane_stats, vli_scan)
 
     return [compact.compact_tokens.launches, compact.scatter_refbits.launches,
             hilbert_gather.hilbert_gather.launches, pack.pack_words.launches,
-            transpose.transpose2d.launches, vli_scan.vli_orders.launches,
+            vli_scan.vli_orders.launches,
             lifting.forward_transform.launches,
             plane_stats.plane_stats.launches,
             hilbert_scatter.hilbert_scatter.launches]

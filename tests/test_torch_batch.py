@@ -30,7 +30,7 @@ KINDS = ("flat", "noise", "mixed", "noise", "flat")
 # Frames a batch -> frames a sub-batch (None: the default bound).
 SUB = {1: None, 3: 3, 5: 2}
 KERNELS = ("hilbert_gather", "compact_tokens", "pack_words",
-           "scatter_refbits", "transpose2d", "vli_orders")
+           "scatter_refbits", "vli_orders")
 
 
 def _frames(name: str, n: int) -> np.ndarray:
@@ -54,10 +54,11 @@ def _bound(monkeypatch, name: str, n: int) -> None:
 
 def _spy(monkeypatch) -> dict:
     """Every kernel wrapper's calls (name -> list of argument tuples, the
-    tensors cloned: kernel B works in place) through the codec modules."""
+    tensors cloned: kernel B works in place) through the codec modules,
+    and the transpose's, which the encode no longer calls."""
     from dwt_tpu_torch.codec import emit, stage1, tokens
 
-    calls = {k: [] for k in KERNELS}
+    calls = {k: [] for k in KERNELS + ("transpose2d",)}
     for mod, name in ((stage1, "hilbert_gather"), (tokens, "compact_tokens"),
                       (tokens, "transpose2d"), (tokens, "vli_orders"),
                       (emit, "pack_words"),
@@ -82,7 +83,7 @@ def test_batch_streams_equal_jax_and_single(monkeypatch, spied, name, n):
     """``encode_raw``'s payloads and layer ends equal the JAX package's
     vmapped batch encoder's exactly, and each payload equals the port's
     single-stream encoder's; each kernel wrapper is called once a
-    sub-batch (the VLI scan's transpose twice), not once a frame."""
+    sub-batch, not once a frame, and the transpose never."""
     from dwt_tpu.codec import tiled as jt
     from dwt_tpu_torch.codec import encoder, tiled
 
@@ -92,7 +93,7 @@ def test_batch_streams_equal_jax_and_single(monkeypatch, spied, name, n):
     payloads, ends = tiled.BatchEncoder(w, h, c, "cpu").encode_raw(imgs)
     nsub = -(-n // (SUB[n] or n))
     assert {k: len(v) for k, v in spied.items()} == {
-        k: nsub * (2 if k == "transpose2d" else 1) for k in KERNELS}
+        k: 0 if k == "transpose2d" else nsub for k in spied}
     jp, je = jt.BatchEncoder(w, h, c).encode_raw(imgs)
     assert payloads == jp
     assert ends.dtype == np.int64 and np.array_equal(ends, np.asarray(je))
@@ -136,8 +137,7 @@ def batched():
                 singles.append(_pipeline(enc, img[None], run[2]))
                 single_calls.append({k: v[before[k]:]
                                      for k, v in calls.items()})
-            batch_calls = {k: v[:1 + (k == "transpose2d")]
-                           for k, v in calls.items()}
+            batch_calls = {k: v[:1] for k, v in calls.items()}
         out[name] = run, singles, batch_calls, single_calls
     return out
 
@@ -166,8 +166,7 @@ def test_batch_intermediates_equal_single(batched, name):
 def _split_plain(name, kernel, args, singles_args):
     """The batched call's plain version, cut into frames, and each
     frame's own plain call."""
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
-                                   vli_scan)
+    from dwt_tpu_torch.ops import compact, hilbert_gather, pack, vli_scan
 
     n = len(singles_args)
     if kernel == "hilbert_gather":
@@ -190,19 +189,10 @@ def _split_plain(name, kernel, args, singles_args):
         return list(got.reshape(n, -1)), [
             compact.scatter_refbits_plain(a[0], a[1], a[2].clone())
             for a in singles_args]
-    if kernel == "vli_orders":  # frame f's blocks: columns f * nblk ...
-        x, nblk = args
-        got = vli_scan.vli_orders_plain(x, nblk)
-        return list(got.reshape(got.shape[0], n, nblk).transpose(0, 1)), [
-            vli_scan.vli_orders_plain(*a) for a in singles_args]
-    # The VLI scan's transposes: frame f's blocks are rows f * nblk ...
-    # of the int32 input and columns of the int8 one.
-    got = transpose.transpose2d_plain(args[0])
-    if args[0].dtype == torch.int32:
-        return list(got.reshape(got.shape[0], n, -1).transpose(0, 1)), [
-            transpose.transpose2d_plain(a[0]) for a in singles_args]
-    return list(got.reshape(n, -1, got.shape[1])), [
-        transpose.transpose2d_plain(a[0]) for a in singles_args]
+    # the VLI order scan: frame f's tokens are row f
+    got = vli_scan.vli_orders_plain(*args)
+    return list(got), [vli_scan.vli_orders_plain(*a)[0]
+                       for a in singles_args]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -218,6 +208,25 @@ def test_batch_plain_equals_per_frame(batched, name, kernel):
         assert len(got) == len(want) == 5
         for i, (g, w_) in enumerate(zip(got, want)):
             assert g.dtype == w_.dtype and torch.equal(g, w_), (i, j)
+
+
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_batch_vli_orders_read_in_place(batched, name):
+    """The sub-batch's VLI order scan gets the token finisher's arrays as
+    they lie, each frame's row followed by its spare slot (row stride
+    padded_T + 1), and no transpose runs; its orders are the plain
+    version's on those arrays."""
+    from dwt_tpu_torch.ops import vli_scan
+
+    run, _, batch_calls, single_calls = batched[name]
+    padded_T, tv, tf, orders = run[2], run[3], run[5], run[6]
+    assert tv.stride(0) == tf.stride(0) == padded_T + 1
+    (val, vli), = batch_calls["vli_orders"]
+    assert torch.equal(val, tv) and torch.equal(vli, tf)
+    assert val.dtype == torch.int32 and vli.dtype == torch.bool
+    assert batch_calls["transpose2d"] == []
+    assert all(s["transpose2d"] == [] for s in single_calls)
+    assert torch.equal(orders, vli_scan.vli_orders_plain(tv, tf))
 
 
 def test_sub_batch_int32_bound_raises():

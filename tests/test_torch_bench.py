@@ -118,8 +118,9 @@ def test_kernel_byte_counts_on_the_codecs_calls():
     """The counter reads every kernel of the encode and decode paths and
     counts the same bytes whatever the kernel: on the CPU the wrappers run
     their plain versions, and the counts still follow the call's data.
-    The profiled pass's marks before each kernel call leave the stream as
-    it was."""
+    Kernel 6 (``transpose``) is on neither path: the VLI order scan reads
+    the token arrays in place.  The profiled pass's marks before each
+    kernel call leave the stream as it was."""
     from bench_torch import measure
     from dwt_tpu_torch.codec import decoder, encoder
 
@@ -128,7 +129,7 @@ def test_kernel_byte_counts_on_the_codecs_calls():
     with measure.kernel_bytes(torch, acc):
         s = encoder.encode(img, device="cpu")
         decoder.decode(s, device="cpu")
-    assert set(acc) == set(kernels.KERNELS)
+    assert set(acc) == set(kernels.KERNELS) - {"transpose"}
     assert all(n > 0 for n in acc.values())
     again, before = {}, measure.launches()
     with measure.kernel_bytes(torch, again), measure.marked(torch):

@@ -359,7 +359,7 @@ def test_encoder_on_card_equals_cpu(cuda, w, h, c, kind):
     got = encoder.Encoder(w, h, c).encode(img)
     assert got == encoder.Encoder(w, h, c, device="cpu").encode(img)
     moved = [f.launches - b for f, b in zip(fns, before)]
-    assert moved == [1, 1, 1, 1, 2, 3], moved
+    assert moved == [1, 1, 1, 1, 0, 1], moved
 
 
 @pytest.mark.parametrize("w,h,c,sub", [(8, 8, 1, None), (9, 8, 3, None),
@@ -524,50 +524,87 @@ def test_int8_transpose_routes(cuda, shape, vec):
     assert transpose.transpose2d.launches == before + 1
 
 
-def _vli_params(rng, tb, r, kind, cuda):
-    """(tb, r) int32 transition parameters on the card: the encoder's
-    (``_vli_ab`` of random values, 60 % of them VLI tokens), or any
-    (a, b) pair, 0 and values past 1024."""
-    from dwt_tpu_torch.codec import tokens
+def _vli_tokens(rng, n, T, kind, cuda, stride=0):
+    """(n, T) int32 values and bool VLI flags on the card, each row at
+    ``stride`` (T when 0): the encoder's (60 % VLI tokens), any int32
+    values, values of 2^30 and more, no VLI token, or one in a hundred."""
+    stride = stride or T
+    if kind == "any":
+        val = rng.integers(-2**31, 2**31, (n, stride))
+    elif kind == "largest":
+        val = rng.integers(2**30, 2**31, (n, stride))
+    else:
+        val = rng.integers(0, 2**20, (n, stride)) \
+            >> rng.integers(0, 20, (n, stride))
+    p = {"inactive": 0.0, "sparse": 0.01}.get(kind, 0.6)
+    vli = rng.random((n, stride)) < p
+    return (torch.as_tensor(val.astype(np.int32), device=cuda)[:, :T],
+            torch.as_tensor(vli, device=cuda)[:, :T])
 
-    if kind == "encoder":
-        val = torch.as_tensor((rng.integers(0, 2**20, tb * r)
-                               >> rng.integers(0, 20, tb * r))
-                              .astype(np.int32), device=cuda)
-        vli = torch.as_tensor(rng.random(tb * r) < 0.6, device=cuda)
-        return tokens._vli_ab(val, vli).reshape(tb, r).contiguous()
-    x = rng.integers(-3, 1026, (tb, r))
-    x[rng.random((tb, r)) < 0.001] = 2**31 - 1
-    return torch.as_tensor(x.astype(np.int32), device=cuda)
 
-
-@pytest.mark.parametrize("tb,nblk,n,kind", [
-    (128, 245760, 1, "encoder"),   # the 4K frame's scan
-    (128, 61440, 7, "encoder"),    # 7 frames of a quarter of its blocks:
-                                   # a 1080p sub-batch of the batch mode
-    (64, 97, 3, "any"), (128, 1000, 2, "any"), (16, 257, 1, "any"),
-    (1, 5, 3, "any"), (32, 511, 2, "encoder")])
-def test_vli_kernels_equal_plain(cuda, tb, nblk, n, kind):
-    """The VLI order scan's three kernels against its plain version on the
-    same CUDA tensors, exact, dtype and shape included, at the 4K and the
-    batch shapes and at ragged ones (segments of 256 block columns cut
-    short, blocks of fewer tokens); three launches a call."""
+@pytest.mark.parametrize("n,T,kind,stride", [
+    (1, 31_457_280, "encoder", 0),   # the 4K frame's tokens
+    (7, 7_864_320, "encoder", 7_864_321),  # a 1080p sub-batch of the batch
+                                           # mode, rows as the finisher
+                                           # leaves them
+    (7, 7_864_320, "encoder", 0),
+    (3, 2 * 16384 + 100, "any", 0), (1, 5, "encoder", 0),
+    (5, 16384 + 4, "largest", 0), (2, 100_003, "encoder", 100_011),
+    (4, 3 * 16384, "inactive", 0), (3, 40 * 16384 + 8, "sparse", 0),
+    (2, 16384 - 4, "encoder", 16384)])
+def test_vli_kernels_equal_plain(cuda, n, T, kind, stride):
+    """The VLI order scan's kernel against its plain version on the same
+    CUDA tensors, exact, dtype and shape included: at the 4K and the
+    batch shapes and at ragged ones (token counts that are no multiple of
+    the tile or of 4, 1-7 frames, rows at a stride past their length);
+    one launch a call."""
     from dwt_tpu_torch.ops import vli_scan
 
-    x = _vli_params(np.random.default_rng(nblk), tb, n * nblk, kind, cuda)
+    val, vli = _vli_tokens(np.random.default_rng(T + n), n, T, kind, cuda,
+                           stride)
     before = vli_scan.vli_orders.launches
-    got = vli_scan.vli_orders(x, nblk)
-    assert vli_scan.vli_orders.launches == before + 3
-    want = vli_scan.vli_orders_plain(x, nblk)
+    got = vli_scan.vli_orders(val, vli)
+    assert vli_scan.vli_orders.launches == before + 1
+    want = vli_scan.vli_orders_plain(val, vli)
     torch.cuda.synchronize()
-    assert got.dtype == want.dtype == torch.int8
-    assert got.shape == want.shape == x.shape and torch.equal(got, want)
-    assert kind != "encoder" or int(got.max()) > 3
+    assert got.dtype == want.dtype == torch.int32
+    assert got.shape == want.shape == (n, T) and torch.equal(got, want)
+    assert kind not in ("encoder", "largest") or int(got.max()) > 3
+
+
+def test_vli_kernel_past_int32_indices(cuda):
+    """Two frames of 2^30 + 2^20 tokens (more than 2^31 in all, and more
+    tiles than the scratch first holds): VLI tokens only in a window past
+    index 2^31, so the orders are 0 before it, the plain version's of the
+    window inside it, and its last order after it."""
+    from dwt_tpu_torch.ops import vli_scan
+
+    T, w0, wn = 2**30 + 2**20, 2**30, 500_000
+    free = torch.cuda.mem_get_info()[0]
+    if free < 9 * 2 * T + 2**30:
+        pytest.skip(f"needs {9 * 2 * T + 2**30} bytes free, {free} are")
+    val = torch.zeros((2, T), dtype=torch.int32, device=cuda)
+    vli = torch.zeros((2, T), dtype=torch.bool, device=cuda)
+    wv, wf = _vli_tokens(np.random.default_rng(2), 1, wn, "encoder", cuda)
+    val[1, w0:w0 + wn], vli[1, w0:w0 + wn] = wv[0], wf[0]
+    got = vli_scan.vli_orders(val, vli)
+    want = vli_scan.vli_orders_plain(wv, wf)[0]
+    last = int(vli_scan.vli_orders_plain(
+        torch.cat([wv, wv[:, :1]], 1), torch.cat([wf, wf[:, :1] & False],
+                                                 1))[0, -1])
+    torch.cuda.synchronize()
+    assert not got[0].any() and not got[1, :w0].any()
+    assert torch.equal(got[1, w0:w0 + wn], want)
+    assert bool((got[1, w0 + wn:] == last).all()) and last > 3
 
 
 def test_vli_orders_launches_a_scan(cuda):
-    """One ``_vli_orders`` call on the card: two transposes and three
-    scan launches, whatever the frame count; orders equal the CPU's."""
+    """One ``_vli_orders`` call on the card: one launch of the scan's
+    kernel and no transpose, whatever the frame count, and the profiler
+    sees no other kernel in the call; orders equal the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from dwt_tpu_torch.codec import tokens
     from dwt_tpu_torch.ops import transpose, vli_scan
 
@@ -576,12 +613,20 @@ def test_vli_orders_launches_a_scan(cuda):
         val = (rng.integers(0, 2**20, (n, padded_T))
                >> rng.integers(0, 20, (n, padded_T))).astype(np.int32)
         vli = rng.random((n, padded_T)) < 0.6
-        fns = (transpose.transpose2d, vli_scan.vli_orders)
-        before = [f.launches for f in fns]
-        got = tokens._vli_orders(torch.as_tensor(val, device=cuda),
-                                 torch.as_tensor(vli, device=cuda), padded_T)
+        v, f = torch.as_tensor(val, device=cuda), torch.as_tensor(vli,
+                                                                  device=cuda)
+        tokens._vli_orders(v, f, padded_T)  # the scratch made, if not yet
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(fns, before)] == [2, 3]
+        fns = (transpose.transpose2d, vli_scan.vli_orders)
+        before = [fn.launches for fn in fns]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = tokens._vli_orders(v, f, padded_T)
+            torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 1]
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        assert names and all("vli_orders_kernel" in k for k in names), names
         want = tokens._vli_orders(torch.as_tensor(val),
                                   torch.as_tensor(vli), padded_T)
         assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
@@ -608,9 +653,9 @@ def test_tiled_on_card_equals_cpu(cuda, budget_div):
 
 BATCH_KERNELS = ("hilbert_gather", "compact_tokens", "pack_words",
                  "scatter_refbits", "transpose2d", "vli_orders")
-# Launches of each wrapper a sub-batch: the VLI scan's two transposes and
-# its three kernels.
-BATCH_LAUNCHES = {"transpose2d": 2, "vli_orders": 3}
+# Launches of each wrapper a sub-batch where not one: the VLI order scan
+# reads the token arrays in place, and no transpose runs.
+BATCH_LAUNCHES = {"transpose2d": 0}
 
 
 def _batch_pairs():
@@ -637,12 +682,11 @@ def _batch_pairs():
 
 @pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
 def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
-    """Kernels 1-4 and 6 and the VLI scan as a 3-frame sub-batch calls
-    them (a flat, a noise and a mixed frame: three token counts, one with
-    no detail plane), each launched once for the sub-batch (the transpose
-    twice, the scan's three kernels once each) and each call held to its
-    plain version on the same CUDA tensors; the payloads and layer ends
-    equal the CPU's."""
+    """Kernels 1-4 and the VLI scan as a 3-frame sub-batch calls them (a
+    flat, a noise and a mixed frame: three token counts, one with no
+    detail plane), each launched once for the sub-batch (kernel 6 not at
+    all) and each call held to its plain version on the same CUDA
+    tensors; the payloads and layer ends equal the CPU's."""
     from dwt_tpu_torch.codec import tiled
 
     rng = np.random.default_rng(w + c)

@@ -395,9 +395,11 @@ def test_transpose_replay_equals_transpose(shape, vec):
 
 
 def test_vli_scan_transposes_by_words():
-    """The VLI scan's int8 (128, padded_T / 128) always takes the byte
-    kernel: every token bucket is a multiple of the pack block, 2,048; its
-    int32 transpose keeps the element kernel."""
+    """Kernel 6 at the shapes the VLI scan gave it before it read the
+    token arrays in place (``chip_smoke.py`` holds it there): the int8
+    (128, padded_T / 128) always takes the byte kernel, since every token
+    bucket is a multiple of the pack block, 2,048; the int32 transpose
+    keeps the element kernel."""
     from dwt_tpu_torch.codec.encoder import _bucket
     from dwt_tpu_torch.codec.tokens import VLI_BLOCK
     from dwt_tpu_torch.ops import transpose

@@ -1,8 +1,9 @@
-"""The port's 2-D transpose (kernel 6) and the VLI order scan that runs it,
-against the JAX package: ``dwt_tpu.ops.pallas_transpose.transpose2d`` in
-Pallas interpret mode on the cases of its own test, and
-``dwt_tpu.codec.encoder._vli_orders``.  Exact, output dtype included.  On
-the CPU the wrapper runs its plain PyTorch version."""
+"""The port's 2-D transpose (kernel 6) and the VLI order scan that ran it
+until the scan read the token arrays in place, against the JAX package:
+``dwt_tpu.ops.pallas_transpose.transpose2d`` in Pallas interpret mode on
+the cases of its own test, and ``dwt_tpu.codec.encoder._vli_orders``.
+Exact, output dtype included.  On the CPU each wrapper runs its plain
+PyTorch version."""
 
 import numpy as np
 import pytest
@@ -57,8 +58,8 @@ def test_transpose_refuses_other_inputs():
 
 @pytest.mark.parametrize("padded_T", [4096, 6144 + 64])
 def test_vli_orders_equal_jax(padded_T):
-    """Random VLI values and flags through the port's scan (two transposes)
-    and the JAX package's; 6208 tokens make blocks of 64."""
+    """Random VLI values and flags through the port's scan and the JAX
+    package's; 6208 tokens make the plain version's blocks 64 tokens."""
     import jax.numpy as jnp
 
     from dwt_tpu.codec import encoder as je
