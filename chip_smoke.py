@@ -75,7 +75,10 @@ seconds:
              whichever is larger), how its rows and tiles collapsed on
              the 4K tokens, and one whole 4K ``_vli_orders`` by CUDA
              events and by the host clock, in turns with the parent
-             tree's where ``--parent DIR`` names one; the tile engines'
+             tree's where ``--parent DIR`` names one; kernel 11, the
+             codeword pieces (one kernel on the 4K token arrays and step
+             tables), beside ``torch.cumsum`` of its int32 lengths as the
+             yardstick of its scan alone; the tile engines'
              probe as its one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
@@ -83,7 +86,13 @@ seconds:
              ``tools/stage1_split.py``: upload, colour and lifting,
              gather, statistics, schedule and carry; device busy time
              and idle share from torch.profiler, three readings; the
-             device-to-host and host-to-device copies of one); three
+             device-to-host and host-to-device copies of one; the CUDA
+             kernels of one ``_codeword_contribs``: kernel 11 and the
+             small ones of the step tables; the emit half by pass,
+             ``tools/emit_split.py``: the pieces, the zero fill and pack,
+             the bit partials, kernel B's meta, kernel B, the layer
+             boundaries, the host totals and the download, in turns with
+             the parent tree's where ``--parent DIR`` names one); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
              share of the tail; three warm tiled encodes (lossless and at
@@ -95,10 +104,11 @@ seconds:
              decode's calls (there also at other channel groups), kernel
              6 on its seeded tensors (the int8 one also by the element
              kernel), the VLI order scan's kernel, stage 1's three
-             kernels, and the forward transform launch by launch with
-             the levels each lifts (the scan and stage 1 also at the
-             batch's 7-frame shape in phase 9).  After the
-             timing phase, so that no profiler session runs before it.
+             kernels, kernel 11, and the forward transform launch by
+             launch with the levels each lifts (the scan, stage 1 and
+             kernel 11 also at the batch's 7-frame shape in phase 9).
+             After the timing phase, so that no profiler session runs
+             before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
              size 1: an NCCL process group of rank 0 on ``cuda:0`` (a free
              ``tcp://127.0.0.1`` port), so their all-gathers and
@@ -148,9 +158,11 @@ seconds:
              frames, the copies and the peak memory of one 7-frame
              sub-batch, stage 1 of a 7-frame sub-batch by pass, and each
              encode kernel's wrapper time at the 7-frame shape beside its
-             bound, stage 1's kernels and the VLI order scan's also by
-             torch.profiler (also in the
-             kernels' JSON: ``batch_launches``, ``batch_ms``,
+             bound, stage 1's kernels, the VLI order scan's and kernel
+             11's also by torch.profiler; the device-to-host copies of
+             one 7-frame ``emit_frames``, whose stream download must be
+             one; its emit half by pass, in turns with the parent's
+             (also in the kernels' JSON: ``batch_launches``, ``batch_ms``,
              ``batch_bound_ms``, ``batch_device_ms``).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
@@ -158,7 +170,8 @@ the two-rank run of phase 7 (it needs two cards), and prints no result
 lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
 phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
 DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
-with this one's.
+with this one's, and splits its emit half by pass in turns with this
+one's (phases 5 and 9).
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -258,6 +271,8 @@ INT32_OPS_PER_S = 67e12 / 4
 # operations each (compare, mask, add, max, saturating subtract), and the
 # replay's one state, 5 more.
 VLI_OPS_PER_TOKEN = 45
+CODEWORD_CHUNK = 2048  # slots a chunk sum of kernel 11
+CODEWORD_NAME = "codeword_kernel"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -286,7 +301,7 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
 # gives them.
 BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
-                 "scatter_refbits": 1, "vli_orders": 1}
+                 "scatter_refbits": 1, "vli_orders": 1, "codeword_pieces": 1}
 # Kernel 6, on no path: seeded tensors of the shapes the VLI order scan
 # gave it (the (nblk, 128) int32 parameters in, the int8 orders back) at
 # the 4K frame's token bucket and a 7-frame 1080p sub-batch's.
@@ -334,14 +349,15 @@ def max_abs_err(name: str, kernel_out, plain_out) -> int:
 
 class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
-    scan, the forward transform, the plane statistics and the tile
-    engines' probe), their sources, the TPU kernels (or, for the scan, the
-    transform and the statistics, the JAX code) they replace and the paths
-    (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch them."""
+    scan, the forward transform, the plane statistics, the codeword
+    pieces and the tile engines' probe), their sources, the TPU kernels
+    (or, for the scan, the transform, the statistics and the pieces, the
+    JAX code) they replace and the paths (``ENCODE_PATHS``,
+    ``DECODE_PATHS``) whose runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
-        from dwt_tpu_torch.ops import (compact, hilbert_gather,
+        from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
                                        hilbert_scatter, lifting, pack,
                                        plane_stats, transpose, vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
@@ -357,8 +373,8 @@ class Kernels:
                       (tokens, "compact_tokens"),
                       (emit, "pack_words"), (emit, "scatter_refbits"),
                       (decoder, "hilbert_scatter"),
-                      (tokens, "vli_orders"), (sharded, "hilbert_gather"),
-                      (halo, "dwt2d_fwd")]
+                      (tokens, "vli_orders"), (emit, "codeword_pieces"),
+                      (sharded, "hilbert_gather"), (halo, "dwt2d_fwd")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "forward_transform": (lifting.forward_transform,
@@ -376,6 +392,8 @@ class Kernels:
             "hilbert_scatter": (hilbert_scatter.hilbert_scatter,
                                 hilbert_scatter.hilbert_scatter_plain),
             "vli_orders": (vli_scan.vli_orders, vli_scan.vli_orders_plain),
+            "codeword_pieces": (codeword.codeword_pieces,
+                                codeword.codeword_pieces_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -420,6 +438,12 @@ class Kernels:
             ("vli_orders", vli_scan.vli_orders,
              "dwt_tpu_torch/csrc/vli_scan.cu",
              "dwt_tpu/codec/encoder.py:745", ENCODE_PATHS),
+            # Kernel 11, the codeword pieces: one kernel a sub-batch.  No
+            # TPU kernel: it replaces the JAX package's XLA
+            # _codeword_contribs.
+            ("codeword_pieces", codeword.codeword_pieces,
+             "dwt_tpu_torch/csrc/codeword.cu",
+             "dwt_tpu/codec/encoder.py:874", ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -530,24 +554,27 @@ def kernel_events(torch, fn, match: str, n: int = 10,
     torch.profiler: the card's own time, without the host's launch time
     that ``time_ms`` includes.  None when the profiler records no such
     kernel, or a count of them other than ``per_call`` a call (where
-    given) or one that ``n`` calls cannot make: it dropped some."""
+    given) or one that ``n`` calls cannot make, in three sessions: it
+    dropped some."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and match in e.name),
-                key=lambda e: e.time_range.start)
-    if not ev or len(ev) % n or (per_call and len(ev) != per_call * n):
-        return None  # none, or some dropped by the profiler
-    return [(e.name, e.time_range.elapsed_us()) for e in ev]
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and match in e.name), key=lambda e: e.time_range.start)
+        if ev and not len(ev) % n and (not per_call
+                                       or len(ev) == per_call * n):
+            return [(e.name, e.time_range.elapsed_us()) for e in ev]
+    return None  # none, or some dropped by the profiler
 
 
 def kernel_ms(torch, fn, match: str, n: int = 10, per_call: int = 0) -> float:
@@ -783,7 +810,7 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
 
 
 def device_times(torch, scatter_4k, tiled_scatter, transposes,
-                 vli, stage1_kept, rows) -> None:
+                 vli, stage1_kept, codeword_args, rows) -> None:
     """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
@@ -831,6 +858,8 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
     progress("device: " + vli_device(torch, *vli, rows, "device_ms"))
     progress("device: stage 1 at 4K: " + stage1_device(torch, stage1_kept,
                                                       rows, "device_ms"))
+    progress("device: " + codeword_device(torch, codeword_args, rows,
+                                          "device_ms"))
 
 
 def vli_device(torch, val, vli, rows: list, key: str) -> str:
@@ -896,6 +925,17 @@ def as_finished(t):
     return buf[:, :t.shape[1]]
 
 
+def parent_module(root: str, name: str):
+    """Module ``name`` (as "codec.encoder") of the ``dwt_tpu_torch``
+    package of the checkout at ``root``, loaded once by
+    :func:`load_tree`."""
+    import importlib
+
+    if "parent_dwt_tpu_torch" not in sys.modules:
+        load_tree(root)
+    return importlib.import_module(f"parent_dwt_tpu_torch.{name}")
+
+
 def load_tree(root: str):
     """``codec.tokens`` of the ``dwt_tpu_torch`` package of the checkout
     at ``root``, imported as ``parent_dwt_tpu_torch`` (its kernels built
@@ -957,6 +997,45 @@ def plane_stats_work(torch, args) -> tuple:
     return nbytes, ops
 
 
+def codeword_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 11 must spend on its arguments:
+    each slot's value, raw length, order (4 bytes each) and flag (1) read
+    once, its offset, word index and three pieces (4 bytes each) written
+    once, each 2048-slot chunk sum written once and the (N, S) step tables
+    read once.  Its few integer operations a slot take less time at the
+    INT32 rate than those bytes, and are not counted."""
+    val, site = args[0], args[4]
+    nchunk = val.shape[0] * -(-val.shape[1] // CODEWORD_CHUNK)
+    return 33 * val.numel() + 4 * nchunk + 8 * site.numel(), 0
+
+
+def cumsum_line(torch, args) -> str:
+    """Kernel 11's yardstick for its scan alone: ``torch.cumsum`` of the
+    call's (N, T) int32 codeword lengths along the rows, by CUDA events."""
+    from dwt_tpu_torch.ops import codeword
+
+    val, raw, vli, orders = args[:4]
+    v, s = val.long(), orders.long()
+    k = (codeword._ilog2(v + (torch.ones_like(s) << s)) - s).clamp(min=0)
+    lengths = torch.where(vli, 2 * k + s + 1, raw.long()).to(torch.int32)
+    ms = time_ms(torch, lambda: torch.cumsum(lengths, dim=1))
+    return f"torch.cumsum of its int32 lengths alone {ms:.4f} ms"
+
+
+def codeword_device(torch, args, rows: list, key: str) -> str:
+    """Kernel 11's device time (torch.profiler) on its kept call ``args``,
+    into ``rows[...][key]``; returns a line of it beside its bound."""
+    from dwt_tpu_torch.ops import codeword
+
+    ms = kernel_ms(torch, lambda: codeword.codeword_pieces(*args),
+                   CODEWORD_NAME, per_call=1)
+    bound, by = bound_of(*codeword_work(torch, args))
+    next(r for r in rows if r["name"] == "codeword_pieces")[key] = ms
+    return (f"codeword_pieces {tuple(args[0].shape)} (row stride "
+            f"{args[0].stride(0)}): {ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{by}, share {bound / ms:.2f}")
+
+
 def kernel_work(torch, name: str, args) -> tuple:
     """(bytes, integer operations) of one call of an encode kernel: the
     operations count only for the VLI order scan and the plane
@@ -964,6 +1043,8 @@ def kernel_work(torch, name: str, args) -> tuple:
     bytes."""
     if name == "vli_orders":
         return vli_work(torch, *args)
+    if name == "codeword_pieces":
+        return codeword_work(torch, args)
     if name == "forward_transform":
         return transform_work(torch, args)
     if name == "plane_stats":
@@ -1015,9 +1096,9 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
-                                   lifting, pack, plane_stats, transpose,
-                                   vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
+                                   hilbert_scatter, lifting, pack,
+                                   plane_stats, transpose, vli_scan)
 
     out = []
 
@@ -1259,6 +1340,22 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     progress("kernels: vli_orders on the 4K tokens: "
              + vli_collapse(torch, val, vli))
     vli_whole(torch, val, vli, parent)
+
+    # 8. kernel 11, the codeword pieces: one kernel on the 4K encode's
+    # (1, padded_T) token arrays and (1, S) step tables, held to its plain
+    # version (the eager int64 passes the encoder ran before).  No PyTorch
+    # call computes this function; torch.cumsum of the same int32 lengths
+    # times the scan alone, as a yardstick.
+    args = got["codeword_pieces"][0]
+    nbytes, ops = codeword_work(torch, args)
+    row("codeword_pieces", codeword.codeword_pieces(*args),
+        codeword.codeword_pieces_plain(*args),
+        time_ms(torch, lambda: codeword.codeword_pieces(*args)),
+        time_ms(torch, lambda: codeword.codeword_pieces_plain(*args), reps=3),
+        nbytes, None, ops)
+    progress(f"kernels: codeword_pieces {tuple(args[0].shape)}, "
+             f"{args[4].shape[1]} steps: {nbytes} bytes; "
+             + cumsum_line(torch, args))
     return out
 
 
@@ -1324,9 +1421,9 @@ def busy_ms(events, DeviceType) -> float:
     return busy / 1e3
 
 
-def copies(torch, fn) -> dict:
-    """The device-to-host ("DtoH") and host-to-device ("HtoD") copies of
-    one ``fn()``, counted from torch.profiler's device events."""
+def device_names(torch, fn) -> list:
+    """The names of the device events (kernels, copies, sets) of one
+    ``fn()``, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1335,7 +1432,13 @@ def copies(torch, fn) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def copies(torch, fn) -> dict:
+    """The device-to-host ("DtoH") and host-to-device ("HtoD") copies of
+    one ``fn()``, counted from torch.profiler's device events."""
+    names = device_names(torch, fn)
     return {d: sum(n.startswith(f"Memcpy {d}") for n in names)
             for d in ("DtoH", "HtoD")}
 
@@ -1346,7 +1449,7 @@ def encode_copies(torch, enc, img) -> dict:
     return copies(torch, lambda: enc.encode(img))
 
 
-def profile(torch, enc, img) -> None:
+def profile(torch, enc, img, parent: str | None) -> None:
     """Where a warm 4K encode spends its time: host-clock stage times
     (synchronised), then, from torch.profiler, the device's busy time (the
     union of its events' intervals) against the host wall time of the
@@ -1380,9 +1483,15 @@ def profile(torch, enc, img) -> None:
     ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     progress(f"profile: stage1 {ms[0]:.1f} ms, tokens {ms[1]:.1f} ms, "
              f"emit {ms[2]:.1f} ms (host clock, synchronised)")
+    nwords = emit._stream_words(pyr, C, padded_T)
+    progress("profile: one _codeword_contribs at 4K: " + contribs_kernels(
+        torch, lambda: emit._codeword_contribs(stats, tv, tr, tf, orders,
+                                               padded_T, nwords)))
     del lin, stats, tv, tr, tf, orders, vmag, com
     progress("profile: stage 1 at 4K by pass: " + stage1_split(torch, enc,
                                                                img[None]))
+    progress("profile: emit half at 4K by pass (tools/emit_split.py): "
+             + emit_splits(torch, enc, img[None], parent))
 
     readings = []
     for i in range(4):
@@ -1417,15 +1526,75 @@ def profile(torch, enc, img) -> None:
         f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
 
 
+def tool(name: str):
+    """The module ``tools/<name>.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def contribs_kernels(torch, fn) -> str:
+    """The CUDA kernels of one warm ``fn()``, an ``emit._codeword_contribs``
+    call, by torch.profiler: kernel 11 once, and the small kernels of the
+    (N, S) step tables, by name and count, their device time beside
+    kernel 11's; "not measured" where the profiler recorded no kernel 11
+    or more than one (it drops events in some sessions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in ev if CODEWORD_NAME in e.name]
+    if len(mine) != 1:
+        return (f"not measured ({len(mine)} {CODEWORD_NAME} events of "
+                f"{len(ev)})")
+    others: dict = {}
+    for e in ev:
+        if e is not mine[0]:
+            name = e.name.split("(")[0].split("<")[0].split()[-1][:40]
+            others[name] = others.get(name, 0) + 1
+    rest = sum(e.time_range.elapsed_us() for e in ev if e is not mine[0])
+    return (f"{len(ev)} CUDA kernels: {CODEWORD_NAME} x1 "
+            f"{mine[0].time_range.elapsed_us() / 1e3:.4f} ms; the step "
+            f"tables' {len(ev) - 1} {rest / 1e3:.4f} ms ("
+            + ", ".join(f"{k} x{n}" for k, n in others.items()) + ")")
+
+
+def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None) -> str:
+    """``tools/emit_split.py``'s split of one warm emit half of ``imgs``
+    (the means of three runs, each pass by the host clock between
+    synchronised marks and by CUDA events, and the unmarked emit half) on
+    this tree's encoder ``enc`` and, where ``parent`` names a checkout, on
+    its encoder of the same geometry, in turns (this tree, the parent,
+    the parent, this tree)."""
+    mod = tool("emit_split")
+    encs = {"this tree": enc}
+    order = ["this tree"]
+    if parent:
+        encs["parent"] = parent_module(parent, "codec.encoder").get_encoder(
+            enc.pyr.width, enc.pyr.height, enc.channels)
+        order = ["this tree", "parent", "parent", "this tree"]
+    out = []
+    for name in order:
+        res = mod.split(torch, encs[name],
+                        *mod.stage1(torch, encs[name], imgs), 3)
+        out.append(f"{name}: {mod.line(res)}")
+    return " | ".join(out)
+
+
 def stage1_split(torch, enc, imgs: np.ndarray) -> str:
     """``tools/stage1_split.py``'s split of one stage 1 of ``imgs``: the
     means of three runs, each pass by the host clock between synchronised
     marks and by CUDA events, beside the unmarked ``stage1_frames``."""
-    spec = importlib.util.spec_from_file_location(
-        "stage1_split", os.path.join(ROOT, "tools", "stage1_split.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    res = mod.split(torch, enc, imgs, 3)
+    res = tool("stage1_split").split(torch, enc, imgs, 3)
     return "; ".join(f"{k} {h:.2f} ms" + ("" if d is None else
                                          f" ({d:.2f} events)")
                      for k, (h, d) in res.items())
@@ -2178,7 +2347,57 @@ def batch_frames() -> np.ndarray:
             lambda s: random_image(BATCH_W, BATCH_H, C, s), range(BATCH_N))))
 
 
-def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
+def download_copies(torch, enc, imgs: np.ndarray, card: str) -> None:
+    """The device-to-host copies of one ``enc.emit_frames`` of ``imgs`` and
+    of its stream download (``Encoder._download`` on the words and totals
+    that call gave it, which must give the same payloads): the download
+    must be one copy, beside its gather on the card.  The profiler drops
+    every event of a session now and then (PERF.md §7): a session with no
+    device event is tried again, twice, and then reads "not measured"."""
+    from dwt_tpu_torch.codec import encoder
+
+    kept = {}
+    real = enc._download
+
+    def keep(words, totals):
+        kept.update(words=words, totals=totals)
+        return real(words, totals)
+
+    lin, stats = enc.stage1_frames(imgs)
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    enc._download = keep
+    try:
+        payloads = enc.emit_frames(lin, stats, padded_T)[0]
+    finally:
+        del enc._download
+    if enc._download(kept["words"], kept["totals"]) != payloads:
+        raise AssertionError("the download differs from emit_frames' "
+                             "payloads")
+
+    def d2h(fn):
+        for _ in range(3):
+            names = device_names(torch, fn)
+            if names:
+                return sum(n.startswith("Memcpy DtoH") for n in names), \
+                    len(names)
+        return None, 0
+
+    whole, _ = d2h(lambda: enc.emit_frames(lin, stats, padded_T))
+    down, events = d2h(lambda: enc._download(kept["words"], kept["totals"]))
+    if down is not None and down != 1:
+        raise AssertionError(f"the stream download of {len(imgs)} frames "
+                             f"made {down} device-to-host copies")
+    progress(f"profile: one emit_frames of {len(imgs)} frames: "
+             + ("not measured" if whole is None else str(whole))
+             + " device-to-host copies; its stream download alone "
+             + ("not measured (no device event in three profiler sessions)"
+                if down is None else f"1 copy of {events} device events")
+             + f" ({sum(len(p) for p in payloads)} bytes into the encoder's "
+             f"pinned buffer of {enc._landing.numel() * 4} bytes) on {card}")
+
+
+def batch_phase(torch, K: Kernels, rows: list, card: str,
+                parent: str | None) -> None:
     """Phase 9, the batch throughput mode (BASELINE config 4): 64 RGB
     1080p frames through ``BatchEncoder.encode_batch`` in sub-batches of
     ``MAX_PIXELS_PER_DISPATCH`` pixels (9 of 7 frames and 1 of 1), in
@@ -2270,11 +2489,12 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
     # kept call; the VLI order scan's tokens laid out again as the token
     # finisher leaves them: a kept call is a contiguous copy), beside its
     # bound.
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, lifting, pack,
-                                   plane_stats, vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
+                                   lifting, pack, plane_stats, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
+        "codeword_pieces": lambda a: codeword.codeword_pieces(*a),
         "forward_transform": lambda a: lifting.forward_transform(*a),
         "plane_stats": lambda a: plane_stats.plane_stats(*a),
         "hilbert_gather": lambda a: hilbert_gather.hilbert_gather(*a),
@@ -2290,6 +2510,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         kept = store[name][:1]
         if name == "vli_orders":
             kept = [tuple(as_finished(t) for t in kept[0])]
+        if name == "codeword_pieces":  # the finisher's three arrays
+            kept = [tuple(as_finished(t) for t in kept[0][:3])
+                    + kept[0][3:]]
         if name == "scatter_refbits":
             ms = sum(time_ms(torch, compact.scatter_refbits, setup=lambda a=a: (
                 a[0], a[1], a[2].clone(), a[3], a[4])) for a in kept)
@@ -2303,7 +2526,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
         plain = ""
         plains = {"vli_orders": vli_scan.vli_orders_plain,
                   "forward_transform": lifting.forward_transform_plain,
-                  "plane_stats": plane_stats.plane_stats_plain}
+                  "plane_stats": plane_stats.plane_stats_plain,
+                  "codeword_pieces": codeword.codeword_pieces_plain}
         if name in plains:
             plain = ", plain " + format(time_ms(torch, lambda: (
                 plains[name](*kept[0])), reps=3), ".3f") + " ms"
@@ -2319,6 +2543,15 @@ def batch_phase(torch, K: Kernels, rows: list, card: str) -> None:
              + vli_device(torch, val, vli, rows, "batch_device_ms"))
     progress(f"batch: vli_orders on a {sub}-frame sub-batch's tokens: "
              + vli_collapse(torch, val, vli))
+    cw = store["codeword_pieces"][0]
+    cw = tuple(as_finished(t) for t in cw[:3]) + cw[3:]
+    progress(f"device: at the batch of {sub} frames, "
+             + codeword_device(torch, cw, rows, "batch_device_ms")
+             + "; " + cumsum_line(torch, cw))
+    download_copies(torch, enc.enc, seven, card)
+    progress(f"profile: emit half of a {sub}-frame sub-batch by pass "
+             f"(tools/emit_split.py): "
+             + emit_splits(torch, enc.enc, seven, parent))
     progress(f"device: the forward transform by launch at the batch of {sub} "
              f"frames: " + lift_split(torch, frames[:sub]))
     del store
@@ -2408,7 +2641,8 @@ def main(argv: list) -> int:
                          parent)
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
                      transposes["4K"], got["vli_orders"][0],
-                     {k: got[k][0] for k in STAGE1_NAMES}, rows)
+                     {k: got[k][0] for k in STAGE1_NAMES},
+                     got["codeword_pieces"][0], rows)
     del got, tiled_scatter, transposes
     torch.cuda.empty_cache()
 
@@ -2421,7 +2655,7 @@ def main(argv: list) -> int:
         mps.append(inf["mps"])
     progress(f"timing: warm 4K encode {', '.join(f'{m:.2f}' for m in mps)} "
              f"MP/s on {card}")
-    profile(torch, enc, img)
+    profile(torch, enc, img, parent)
     mps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2451,7 +2685,7 @@ def main(argv: list) -> int:
     progress(f"entry points: phase 8 {time.perf_counter() - t0:.1f} s")
 
     # 9. the batch throughput mode: BASELINE config 4
-    batch_phase(torch, K, rows, card)
+    batch_phase(torch, K, rows, card, parent)
 
     # A time not measured (NaN: the profiler dropped the kernel's events)
     # prints as null.

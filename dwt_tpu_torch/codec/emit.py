@@ -5,11 +5,11 @@ Port of ``dwt_tpu/codec/encoder.py`` ``_codeword_contribs``,
 ``_pack_bits``, ``_bit_partials``, ``_kernel_b_meta``,
 ``_ref_bits_pallas`` (here :func:`_ref_bits`), ``_layer_boundaries``,
 ``_stage2_emit`` and ``_stream_words``.  Every function takes a leading
-frame axis (the JAX package's functions under ``jax.vmap``); the pack
-kernel and kernel B launch once for the N frames, whose word buffers lie
-end to end (frame f's words from f * nwords).  Stream words are int32
-tensors holding uint32 bit patterns (``torch.uint32`` has no add, shift or
-scatter); codeword arithmetic runs in int64 on values below 2^32.
+frame axis (the JAX package's functions under ``jax.vmap``); the codeword
+pieces' kernel (kernel 11), the pack kernel and kernel B launch once for
+the N frames, whose word buffers lie end to end (frame f's words from
+f * nwords).  Stream words and pieces are int32 tensors holding uint32
+bit patterns (``torch.uint32`` has no add, shift or scatter).
 """
 
 from __future__ import annotations
@@ -18,72 +18,42 @@ import torch
 
 from ..geometry import Pyramid
 from ..ops import compact, pack
+from ..ops.codeword import codeword_pieces
 from ..ops.compact import scatter_refbits
 from ..ops.pack import pack_words
-from .stage1 import PMAX, _I32, _Segs, _ilog2, segs_for
+from .stage1 import PMAX, _I32, _Segs, segs_for
 
 LMAX = 64  # bound on progressive quality layers (2*max(levels,planes)-1)
-_M32 = 0xFFFFFFFF
-
-
-def _as_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 tensor of the same bit pattern."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(_I32)
-
-
-def _vli_k(v, s):
-    """Prefix zeros put_vli emits for value v at order s (vli.h:73-78):
-    k = max(0, ilog2(v + 2^s) - s)."""
-    return torch.clamp(_ilog2(v + (torch.ones_like(s) << s)) - s, min=0)
 
 
 def _codeword_contribs(stats, tok_val, tok_raw, tok_vli, orders,
-                       padded_T: int):
-    """Per-token codeword bit lengths, final-stream offsets, the <= 3
-    uint32 word pieces and each step's first-refinement-bit position.
+                       padded_T: int, nwords: int):
+    """Per-token final-stream bit offsets, word indices and <= 3 word
+    pieces, each step's first-refinement-bit position, and the tokens'
+    per-2048-slot bit sums: one launch of :func:`codeword_pieces` over the
+    (N, padded_T) token arrays, then (N, S) gathers of the step tables.
+    ``nwords``: the words of one frame, whose buffer starts at f * nwords
+    (``widx`` holds the offset).
 
-    Returns (nbits, nref_step, off, refstart, widx, c0, c1, c2); the
-    pieces are int64 values below 2^32."""
-    s = orders
-    k = torch.where(tok_vli, _vli_k(tok_val, s), 0)
-    nbits = torch.where(tok_vli, 2 * k + s + 1, tok_raw)
-    # A VLI codeword is k prefix zeros, a 1, then s + k payload bits:
-    # 2k + s + 1 <= 61 bits with s + k <= 30, split into (lo, hi) words.
-    s64, k64 = s.long(), k.long()
-    one = torch.ones_like(s64)
-    payload = tok_val.long() - ((one << (s64 + k64)) - (one << s64))
-    lo_vli = ((one << k64) | (payload << (k64 + 1))) & _M32
-    hi_vli = (payload & _M32) >> (31 - k64)
-    lo = torch.where(tok_vli, lo_vli, tok_val.long() & _M32)
-    hi = torch.where(tok_vli, hi_vli, 0)
-
-    # int32 bit offsets (single streams stay below 2^31 bits).  Each
-    # step's nRef refinement bits land after the step's compact tokens, at
-    # its injection site; one inclusive cumsum serves every consumer:
+    Returns (chunks, nref_step, off, refstart, widx, c0, c1, c2), all
+    int32, the pieces as uint32 bit patterns."""
+    # Each step's nRef refinement bits land after the step's compact
+    # tokens, at its injection site; the one inclusive scan serves every
+    # consumer:
     #   off[t] = incl[t] - nbits[t], and
     #   refstart[s] = off[end_s] - (injections at sites <= end_s) + refpfx[s].
     N = tok_val.shape[0]
     nref_step = torch.where(stats["valid"], stats["nRef"], 0).reshape(N, -1)
     inj_site = stats["inj_pos"].reshape(N, -1).clamp(0, padded_T)
-    inject = torch.zeros((N, padded_T + 1), dtype=_I32,
-                         device=tok_val.device).scatter_add_(
-        1, inj_site.long(), nref_step)[:, :padded_T]
-    incl = torch.cumsum(nbits + inject, dim=1).to(_I32)
-    off = incl - nbits
+    off, widx, c0, c1, c2, chunks = codeword_pieces(
+        tok_val, tok_raw, tok_vli, orders, inj_site, nref_step, nwords)
     end_idx = stats["step_end"].clamp(0, padded_T - 1).reshape(N, -1)
     inj_le_end = torch.where(inj_site[:, None, :] <= end_idx[:, :, None],
                              nref_step[:, None, :], 0).sum(dim=2, dtype=_I32)
     refstart = (off.gather(1, end_idx.long()) - inj_le_end
                 + stats["refpfx"].reshape(N, -1)).to(_I32).reshape(
                     stats["refpfx"].shape)
-
-    widx = off >> 5
-    sh = (off & 31).long()
-    shc = 31 - sh  # >> (32 - sh) as >> 1 >> (31 - sh): valid for sh == 0
-    c0 = (lo << sh) & _M32
-    c1 = (((lo >> 1) >> shc) | (hi << sh)) & _M32
-    c2 = (hi >> 1) >> shc
-    return nbits, nref_step, off, refstart, widx, c0, c1, c2
+    return chunks, nref_step, off, refstart, widx, c0, c1, c2
 
 
 def _pack_bits(lin, stats, tok_val, tok_raw, tok_vli, orders,
@@ -99,31 +69,28 @@ def _pack_bits(lin, stats, tok_val, tok_raw, tok_vli, orders,
     ``wild`` is always 0: the JAX package's straggler pass for "wild"
     blocks (encoder.py:956-979) exists only for the TPU kernel's window
     budget, and the CUDA kernel sends pieces past its window to atomics."""
-    nbits, nref_step, off, refstart, widx, c0, c1, c2 = _codeword_contribs(
-        stats, tok_val, tok_raw, tok_vli, orders, padded_T)
+    chunks, nref_step, off, refstart, widx, c0, c1, c2 = _codeword_contribs(
+        stats, tok_val, tok_raw, tok_vli, orders, padded_T, nwords)
     N = widx.shape[0]
-    widx = widx + torch.arange(N, dtype=_I32, device=widx.device)[:, None] \
-        * nwords
-    words = pack_words(widx.reshape(-1), *(_as_i32(c).reshape(-1)
-                                          for c in (c0, c1, c2)),
-                       N * nwords, order_flag=order_flag)
-    return (words.reshape(N, nwords), _bit_partials(nbits, nref_step), 0,
+    words = pack_words(widx.reshape(-1), c0.reshape(-1), c1.reshape(-1),
+                       c2.reshape(-1), N * nwords, order_flag=order_flag)
+    return (words.reshape(N, nwords), _bit_partials(chunks, nref_step), 0,
             off, refstart)
 
 
-def _bit_partials(nbits, nref_step):
+def _bit_partials(chunks, nref_step):
     """int32 partial sums, a row a frame, whose Python-int total is the
-    exact stream bit count: tokens over 2048-token chunks then 512-chunk
-    groups, per-step refinement bits over 8-step groups — every part far
-    below 2^31."""
+    exact stream bit count: the (N, ceil(padded_T / 2048)) token-bit chunk
+    sums of :func:`codeword_pieces` over 512-chunk groups, per-step
+    refinement bits over 8-step groups — every part far below 2^31."""
     def sums(x, m):
         r = (-x.shape[-1]) % m
         if r:
             x = torch.cat([x, x.new_zeros((*x.shape[:-1], r))], dim=-1)
         return x.reshape(*x.shape[:-1], -1, m).sum(dim=-1, dtype=_I32)
 
-    return torch.cat([sums(sums(nbits, 2048), 512),
-                      sums(nref_step.to(_I32), 8)], dim=-1)
+    return torch.cat([sums(chunks, 512), sums(nref_step.to(_I32), 8)],
+                     dim=-1)
 
 
 def _kernel_b_meta(stats, segs: _Segs, com, refstart, pyr: Pyramid,

@@ -122,12 +122,6 @@ def _check_stream_bits(total_bits: int) -> int:
     return total_bits
 
 
-def _stream_words_bytes(words: torch.Tensor, nbytes: int) -> bytes:
-    """The first ``nbytes`` bytes of the little-endian stream words."""
-    n = (nbytes + 3) // 4
-    return words[:n].cpu().numpy().astype("<i4").tobytes()[:nbytes]
-
-
 def _bucket(t: int) -> int:
     """Token counts padded to coarse buckets (sixteenths of powers of two,
     multiples of the pack block), as in the JAX package."""
@@ -364,6 +358,8 @@ class Encoder:
         # Pinned staging buffers of the upload, one a frame shape and dtype,
         # each with the event recorded behind its last copy.
         self._staging: dict = {}
+        # The pinned buffer of the stream download, grown when too small.
+        self._landing: torch.Tensor | None = None
 
     def header(self) -> bytes:
         w, h = self.pyr.width, self.pyr.height
@@ -428,8 +424,29 @@ class Encoder:
             order_flag)
         totals, ends = _host_totals(bits_parts, order_flag, layer_ends)
         totals = [_check_stream_bits(t) for t in totals]
-        return ([_stream_words_bytes(words[i], (t + 7) // 8)
-                 for i, t in enumerate(totals)], totals, ends)
+        return self._download(words, totals), totals, ends
+
+    def _download(self, words: torch.Tensor, totals: list) -> list:
+        """Each frame's payload bytes from the (N, nwords) stream words and
+        the frames' bit totals: the used words of the N frames gathered end
+        to end on the device, one device-to-host copy of them (to the card's
+        host through the encoder's one pinned buffer, grown when too small),
+        then one ``bytes`` of a slice a frame."""
+        nbytes = [(t + 7) // 8 for t in totals]
+        used = [(b + 3) // 4 for b in nbytes]
+        flat = (words[0, :used[0]] if len(used) == 1 else
+                torch.cat([words[i, :u] for i, u in enumerate(used)]))
+        if self.device.type == "cuda":
+            have = 0 if self._landing is None else self._landing.numel()
+            if have < flat.numel():
+                self._landing = torch.empty(max(flat.numel(), 2 * have),
+                                            dtype=torch.int32,
+                                            pin_memory=True)
+            flat = self._landing[:flat.numel()].copy_(flat)
+        # little-endian words (a view on a little-endian host)
+        raw = flat.numpy().astype("<i4", copy=False).view(np.uint8)
+        starts = np.cumsum([0] + used[:-1]) * 4
+        return [bytes(raw[s:s + b]) for s, b in zip(starts, nbytes)]
 
     def stage1(self, img: np.ndarray) -> tuple:
         """Stage 1 of one (H, W, C) or (H, W) image: (lin, stats) on the

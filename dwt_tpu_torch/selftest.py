@@ -373,12 +373,13 @@ def _launches() -> list:
     """The encode kernels' launch counts, then the scatter kernel's.  The
     transpose (kernel 6) is not among them: no encode launches it, and
     its own configuration holds it."""
-    from .ops import (compact, hilbert_gather, hilbert_scatter, lifting,
-                      pack, plane_stats, vli_scan)
+    from .ops import (codeword, compact, hilbert_gather, hilbert_scatter,
+                      lifting, pack, plane_stats, vli_scan)
 
     return [compact.compact_tokens.launches, compact.scatter_refbits.launches,
             hilbert_gather.hilbert_gather.launches, pack.pack_words.launches,
             vli_scan.vli_orders.launches,
+            codeword.codeword_pieces.launches,
             lifting.forward_transform.launches,
             plane_stats.plane_stats.launches,
             hilbert_scatter.hilbert_scatter.launches]

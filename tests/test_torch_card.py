@@ -632,6 +632,148 @@ def test_vli_orders_launches_a_scan(cuda):
         assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
 
+def _codeword_inputs(rng, n, T, S, cuda, stride=0):
+    """Kernel 11's inputs on the card: (n, T) token values, raw lengths,
+    VLI flags and orders, each row at ``stride`` (T when 0), VLI values
+    with s + k <= 30 (some at 30), raw tokens of 0-31 bits; (n, S)
+    injection sites anywhere in [-3, T + 3] (0, T and the kernel's tile
+    edges among them, several steps on one site) and bit counts."""
+    from dwt_tpu_torch.ops import codeword
+
+    W = stride or T
+    vli = rng.random((n, W)) < 0.55
+    s = rng.integers(0, 31, (n, W))
+    top = (1 << 31) - (1 << s)  # v + 2^s < 2^31: s + k <= 30
+    v = np.minimum(rng.integers(0, 1 << 31, (n, W))
+                   >> rng.integers(0, 32, (n, W)), top - 1)
+    v = np.where(rng.random((n, W)) < 0.03, top - 1, v)
+    raw = rng.integers(0, 32, (n, W))
+    rv = np.where(raw == 0, 0, rng.integers(0, 1 << 31, (n, W))
+                  >> (31 - raw))
+    val = np.where(vli, v, rv).astype(np.int32)
+    raw = np.where(vli, 0, raw).astype(np.int32)
+    site = rng.integers(-3, T + 4, (n, S))
+    edges = [0, T, T - 1, codeword.TILE - 1, codeword.TILE,
+             codeword.TILE + 1, 17, 17]
+    site[:, :len(edges)] = edges[:S]
+    toks = [torch.as_tensor(a, device=cuda)[:, :T]
+            for a in (val, raw, vli, s.astype(np.int32))]
+    return toks + [torch.as_tensor(site.astype(np.int32), device=cuda),
+                   torch.as_tensor(rng.integers(0, 5000, (n, S)).astype(
+                       np.int32), device=cuda)]
+
+
+@pytest.mark.parametrize("n,T,S,stride", [
+    (1, 31_457_280, 783, 0),              # the 4K frame's token bucket
+    (7, 7_864_320, 783, 7_864_321),       # a 1080p sub-batch, rows as the
+                                          # token finisher leaves them
+    (3, 2 * 4096 + 100, 174, 0), (1, 5, 8, 0), (2, 100_003, 58, 100_011),
+    (5, 2048, 1, 0), (4, 40 * 4096, 1392, 0), (2, 4096, 0, 0)])
+def test_codeword_kernel_equals_plain(cuda, n, T, S, stride):
+    """Kernel 11 against its plain version on the same CUDA tensors, all
+    six outputs exact, dtype and shape included: at the 4K and the batch
+    shapes and at ragged ones (token counts that are no multiple of the
+    tile, rows past their length, no step at all); one launch a call, and
+    the scratch left clear for the next (a second call gives the same)."""
+    from dwt_tpu_torch.ops import codeword
+
+    args = _codeword_inputs(np.random.default_rng(T + n), n, T, S, cuda,
+                            stride)
+    nwords = 2**31 // (n + 1)
+    before = codeword.codeword_pieces.launches
+    got = codeword.codeword_pieces(*args, nwords)
+    again = codeword.codeword_pieces(*args, nwords)
+    assert codeword.codeword_pieces.launches == before + 2
+    want = codeword.codeword_pieces_plain(*args, nwords)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape
+        assert torch.equal(g, w) and torch.equal(a, w)
+    assert got[5].shape == (n, -(-T // codeword.CHUNK))
+
+
+def test_codeword_contribs_is_one_kernel(cuda):
+    """One ``emit._codeword_contribs`` of a 320x240 RGB frame on the card:
+    one launch of kernel 11, and beside it only the small kernels of the
+    (N, S) step tables; its outputs equal the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dwt_tpu_torch.codec import emit, encoder, tokens
+    from dwt_tpu_torch.ops import codeword
+
+    img = random_image(np.random.default_rng(2), 320, 240, 3, "mixed")
+    outs = {}
+    for dev in ("cpu", cuda):
+        enc = encoder.Encoder(320, 240, 3, device=dev)
+        lin, stats = enc.stage1_frames(img[None])
+        padded_T = encoder._bucket(int(stats["T"][0]))
+        tv, tr, tf, orders, _, _ = tokens._stage2_tokens(
+            lin, stats, enc.pyr, 3, padded_T)
+        nwords = emit._stream_words(enc.pyr, 3, padded_T)
+
+        def call():
+            return emit._codeword_contribs(stats, tv, tr, tf, orders,
+                                           padded_T, nwords)
+
+        if dev == "cpu":
+            outs[dev] = call()
+            continue
+        call()
+        torch.cuda.synchronize()
+        before = codeword.codeword_pieces.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs[dev] = call()
+            torch.cuda.synchronize()
+        assert codeword.codeword_pieces.launches == before + 1
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert sum("codeword_kernel" in k for k in names) == 1, names
+        assert len(names) <= 24, names
+    for a, b in zip(outs["cpu"], outs[cuda]):
+        assert torch.equal(a, b.cpu())
+
+
+def test_stream_download_is_one_copy(cuda):
+    """The payloads of a 3-frame sub-batch leave the card in one
+    device-to-host copy (two in all of ``emit_frames``, with the bit
+    totals'), through the encoder's one pinned buffer, which a smaller
+    sub-batch reuses and a larger one grows; payloads equal the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dwt_tpu_torch.codec import encoder
+
+    rng = np.random.default_rng(8)
+    imgs = np.stack([random_image(rng, 64, 48, 3, k)
+                     for k in ("mixed", "noise", "flat")])
+
+    def run(enc, frames):
+        lin, stats = enc.stage1_frames(frames)
+        return enc.emit_frames(lin, stats, encoder._bucket(
+            int(stats["T"].max())))[0], (lin, stats)
+
+    want, _ = run(encoder.Encoder(64, 48, 3, device="cpu"), imgs)
+    enc = encoder.Encoder(64, 48, 3, device=cuda)
+    got, (lin, stats) = run(enc, imgs)
+    assert got == want
+    land = enc._landing
+    assert land.is_pinned() and land.numel() * 4 >= sum(map(len, got))
+    assert run(enc, imgs[2:])[0] == want[2:] and enc._landing is land
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        enc.emit_frames(lin, stats, padded_T)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum(n.startswith("Memcpy DtoH") for n in names) == 2, names
+    big = np.concatenate([imgs, imgs, imgs])
+    assert run(enc, big)[0] == want * 3 and enc._landing.numel() > \
+        land.numel()
+
+
 @pytest.mark.parametrize("budget_div", [0, 3])
 def test_tiled_on_card_equals_cpu(cuda, budget_div):
     """A small tiled container (uneven edge tiles), lossless and cut to a
@@ -662,8 +804,8 @@ def _batch_pairs():
     """Each batched kernel's wrapper and plain version, and the codec
     module that calls it."""
     from dwt_tpu_torch.codec import emit, stage1, tokens
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, pack, transpose,
-                                   vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather, pack,
+                                   transpose, vli_scan)
 
     return {
         "hilbert_gather": (stage1, hilbert_gather.hilbert_gather,
@@ -677,16 +819,19 @@ def _batch_pairs():
                         transpose.transpose2d_plain),
         "vli_orders": (tokens, vli_scan.vli_orders,
                        vli_scan.vli_orders_plain),
+        "codeword_pieces": (emit, codeword.codeword_pieces,
+                            codeword.codeword_pieces_plain),
     }
 
 
 @pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
 def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
-    """Kernels 1-4 and the VLI scan as a 3-frame sub-batch calls them (a
-    flat, a noise and a mixed frame: three token counts, one with no
-    detail plane), each launched once for the sub-batch (kernel 6 not at
-    all) and each call held to its plain version on the same CUDA
-    tensors; the payloads and layer ends equal the CPU's."""
+    """Kernels 1-4, the VLI scan and kernel 11 (the codeword pieces) as a
+    3-frame sub-batch calls them (a flat, a noise and a mixed frame: three
+    token counts, one with no detail plane), each launched once for the
+    sub-batch (kernel 6 not at all) and each call held to its plain
+    version on the same CUDA tensors; the payloads and layer ends equal
+    the CPU's."""
     from dwt_tpu_torch.codec import tiled
 
     rng = np.random.default_rng(w + c)
@@ -713,7 +858,9 @@ def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
                      for _ in range(2)]
             k, p = fn(*fresh[0]), plain(*fresh[1])
             torch.cuda.synchronize()
-            assert k.dtype == p.dtype and torch.equal(k, p), name
+            for a, b in zip(*((x,) if torch.is_tensor(x) else x
+                              for x in (k, p))):
+                assert a.dtype == b.dtype and torch.equal(a, b), name
     assert calls["hilbert_gather"][0][0].shape[0] == 3
 
 

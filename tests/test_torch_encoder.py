@@ -50,13 +50,17 @@ def _port_pipeline(img):
     nwords = emit._stream_words(pyr, c, padded_T)
     words_tok, parts, wild, off, refstart = emit._pack_bits(
         lin, stats, tv, tr, tf, orders, pyr, c, padded_T, nwords)
+    # kernel 11's outputs (its plain version here) and the step positions
+    _, _, cw_off, cw_refstart, *pieces = emit._codeword_contribs(
+        stats, tv, tr, tf, orders, padded_T, nwords)
     meta_b = emit._kernel_b_meta(stats, segs, com, refstart, pyr, padded_T,
                                  nwords)
     words, bits_parts, wild, ends = emit._stage2_emit(
         lin, stats, tv, tr, tf, orders, vmag2, com2, pyr, c, padded_T)
     out = dict(lin=lin, zp=zp, sgn=sgn, tv=tv, tr=tr, tf=tf, orders=orders,
                words_tok=words_tok, words=words, bits_parts=bits_parts,
-               layer_ends=ends,
+               layer_ends=ends, cw_off=cw_off, cw_refstart=cw_refstart,
+               **dict(zip(("cw_widx", "cw_c0", "cw_c1", "cw_c2"), pieces)),
                **{f"com_{k}": v for k, v in com.items()
                   if k not in ("table", "hist")})
     out = {k: to_np(v[0]) for k, v in out.items()}
@@ -86,6 +90,7 @@ def test_encoder_parity(rng, monkeypatch, w, h, c, kind):
         _same(f"stats[{k}]", got["stats"][k], want["stats"][k])
     for k in ("lin", "zp", "sgn", "meta_a", "meta_b", "tv", "tr", "tf",
               "orders", "words_tok", "words", "bits_parts", "layer_ends",
+              "cw_off", "cw_refstart", "cw_widx", "cw_c0", "cw_c1", "cw_c2",
               "com_elem", "com_elen", "com_p", "com_flat_step",
               "com_flat_ck", "com_valid"):
         _same(k, got[k], want[k])

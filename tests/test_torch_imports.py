@@ -132,12 +132,13 @@ def test_plain_path_counts_no_launch():
     from conftest import random_image
     from dwt_tpu import specmodel
     from dwt_tpu_torch.codec import decoder, encoder
-    from dwt_tpu_torch.ops import (compact, hilbert_gather, hilbert_scatter,
-                                   pack, transpose)
+    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
+                                   hilbert_scatter, pack, transpose)
 
     fns = (hilbert_gather.hilbert_gather, hilbert_gather.engine_supported,
            compact.compact_tokens, compact.scatter_refbits, pack.pack_words,
-           hilbert_scatter.hilbert_scatter, transpose.transpose2d)
+           hilbert_scatter.hilbert_scatter, transpose.transpose2d,
+           codeword.codeword_pieces)
     before = [f.launches for f in fns]
     img = random_image(np.random.default_rng(1), 40, 24, 3, "mixed")
     stream = encoder.encode(img, device="cpu")
@@ -220,6 +221,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
-        "compact.cu", "hilbert_gather.cu", "hilbert_scatter.cu",
-        "lifting.cu", "pack.cu", "plane_stats.cu", "probe.cu", "runtime.cu",
-        "transpose.cu", "vli_scan.cu"]
+        "codeword.cu", "compact.cu", "hilbert_gather.cu",
+        "hilbert_scatter.cu", "lifting.cu", "pack.cu", "plane_stats.cu",
+        "probe.cu", "runtime.cu", "transpose.cu", "vli_scan.cu"]

@@ -55,15 +55,17 @@ def jax_pipeline(img: np.ndarray, monkeypatch) -> dict:
         segs = je._Segs(pyr)
         com = je._unit_common(stats, segs, pyr, c)
         meta_a, _ = je._kernel_a_meta(stats, segs, com, padded_T)
-        refstart = je._codeword_contribs(stats, tv, tr, tf, orders,
-                                         padded_T)[3]
+        _, _, off, refstart, widx, c0, c1, c2 = je._codeword_contribs(
+            stats, tv, tr, tf, orders, padded_T)
         meta_b = je._kernel_b_meta(stats, segs, com, refstart, pyr, padded_T,
                                    words.shape[0])
         zp, sgn = je._sig_tokens_xla(lin, stats, pyr, c, padded_T)
         return dict(tv=tv, tr=tr, tf=tf, orders=orders, words_tok=words_tok,
                     words=words, bits_parts=parts, wild=wild,
                     layer_ends=ends, meta_a=meta_a, meta_b=meta_b, zp=zp,
-                    sgn=sgn, **{f"com_{k}": v for k, v in com.items()})
+                    sgn=sgn, cw_off=off, cw_refstart=refstart,
+                    cw_widx=widx, cw_c0=c0, cw_c1=c1, cw_c2=c2,
+                    **{f"com_{k}": v for k, v in com.items()})
 
     out = {k: to_np(v) for k, v in jax.jit(stage2)(lin, stats).items()}
     total = je._check_stream_bits(je._total_bits_host(out["bits_parts"]))
