@@ -170,8 +170,10 @@ the two-rank run of phase 7 (it needs two cards), and prints no result
 lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
 phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
 DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
-with this one's, and splits its emit half by pass in turns with this
-one's (phases 5 and 9).
+with this one's, splits its emit half by pass in turns with this one's
+(phases 5 and 9), and times its kernel 11 on the same calls in turns
+with this one's at 4K (phase 6) and at 7 frames (phase 9), with each
+build's registers and shared memory a block.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -810,16 +812,18 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
 
 
 def device_times(torch, scatter_4k, tiled_scatter, transposes,
-                 vli, stage1_kept, codeword_args, rows) -> None:
+                 vli, stage1_kept, codeword_args, rows,
+                 parent: str | None) -> None:
     """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; kernel 6 on its seeded 4K tensors, the int8 one
     also by the element kernel; the VLI order scan's kernel and stage 1's
-    kernels at 4K (into ``rows``).  Run last, so that no profiler session
-    comes before the timing phase that a parent's script would not run
-    either."""
+    kernels at 4K (into ``rows``), kernel 11 in turns with the
+    ``parent`` checkout's where one is given.  Run last, so that no
+    profiler session comes before the timing phase that a parent's script
+    would not run either."""
     from dwt_tpu_torch.ops import hilbert_scatter as hs
     from dwt_tpu_torch.ops import transpose
 
@@ -859,7 +863,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
     progress("device: stage 1 at 4K: " + stage1_device(torch, stage1_kept,
                                                       rows, "device_ms"))
     progress("device: " + codeword_device(torch, codeword_args, rows,
-                                          "device_ms"))
+                                          "device_ms", parent))
 
 
 def vli_device(torch, val, vli, rows: list, key: str) -> str:
@@ -1022,18 +1026,68 @@ def cumsum_line(torch, args) -> str:
     return f"torch.cumsum of its int32 lengths alone {ms:.4f} ms"
 
 
-def codeword_device(torch, args, rows: list, key: str) -> str:
+def codeword_device(torch, args, rows: list, key: str,
+                    parent: str | None) -> str:
     """Kernel 11's device time (torch.profiler) on its kept call ``args``,
-    into ``rows[...][key]``; returns a line of it beside its bound."""
+    into ``rows[...][key]`` (the mean of this tree's readings); where
+    ``parent`` names a checkout, its kernel on the same call in turns
+    (this tree, the parent, the parent, this tree), each call held equal
+    to this tree's.  Returns a line of the times beside the bound, with
+    each tree's registers and shared memory a block from its build."""
     from dwt_tpu_torch.ops import codeword
 
-    ms = kernel_ms(torch, lambda: codeword.codeword_pieces(*args),
-                   CODEWORD_NAME, per_call=1)
+    trees, order = {"this tree": codeword}, ["this tree"]
+    if parent:
+        trees["parent"] = parent_module(parent, "ops.codeword")
+        order = ["this tree", "parent", "parent", "this tree"]
+    want = codeword.codeword_pieces(*args)
+    times: dict = {}
+    for name in order:
+        fn = trees[name].codeword_pieces
+        if not all(torch.equal(g, w) for g, w in zip(fn(*args), want)):
+            raise AssertionError(f"codeword_pieces of {name} differs")
+        times.setdefault(name, []).append(kernel_ms(
+            torch, lambda: fn(*args), CODEWORD_NAME, per_call=1))
+    ms = sum(times["this tree"]) / len(times["this tree"])
     bound, by = bound_of(*codeword_work(torch, args))
     next(r for r in rows if r["name"] == "codeword_pieces")[key] = ms
+    sms, per_sm, smem = codeword._plan_for(args[0], args[4].shape[1])
     return (f"codeword_pieces {tuple(args[0].shape)} (row stride "
-            f"{args[0].stride(0)}): {ms:.4f} ms, bound {bound:.4f} ms by "
-            f"{by}, share {bound / ms:.2f}")
+            f"{args[0].stride(0)}), bound {bound:.4f} ms by {by}: "
+            + "; ".join(f"{k} " + ", ".join(
+                f"{m:.4f} ms (share {bound / m:.2f})" for m in v)
+                for k, v in times.items())
+            + f"; this tree {per_sm} blocks an SM x {sms} SMs, "
+            f"{smem} B dynamic shared memory a block, "
+            + codeword_resources(None)
+            + (f"; parent {codeword_resources(parent)}" if parent
+               else " (no --parent given)"))
+
+
+def codeword_resources(root: str | None) -> str:
+    """The registers a thread, stack and local bytes, and static shared
+    memory a block of kernel 11 as built for the checkout at ``root``
+    (this one when None), read from its library by ``cuobjdump
+    -res-usage``; "not read" where that fails."""
+    import re
+
+    from dwt_tpu_torch.runtime import build
+
+    mod = build if root is None else parent_module(root, "runtime.build")
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    try:
+        out = subprocess.run([exe, "-res-usage", str(mod.library_path())],
+                             capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"resources not read ({e})"
+    m = re.search(r"Function \S*" + CODEWORD_NAME + r"\S*:\s*REG:(\d+) "
+                  r"STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", out)
+    if not m:
+        return "resources not read (no such function in cuobjdump's output)"
+    reg, stack, shared, local = m.groups()
+    return (f"{reg} registers a thread, {shared} B static shared memory, "
+            f"stack {stack} B, local {local} B")
 
 
 def kernel_work(torch, name: str, args) -> tuple:
@@ -2546,7 +2600,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     cw = store["codeword_pieces"][0]
     cw = tuple(as_finished(t) for t in cw[:3]) + cw[3:]
     progress(f"device: at the batch of {sub} frames, "
-             + codeword_device(torch, cw, rows, "batch_device_ms")
+             + codeword_device(torch, cw, rows, "batch_device_ms", parent)
              + "; " + cumsum_line(torch, cw))
     download_copies(torch, enc.enc, seven, card)
     progress(f"profile: emit half of a {sub}-frame sub-batch by pass "
@@ -2669,7 +2723,7 @@ def main(argv: list) -> int:
     tiled_timing(torch, tiled, img, full, card)
 
     # 6. device times of kernels 5 and 6 (torch.profiler)
-    device_times(torch, *device_inputs)
+    device_times(torch, *device_inputs, parent)
     del device_inputs
     progress("device: the forward transform by launch at 4K: "
              + lift_split(torch, img[None]))

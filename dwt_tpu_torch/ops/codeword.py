@@ -26,15 +26,24 @@ For frame f and slot t, with s = ``orders``, v = ``tok_val``:
 Returns (off, widx, c0, c1, c2, chunks): five (N, T) int32 tensors and an
 (N, ceil(T / 2048)) int32 one.
 
-On the card: one launch a call.  The kernel reads the token arrays in
-place (rows of unit stride at any row stride) and keeps a ticket and a
-status word a tile in a scratch of :data:`MAX_TILES` tiles (4 MB) a
-device and stream, zeroed once when it is made and left zeroed by each
-call's last block.  On the CPU: :func:`codeword_pieces_plain`, the
-eager passes the encoder ran before, in int64.
+On the card: one launch a call, of as many persistent blocks as the card
+holds at once (:func:`launch_plan`: its SMs times the blocks an SM takes
+at the call's shared memory, read once a device and step count), each
+taking tiles of :data:`TILE` slots by ticket: the next tile's rows are in
+flight (TMA bulk copies into shared memory) while the current one scans,
+looks back and stores, and its status is published while the current
+one looks back.  The kernel reads the token arrays in place (rows of unit
+stride at any row stride, each copy kept inside its tensor's storage)
+and keeps a ticket and a status word a tile in a scratch of
+:data:`MAX_TILES` tiles (8 MB) a device and stream, zeroed once when it is
+made and left zeroed by each call's last block.  On the CPU:
+:func:`codeword_pieces_plain`, the eager passes the encoder ran before, in
+int64.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,10 +51,17 @@ from ..runtime import build
 from ._launch import need
 from .plane_stats import _ilog2
 
-THREADS = 256   # threads a tile (csrc/codeword.cu: THREADS)
-ITEMS = 16      # slots a thread (csrc/codeword.cu: ITEMS)
-TILE = THREADS * ITEMS
+THREADS = 256   # threads a block (csrc/codeword.cu: THREADS)
+TILE = 2048     # slots a tile (csrc/codeword.cu: TILE)
 CHUNK = 2048    # slots a chunk sum (the JAX package's _bit_partials)
+MIN_BLOCKS = 3  # blocks an SM the kernel is compiled for (<= 80 registers)
+# Bytes of a block's shared memory (csrc/codeword.cu: WROW, FROW, STAGE,
+# INJ): two stages of the val, raw and ord rows' 16-byte windows and the
+# flag row's, and the injections, a word a slot.
+WROW = 4 * TILE + 32
+FROW = TILE + 48
+STAGE = 3 * WROW + FROW
+INJ = 4 * TILE
 # Tiles the scratch holds at first: every call within the encoder's int32
 # token slots (2^31 a sub-batch) fits.
 MAX_TILES = 2**31 // TILE
@@ -53,6 +69,7 @@ _I32 = torch.int32
 _M32 = 0xFFFFFFFF
 
 _scratch: dict = {}  # (device index, stream) -> zeroed uint8 scratch
+_plans: dict = {}    # (device index, S) -> (SMs, blocks an SM, smem bytes)
 
 
 def _check(tok_val, tok_raw, tok_vli, orders, inj_site, nref_step,
@@ -148,6 +165,55 @@ def _scratch_for(x: torch.Tensor, stream: int, tiles: int) -> tuple:
     return buf, cap
 
 
+def table_row(S: int) -> int:
+    """Bytes of one staged step-table row of ``S`` int32 entries: their
+    16-byte window (a head and a tail of up to 12 bytes each)."""
+    return (4 * S + 24 + 15) & ~15
+
+
+def smem_bytes(S: int) -> int:
+    """A block's dynamic shared memory at ``S`` steps a frame: two stages,
+    the injections, the frame's sites and refinement-bit counts."""
+    return 2 * STAGE + INJ + 2 * table_row(S)
+
+
+def launch_plan(n: int, T: int, sms: int, per_sm: int) -> tuple:
+    """(tiles, persistent blocks) of a call on ``n`` frames of ``T`` slots
+    on a card of ``sms`` SMs that holds ``per_sm`` blocks an SM at once: a
+    tile a ``TILE`` slots of a frame, and no more blocks than tiles."""
+    tiles = n * -(-T // TILE)
+    if per_sm < 1:
+        raise ValueError(f"codeword_pieces: no block of {THREADS} threads "
+                         f"fits an SM")
+    return tiles, min(tiles, sms * per_sm)
+
+
+def _plan_for(x: torch.Tensor, S: int) -> tuple:
+    """(SMs, blocks an SM, a block's shared memory) on ``x``'s device at
+    ``S`` steps a frame: from the CUDA runtime, once a device and S."""
+    key = (x.device.index, S)
+    if key not in _plans:
+        sms, per_sm, smem = (ctypes.c_int() for _ in range(3))
+        build.check(build.library().dwt_codeword_plan(
+            S, ctypes.byref(sms), ctypes.byref(per_sm), ctypes.byref(smem)),
+            "codeword_pieces")
+        if smem.value != smem_bytes(S):
+            raise RuntimeError(f"codeword_pieces: the kernel's shared memory "
+                               f"{smem.value} B is not {smem_bytes(S)} B")
+        _plans[key] = sms.value, per_sm.value, smem.value
+    return _plans[key]
+
+
+def _bounds(*tensors) -> ctypes.Array:
+    """The first and past-the-last byte of each tensor's storage, as 2k
+    int64 for the kernel (its copies stay inside them)."""
+    out = []
+    for t in tensors:
+        st = t.untyped_storage()
+        out += [st.data_ptr(), st.data_ptr() + st.nbytes()]
+    return (ctypes.c_int64 * len(out))(*out)
+
+
 def codeword_pieces(tok_val: torch.Tensor, tok_raw: torch.Tensor,
                     tok_vli: torch.Tensor, orders: torch.Tensor,
                     inj_site: torch.Tensor, nref_step: torch.Tensor,
@@ -170,13 +236,16 @@ def codeword_pieces(tok_val: torch.Tensor, tok_raw: torch.Tensor,
     rows = [t.stride(0) if N > 1 else T
             for t in (tok_val, tok_raw, tok_vli, orders)]
     lib, stream = build.library(), build.stream_of(tok_val)
-    scratch, cap = _scratch_for(tok_val, stream, N * -(-T // TILE))
+    tiles, grid = launch_plan(N, T, *_plan_for(tok_val, S)[:2])
+    scratch, cap = _scratch_for(tok_val, stream, tiles)
+    bounds = _bounds(tok_val, tok_raw, orders, tok_vli, inj_site, nref_step)
     build.check(lib.dwt_codeword_pieces(
         tok_val.data_ptr(), rows[0], tok_raw.data_ptr(), rows[1],
         tok_vli.data_ptr(), rows[2], orders.data_ptr(), rows[3],
         inj_site.data_ptr(), nref_step.data_ptr(), S,
         *(o.data_ptr() for o in outs), chunks.data_ptr(), N, T, nwords,
-        scratch.data_ptr(), cap, stream), "codeword_pieces")
+        ctypes.addressof(bounds), grid, scratch.data_ptr(), cap, stream),
+        "codeword_pieces")
     codeword_pieces.launches += 1
     return (*outs, chunks)
 

@@ -69,10 +69,13 @@ ENTRY_POINTS = {
     "dwt_lift_tail": (_P, _I, _I, _L, _L, _P, _L, _L, _I, _I, _I, _I, _I,
                       _P),
     # (val, val_row, raw, raw_row, vli, vli_row, ord, ord_row, site, nref,
-    #  S, off, widx, c0, c1, c2, chunks, nframes, T, nwords, scratch, cap,
-    #  stream)
+    #  S, off, widx, c0, c1, c2, chunks, nframes, T, nwords, bounds, grid,
+    #  scratch, cap, stream)
     "dwt_codeword_pieces": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _L, _P,
-                            _P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P),
+                            _P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P, _L,
+                            _P),
+    # (S, sms, per_sm, smem): the codeword kernel's launch plan
+    "dwt_codeword_plan": (_L, _P, _P, _P),
     # (lin, valid, unit_chunk, chunk_base, nS, lastS, z0, zup, planes,
     #  rows, nlin, n, nchunk, group, stream)
     "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,

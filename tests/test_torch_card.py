@@ -668,13 +668,20 @@ def _codeword_inputs(rng, n, T, S, cuda, stride=0):
     (7, 7_864_320, 783, 7_864_321),       # a 1080p sub-batch, rows as the
                                           # token finisher leaves them
     (3, 2 * 4096 + 100, 174, 0), (1, 5, 8, 0), (2, 100_003, 58, 100_011),
-    (5, 2048, 1, 0), (4, 40 * 4096, 1392, 0), (2, 4096, 0, 0)])
+    (5, 2048, 1, 0), (4, 40 * 4096, 1392, 0), (2, 4096, 0, 0),
+    (5, 12_288, 783, 12_289),             # 5 frames at stride T + 1: row
+                                          # starts at every residue mod 4
+    (1000, 8192, 348, 8193),              # the smallest bucket, many frames
+    (3, 100_003, 59, 0), (2, 13, 3, 0)])  # the last tile ends at the end of
+                                          # its tensors' storages
 def test_codeword_kernel_equals_plain(cuda, n, T, S, stride):
     """Kernel 11 against its plain version on the same CUDA tensors, all
     six outputs exact, dtype and shape included: at the 4K and the batch
     shapes and at ragged ones (token counts that are no multiple of the
-    tile, rows past their length, no step at all); one launch a call, and
-    the scratch left clear for the next (a second call gives the same)."""
+    tile, rows past their length, no step at all, rows and step tables
+    that start anywhere, storages that end inside a 16-byte word); one
+    launch a call, and the scratch left clear for the next (a second call
+    gives the same)."""
     from dwt_tpu_torch.ops import codeword
 
     args = _codeword_inputs(np.random.default_rng(T + n), n, T, S, cuda,
@@ -690,6 +697,29 @@ def test_codeword_kernel_equals_plain(cuda, n, T, S, stride):
         assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape
         assert torch.equal(g, w) and torch.equal(a, w)
     assert got[5].shape == (n, -(-T // codeword.CHUNK))
+    if not stride:  # the storages end where the last row does
+        for t in args[:4]:
+            st = t.untyped_storage()
+            assert t.data_ptr() + t.numel() * t.element_size() \
+                == st.data_ptr() + st.nbytes()
+
+
+def test_codeword_plan_on_the_card(cuda):
+    """The launch plan read from the card: its SMs, at least
+    ``MIN_BLOCKS`` blocks an SM at the 4K frame's 783 steps (the stages,
+    not the registers, set it), the kernel's shared memory equal to the
+    wrapper's arithmetic, and a call of a 4K frame's tiles launches as many
+    persistent blocks as the card holds."""
+    from dwt_tpu_torch.ops import codeword
+
+    x = torch.zeros(1, device=cuda)
+    sms, per_sm, smem = codeword._plan_for(x, 783)
+    props = torch.cuda.get_device_properties(cuda)
+    assert sms == props.multi_processor_count
+    assert per_sm >= codeword.MIN_BLOCKS
+    assert smem == codeword.smem_bytes(783)
+    tiles, grid = codeword.launch_plan(1, 31_457_280, sms, per_sm)
+    assert tiles == 15_360 and grid == sms * per_sm
 
 
 def test_codeword_contribs_is_one_kernel(cuda):
