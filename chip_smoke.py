@@ -78,8 +78,11 @@ seconds:
              tree's where ``--parent DIR`` names one; kernel 11, the
              codeword pieces (one kernel on the 4K token arrays and step
              tables), beside ``torch.cumsum`` of its int32 lengths as the
-             yardstick of its scan alone; the tile engines'
-             probe as its one host call, and one cold
+             yardstick of its scan alone; kernels 12 and 13, the token
+             finisher (on the 4K pairs in a pair buffer's rows, as kernel
+             A leaves them) and the packed elements, each beside its
+             plain version and bound (no PyTorch call computes either);
+             the tile engines' probe as its one host call, and one cold
              ``engine_supported`` by the host clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; stage 1 by pass,
@@ -92,7 +95,11 @@ seconds:
              ``tools/emit_split.py``: the pieces, the zero fill and pack,
              the bit partials, kernel B's meta, kernel B, the layer
              boundaries, the host totals and the download, in turns with
-             the parent tree's where ``--parent DIR`` names one); three
+             the parent tree's where ``--parent DIR`` names one; the
+             tokens half by pass, ``tools/tokens_split.py``: the unit
+             indexing, kernel A's meta, table and histograms, the packed
+             elements, kernel A, the finisher and the VLI scan, in turns
+             with the parent's likewise); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
              share of the tail; three warm tiled encodes (lossless and at
@@ -104,9 +111,11 @@ seconds:
              decode's calls (there also at other channel groups), kernel
              6 on its seeded tensors (the int8 one also by the element
              kernel), the VLI order scan's kernel, stage 1's three
-             kernels, kernel 11, and the forward transform launch by
-             launch with the levels each lifts (the scan, stage 1 and
-             kernel 11 also at the batch's 7-frame shape in phase 9).
+             kernels, kernel 11, kernels 12 and 13 (the finisher's dense
+             pass and special tokens, the packed elements), and the
+             forward transform launch by launch with the levels each
+             lifts (the scan, stage 1 and kernels 11-13 also at the
+             batch's 7-frame shape in phase 9).
              After the timing phase, so that no profiler session runs
              before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
@@ -161,17 +170,18 @@ seconds:
              bound, stage 1's kernels, the VLI order scan's and kernel
              11's also by torch.profiler; the device-to-host copies of
              one 7-frame ``emit_frames``, whose stream download must be
-             one; its emit half by pass, in turns with the parent's
-             (also in the kernels' JSON: ``batch_launches``, ``batch_ms``,
-             ``batch_bound_ms``, ``batch_device_ms``).
+             one; its emit half and its tokens half by pass, in turns
+             with the parent's (also in the kernels' JSON:
+             ``batch_launches``, ``batch_ms``, ``batch_bound_ms``,
+             ``batch_device_ms``).
 
 ``python3 chip_smoke.py --two-ranks`` runs phases 1 and 2 and then only
 the two-rank run of phase 7 (it needs two cards), and prints no result
 lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
 phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
 DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
-with this one's, splits its emit half by pass in turns with this one's
-(phases 5 and 9), and times its kernel 11 on the same calls in turns
+with this one's, splits its emit half and its tokens half by pass in
+turns with this one's (phases 5 and 9), and times its kernel 11 on the same calls in turns
 with this one's at 4K (phase 6) and at 7 frames (phase 9), with each
 build's registers and shared memory a block.
 
@@ -303,7 +313,8 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
 # gives them.
 BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
-                 "scatter_refbits": 1, "vli_orders": 1, "codeword_pieces": 1}
+                 "scatter_refbits": 1, "vli_orders": 1, "codeword_pieces": 1,
+                 "finish_tokens": 1, "packed_elems": 1}
 # Kernel 6, on no path: seeded tensors of the shapes the VLI order scan
 # gave it (the (nblk, 128) int32 parameters in, the int8 orders back) at
 # the 4K frame's token bucket and a 7-frame 1080p sub-batch's.
@@ -352,16 +363,18 @@ def max_abs_err(name: str, kernel_out, plain_out) -> int:
 class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
     scan, the forward transform, the plane statistics, the codeword
-    pieces and the tile engines' probe), their sources, the TPU kernels
-    (or, for the scan, the transform, the statistics and the pieces, the
-    JAX code) they replace and the paths (``ENCODE_PATHS``,
+    pieces, the token finisher, the packed elements and the tile engines'
+    probe), their sources, the TPU kernels (or, for the scan, the
+    transform, the statistics, the pieces, the finisher and the packed
+    elements, the JAX code) they replace and the paths (``ENCODE_PATHS``,
     ``DECODE_PATHS``) whose runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
-        from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
-                                       hilbert_scatter, lifting, pack,
-                                       plane_stats, transpose, vli_scan)
+        from dwt_tpu_torch.ops import (codeword, compact, finish,
+                                       hilbert_gather, hilbert_scatter,
+                                       lifting, pack, plane_stats, transpose,
+                                       vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
         from dwt_tpu_torch.parallel import tiled as halo
 
@@ -376,6 +389,7 @@ class Kernels:
                       (emit, "pack_words"), (emit, "scatter_refbits"),
                       (decoder, "hilbert_scatter"),
                       (tokens, "vli_orders"), (emit, "codeword_pieces"),
+                      (tokens, "finish_tokens"), (tokens, "packed_elems"),
                       (sharded, "hilbert_gather"), (halo, "dwt2d_fwd")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
@@ -396,6 +410,9 @@ class Kernels:
             "vli_orders": (vli_scan.vli_orders, vli_scan.vli_orders_plain),
             "codeword_pieces": (codeword.codeword_pieces,
                                 codeword.codeword_pieces_plain),
+            "finish_tokens": (finish.finish_tokens,
+                              finish.finish_tokens_plain),
+            "packed_elems": (finish.packed_elems, finish.packed_elems_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -446,6 +463,16 @@ class Kernels:
             ("codeword_pieces", codeword.codeword_pieces,
              "dwt_tpu_torch/csrc/codeword.cu",
              "dwt_tpu/codec/encoder.py:874", ENCODE_PATHS),
+            # Kernels 12 and 13, the token finisher and the packed
+            # elements: one call a sub-batch each.  No TPU kernel: they
+            # replace the JAX package's XLA _finish_tokens and
+            # _packed_elems.
+            ("finish_tokens", finish.finish_tokens,
+             "dwt_tpu_torch/csrc/finish.cu",
+             "dwt_tpu/codec/encoder.py:654", ENCODE_PATHS),
+            ("packed_elems", finish.packed_elems,
+             "dwt_tpu_torch/csrc/finish.cu",
+             "dwt_tpu/codec/encoder.py:505", ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -811,17 +838,44 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
     return "; ".join(parts)
 
 
+# Kernels 12 and 13 by wrapper, as the profiler names them.
+TOKENS_NAMES = {"finish_tokens": ("finish_dense_kernel",
+                                  "finish_special_kernel"),
+                "packed_elems": ("packed_elems_kernel",)}
+
+
+def tokens_device(torch, kept: dict, rows: list, key: str) -> str:
+    """Kernels 12 and 13's device time (torch.profiler) on their kept
+    calls ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's kernels
+    summed); returns a line of them beside their bounds."""
+    from dwt_tpu_torch.ops import finish
+
+    fns = {"finish_tokens": finish.finish_tokens,
+           "packed_elems": finish.packed_elems}
+    parts = []
+    for name, kernels in TOKENS_NAMES.items():
+        args = kept[name]
+        ms = [kernel_ms(torch, lambda: fns[name](*args), k, per_call=1)
+              for k in kernels]
+        bound, by = bound_of(*kernel_work(torch, name, args))
+        next(r for r in rows if r["name"] == name)[key] = sum(ms)
+        parts.append(f"{name} {tuple(args[0].shape)}: " + ", ".join(
+            f"{k} {m:.4f} ms" for k, m in zip(kernels, ms))
+            + f"; bound {bound:.4f} ms by {by}, share {bound / sum(ms):.2f}")
+    return "; ".join(parts)
+
+
 def device_times(torch, scatter_4k, tiled_scatter, transposes,
-                 vli, stage1_kept, codeword_args, rows,
+                 vli, stage1_kept, codeword_args, tokens_kept, rows,
                  parent: str | None) -> None:
     """Phase 6: the device time of kernels 5 and 6 by torch.profiler (the
     card's own time, without the host's launch time that the kernels
     phase's CUDA events include), beside their bounds: kernel 5 at 4K and
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; kernel 6 on its seeded 4K tensors, the int8 one
-    also by the element kernel; the VLI order scan's kernel and stage 1's
-    kernels at 4K (into ``rows``), kernel 11 in turns with the
-    ``parent`` checkout's where one is given.  Run last, so that no
+    also by the element kernel; the VLI order scan's kernel, stage 1's
+    kernels and kernels 12 and 13 at 4K (into ``rows``), kernel 11 in
+    turns with the ``parent`` checkout's where one is given.  Run last, so that no
     profiler session comes before the timing phase that a parent's script
     would not run either."""
     from dwt_tpu_torch.ops import hilbert_scatter as hs
@@ -864,6 +918,8 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                                                       rows, "device_ms"))
     progress("device: " + codeword_device(torch, codeword_args, rows,
                                           "device_ms", parent))
+    progress("device: kernels 12 and 13 at 4K: " + tokens_device(
+        torch, tokens_kept, rows, "device_ms"))
 
 
 def vli_device(torch, val, vli, rows: list, key: str) -> str:
@@ -921,12 +977,17 @@ def vli_collapse(torch, val, vli) -> str:
             f"constant map")
 
 
-def as_finished(t):
-    """(N, T) ``t`` as the token finisher leaves its arrays: each row
-    followed by a spare slot (row stride T + 1)."""
-    buf = t.new_zeros((t.shape[0], t.shape[1] + 1))
-    buf[:, :t.shape[1]] = t
-    return buf[:, :t.shape[1]]
+def as_pair_buffer(args: tuple) -> tuple:
+    """A kept call of kernel 12 with its (N, npair) pairs laid out again
+    as kernel A leaves them, the rows of a pair buffer (row stride npair +
+    ``compact.WTOK_BIG`` + 256): a kept call holds a contiguous copy."""
+    from dwt_tpu_torch.ops import compact
+
+    pairs = args[0]
+    n, npair = pairs.shape
+    buf = pairs.new_zeros((n, npair + compact.WTOK_BIG + 256))
+    buf[:, :npair] = pairs
+    return (buf[:, :npair],) + tuple(args[1:])
 
 
 def parent_module(root: str, name: str):
@@ -1103,7 +1164,34 @@ def kernel_work(torch, name: str, args) -> tuple:
         return transform_work(torch, args)
     if name == "plane_stats":
         return plane_stats_work(torch, args)
+    if name == "finish_tokens":
+        return finish_work(torch, args)
+    if name == "packed_elems":
+        return packed_work(torch, args)
     return encode_kernel_bytes(torch, name, args), 0
+
+
+def finish_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 12 must spend on its arguments:
+    each input read once (the frames' npair pairs, the root band, the step
+    and frame tables) and each slot's value, raw count (4 bytes each) and
+    flag (1) written once.  Its few integer operations a pair take less
+    time at the INT32 rate than those bytes, and are not counted."""
+    n, npair = args[0].shape
+    return (sum(t.numel() * t.element_size() for t in args)
+            + 9 * n * 2 * npair, 0)
+
+
+def packed_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 13 must spend: each row's detail
+    elements read once (4 bytes), the pad mask once (1 byte an element),
+    and the packed elements and their E-element tail written once (4
+    bytes); its operations are not counted, as kernel 12's."""
+    from dwt_tpu_torch.ops.compact import E
+
+    lin, valid = args
+    rows, n = lin.shape[0] * lin.shape[1], valid.numel()
+    return 4 * rows * n + n + 4 * (rows * n + E), 0
 
 
 def encode_kernel_bytes(torch, name: str, args) -> int:
@@ -1150,7 +1238,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
+    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
                                    hilbert_scatter, lifting, pack,
                                    plane_stats, transpose, vli_scan)
 
@@ -1410,6 +1498,25 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     progress(f"kernels: codeword_pieces {tuple(args[0].shape)}, "
              f"{args[4].shape[1]} steps: {nbytes} bytes; "
              + cumsum_line(torch, args))
+
+    # 9. kernels 12 and 13, the token finisher (on the 4K encode's pairs
+    # laid out again in a pair buffer's rows, as kernel A leaves them) and
+    # the packed elements, each held to its plain version (the eager passes
+    # the encoder ran before); no PyTorch call computes either function
+    for name, fn, plain in (
+            ("finish_tokens", finish.finish_tokens,
+             finish.finish_tokens_plain),
+            ("packed_elems", finish.packed_elems,
+             finish.packed_elems_plain)):
+        args = got[name][0]
+        if name == "finish_tokens":
+            args = as_pair_buffer(args)
+        nbytes, ops = kernel_work(torch, name, args)
+        row(name, fn(*args), plain(*args),
+            time_ms(torch, lambda: fn(*args)),
+            time_ms(torch, lambda: plain(*args), reps=3), nbytes, None, ops)
+        progress(f"kernels: {name} {tuple(args[0].shape)} (row stride "
+                 f"{args[0].stride(0)}): {nbytes} bytes")
     return out
 
 
@@ -1546,6 +1653,8 @@ def profile(torch, enc, img, parent: str | None) -> None:
                                                                img[None]))
     progress("profile: emit half at 4K by pass (tools/emit_split.py): "
              + emit_splits(torch, enc, img[None], parent))
+    progress("profile: tokens half at 4K by pass (tools/tokens_split.py): "
+             + emit_splits(torch, enc, img[None], parent, "tokens_split"))
 
     readings = []
     for i in range(4):
@@ -1622,14 +1731,16 @@ def contribs_kernels(torch, fn) -> str:
             + ", ".join(f"{k} x{n}" for k, n in others.items()) + ")")
 
 
-def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None) -> str:
+def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None,
+                name: str = "emit_split") -> str:
     """``tools/emit_split.py``'s split of one warm emit half of ``imgs``
-    (the means of three runs, each pass by the host clock between
-    synchronised marks and by CUDA events, and the unmarked emit half) on
-    this tree's encoder ``enc`` and, where ``parent`` names a checkout, on
-    its encoder of the same geometry, in turns (this tree, the parent,
+    (or, with ``name`` "tokens_split", ``tools/tokens_split.py``'s of the
+    tokens half): the means of three runs, each pass by the host clock
+    between synchronised marks and by CUDA events, and the unmarked half,
+    on this tree's encoder ``enc`` and, where ``parent`` names a checkout,
+    on its encoder of the same geometry, in turns (this tree, the parent,
     the parent, this tree)."""
-    mod = tool("emit_split")
+    mod, stage1 = tool(name), tool("emit_split").stage1
     encs = {"this tree": enc}
     order = ["this tree"]
     if parent:
@@ -1639,7 +1750,7 @@ def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None) -> str:
     out = []
     for name in order:
         res = mod.split(torch, encs[name],
-                        *mod.stage1(torch, encs[name], imgs), 3)
+                        *stage1(torch, encs[name], imgs), 3)
         out.append(f"{name}: {mod.line(res)}")
     return " | ".join(out)
 
@@ -2540,10 +2651,10 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
              f"max_memory_allocated, on {card}")
 
     # Each kernel's wrapper at the 7-frame shape (the first sub-batch's
-    # kept call; the VLI order scan's tokens laid out again as the token
-    # finisher leaves them: a kept call is a contiguous copy), beside its
-    # bound.
-    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
+    # kept call; kernel 12's pairs laid out again in a pair buffer's rows,
+    # as kernel A leaves them: a kept call is a contiguous copy), beside
+    # its bound.
+    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
                                    lifting, pack, plane_stats, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -2555,6 +2666,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
         "compact_tokens": lambda a: compact.compact_tokens(*a[:4]),
         "pack_words": lambda a: pack.pack_words(*a, order_flag=flag),
         "vli_orders": lambda a: vli_scan.vli_orders(*a),
+        "finish_tokens": lambda a: finish.finish_tokens(*a),
+        "packed_elems": lambda a: finish.packed_elems(*a),
     }
     parts = []
     for row in rows:
@@ -2562,11 +2675,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
         if name not in BATCH_KERNELS:
             continue
         kept = store[name][:1]
-        if name == "vli_orders":
-            kept = [tuple(as_finished(t) for t in kept[0])]
-        if name == "codeword_pieces":  # the finisher's three arrays
-            kept = [tuple(as_finished(t) for t in kept[0][:3])
-                    + kept[0][3:]]
+        if name == "finish_tokens":
+            kept = [as_pair_buffer(kept[0])]
         if name == "scatter_refbits":
             ms = sum(time_ms(torch, compact.scatter_refbits, setup=lambda a=a: (
                 a[0], a[1], a[2].clone(), a[3], a[4])) for a in kept)
@@ -2581,7 +2691,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
         plains = {"vli_orders": vli_scan.vli_orders_plain,
                   "forward_transform": lifting.forward_transform_plain,
                   "plane_stats": plane_stats.plane_stats_plain,
-                  "codeword_pieces": codeword.codeword_pieces_plain}
+                  "codeword_pieces": codeword.codeword_pieces_plain,
+                  "finish_tokens": finish.finish_tokens_plain,
+                  "packed_elems": finish.packed_elems_plain}
         if name in plains:
             plain = ", plain " + format(time_ms(torch, lambda: (
                 plains[name](*kept[0])), reps=3), ".3f") + " ms"
@@ -2592,13 +2704,17 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"device: stage 1 at the batch of {sub} frames: "
              + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
                              rows, "batch_device_ms"))
-    val, vli = (as_finished(t) for t in store["vli_orders"][0])
+    progress(f"device: kernels 12 and 13 at the batch of {sub} frames: "
+             + tokens_device(torch, {
+                 "finish_tokens": as_pair_buffer(store["finish_tokens"][0]),
+                 "packed_elems": store["packed_elems"][0]},
+                 rows, "batch_device_ms"))
+    val, vli = store["vli_orders"][0]
     progress(f"device: at the batch of {sub} frames, "
              + vli_device(torch, val, vli, rows, "batch_device_ms"))
     progress(f"batch: vli_orders on a {sub}-frame sub-batch's tokens: "
              + vli_collapse(torch, val, vli))
     cw = store["codeword_pieces"][0]
-    cw = tuple(as_finished(t) for t in cw[:3]) + cw[3:]
     progress(f"device: at the batch of {sub} frames, "
              + codeword_device(torch, cw, rows, "batch_device_ms", parent)
              + "; " + cumsum_line(torch, cw))
@@ -2606,6 +2722,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"profile: emit half of a {sub}-frame sub-batch by pass "
              f"(tools/emit_split.py): "
              + emit_splits(torch, enc.enc, seven, parent))
+    progress(f"profile: tokens half of a {sub}-frame sub-batch by pass "
+             f"(tools/tokens_split.py): "
+             + emit_splits(torch, enc.enc, seven, parent, "tokens_split"))
     progress(f"device: the forward transform by launch at the batch of {sub} "
              f"frames: " + lift_split(torch, frames[:sub]))
     del store
@@ -2696,7 +2815,9 @@ def main(argv: list) -> int:
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
                      transposes["4K"], got["vli_orders"][0],
                      {k: got[k][0] for k in STAGE1_NAMES},
-                     got["codeword_pieces"][0], rows)
+                     got["codeword_pieces"][0],
+                     {"finish_tokens": as_pair_buffer(got["finish_tokens"][0]),
+                      "packed_elems": got["packed_elems"][0]}, rows)
     del got, tiled_scatter, transposes
     torch.cuda.empty_cache()
 

@@ -5,8 +5,10 @@ Port of ``dwt_tpu/codec/encoder.py``'s ``Encoder``, ``get_encoder`` and
 and the emit half (codec/emit.py), writing the same ``.dwt`` bytes as the
 JAX package and the reference C encoder.  CUDA kernels run on the
 path: the forward transform and the plane statistics, the linearization
-gather (and its one-time probe when an encoder is built), compaction
-kernels A and B, the VLI order scan, and the codeword packer.  The stages take a leading frame axis:
+gather (and its one-time probe when an encoder is built), the packed
+elements, compaction kernels A and B, the token finisher, the VLI order
+scan, the codeword pieces and the codeword packer.  The stages take a
+leading frame axis:
 ``Encoder.stage1_frames`` and ``Encoder.emit_frames`` run N frames of the
 geometry through one pipeline (``codec/tiled.py``'s batch mode), and one
 stream is the case N = 1 (``Encoder.stage1``, ``Encoder.emit``).

@@ -7,7 +7,10 @@ Port of ``dwt_tpu/codec/encoder.py`` ``_packed_elems``,
 ``_vli_ab``, ``_vli_orders`` and ``_stage2_tokens``.  Every function
 takes a leading frame axis (N frames of one geometry at one token bucket:
 the JAX package's functions under ``jax.vmap``); the kernels launch once
-for the N frames, over their arrays laid end to end.
+for the N frames, over their arrays laid end to end.  On the card the
+packed elements (kernel 13), kernel A, the token finisher (kernel 12) and
+the VLI order scan are one call each; the token arrays come back
+contiguous, rows at stride padded_T.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from ..geometry import Pyramid
 from ..ops import compact
 from ..ops.compact import compact_tokens
+from ..ops.finish import finish_tokens, packed_elems
 # Not called on the encode path since the VLI order scan reads the token
 # arrays in place; the benchmark wraps ``tokens.transpose2d`` by this name.
 from ..ops.transpose import transpose2d  # noqa: F401
@@ -38,14 +42,9 @@ def _frame_ix(n: int, device) -> torch.Tensor:
 
 def _packed_elems(lin, segs: _Segs):
     """((N*C*n + E) / SUBA, SUBA) int32 rows for the compaction kernels,
-    frame after frame: bits 0-29 |coeff|, bit 30 sign, -1 = padding."""
-    det = lin[..., segs.root_pad :]
-    valid = segs.valid_t[None, :]
-    vm = torch.where(valid, det.abs() | ((det < 0).to(_I32) << 30), -1)
-    flat = torch.cat([vm.reshape(-1),
-                      torch.full((compact.E,), -1, dtype=_I32,
-                                 device=lin.device)])
-    return flat.reshape(-1, compact.SUBA)
+    frame after frame: bits 0-29 |coeff|, bit 30 sign, -1 = padding.  One
+    call of :func:`packed_elems` (kernel 13 on the card)."""
+    return packed_elems(lin, segs.valid_t)
 
 
 def _unit_common(stats, segs: _Segs, pyr: Pyramid, channels: int):
@@ -117,13 +116,15 @@ def _kernel_a_table(flat_ck):
 
 def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     """Kernel A, one launch pair for the N frames: each newly significant
-    element's zero-prefix and sign at its PAIR rank (step bases are even,
-    so pair rank = token slot / 2).  Returns ((N, padded_T / 2)
-    zero-prefixes, signs, packed elements, unit indexing); the unit
-    indexing also holds kernel A's unit table ("table") and the key
-    histograms of its count launch ("hist"), which kernel B reuses: B's
-    meta rows come in the same order, and every group live for B has a
-    live A unit (ops/compact.py:scatter_refbits)."""
+    element's ``(zero-prefix << 1) | sign`` at its PAIR rank (step bases
+    are even, so pair rank = token slot / 2).  Returns ((N, padded_T / 2)
+    pairs, a view of kernel A's pair buffer at row stride pairbuf; packed
+    elements; unit indexing); the unit indexing also holds kernel A's unit
+    table ("table") and the key histograms of its count launch ("hist"),
+    which kernel B reuses: B's meta rows come in the same order, and every
+    group live for B has a live A unit (ops/compact.py:scatter_refbits).
+    ``ops/finish.py:_split_pairs`` splits the pairs into zero-prefixes
+    and signs."""
     N = lin.shape[0]
     segs = segs_for(pyr, lin.device)
     com = _unit_common(stats, segs, pyr, channels)
@@ -133,108 +134,23 @@ def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     com["hist"] = compact.hist_for(com["table"])
     pairs = compact_tokens(vmag, meta, N * pairbuf, com["table"],
                            com["hist"]).reshape(N, pairbuf)[:, : padded_T // 2]
-    return pairs >> 1, pairs & 1, vmag, com
+    return pairs, vmag, com
 
 
-def _interleave2(a, b):
-    """``[a0, b0, a1, b1, ...]`` along the last axis of same-shape ``a``
-    and ``b``."""
-    return torch.stack([a, b], dim=-1).reshape(*a.shape[:-1], -1)
-
-
-def _fill_max(pos, vals, idx):
-    """``cummax(zeros(n).scatter_reduce(-1, pos, vals, "amax"))[..., idx]``:
-    the max of 0 and of every ``vals[..., j]`` with ``pos[..., j] <= i``,
-    by a binary search of the (..., S) sorted positions instead of a scan
-    over all n (torch's cummax kernel is slow).  ``idx`` (n,) is shared by
-    the leading axes."""
-    o = torch.argsort(pos, dim=-1, stable=True)
-    best = torch.cummax(vals.gather(-1, o).clamp(min=0), dim=-1).values
-    idx = idx.expand(*pos.shape[:-1], -1).contiguous()
-    k = torch.searchsorted(pos.gather(-1, o), idx, right=True) - 1
-    return torch.where(k >= 0, best.gather(-1, k.clamp(min=0)), 0)
-
-
-def _finish_tokens(zp, sgn, lin, stats, pyr: Pyramid, channels: int,
+def _finish_tokens(pairs, lin, stats, pyr: Pyramid, channels: int,
                    padded_T: int):
     """Dense completion of the (N, padded_T) token arrays (values, raw bit
-    counts, VLI flags) from the pair-rank zero-prefixes and signs: step
-    membership by forward fills of the schedule-step tables
-    (:func:`_fill_max`), run values as diffs of consecutive zero-prefixes
-    (+ the step's cross-step zero carry at its first pair), then root,
-    plane-count, ref-run and flush tokens as small scatters, each frame's
-    into its own row (flat index f * (padded_T + 1) + slot; slot padded_T
-    takes masked writes).  Constants go in by ``index_fill_``, whose scalar
-    needs no host-to-device copy."""
-    C = channels
-    N, dev = zp.shape[0], zp.device
-    pix0 = pyr.pixels[0]
-    DUMP = padded_T
-
-    npair = padded_T // 2
-    pa = torch.arange(npair, dtype=_I32, device=dev)
-    base_p = stats["base_sched"] >> 1
-    nS_sched = stats["nS_sched"]
-    bpos = base_p.clamp(0, npair - 1).long()
-    zero_p = torch.zeros((N, npair), dtype=_I32, device=dev)
-    sb_f = _fill_max(bpos, base_p, pa)
-    se_f = _fill_max(bpos, base_p + nS_sched, pa)
-    in_sig = pa < se_f  # pad pairs / pre-step region: se_f <= pa
-    first = pa == sb_f
-    cin_add = zero_p.scatter_add(1, bpos, torch.where(
-        stats["valid_sched"] & (nS_sched > 0), stats["cin_sched"], 0))
-    prev1 = torch.cat([zero_p[:, :1], zp[:, :-1]], dim=1)
-    runval = zp - torch.where(first, 0, prev1) + cin_add
-
-    # spare DUMP slot for masked small scatters
-    tok_val = torch.cat([_interleave2(torch.where(in_sig, runval, zp), sgn),
-                         zero_p[:, :1]], dim=1)
-    tok_raw = torch.cat([_interleave2(zero_p, in_sig.to(_I32)),
-                         zero_p[:, :1]], dim=1)
-    tok_vli = torch.cat([_interleave2(in_sig, torch.zeros_like(in_sig)),
-                         in_sig[:, :1] & False], dim=1)
-    val, raw, vli = (t.view(-1) for t in (tok_val, tok_raw, tok_vli))
-    rows = torch.arange(N, device=dev) * (padded_T + 1)  # row starts
-
-    def at(slot):
-        """Flat indices of the (N, ...) per-frame slots ``slot``."""
-        return (slot.long() + rows.view(N, *[1] * (slot.dim() - 1))
-                ).reshape(-1)
-
-    # --- root band tokens (encode.c:97-110) -------------------------------
-    root = lin[:, :, :pix0]
-    root_cnt, root_base = stats["root_cnt"], stats["root_base"]
-    nnzpfx = _excl_cumsum((root != 0).to(_I32), dim=2)
-    i_ix = torch.arange(pix0, dtype=_I32, device=dev)[None, None, :]
-    val[at(root_base)] = root_cnt.reshape(-1)
-    vli.index_fill_(0, at(root_base), True)
-    r_rank = root_base[:, :, None] + 1 + i_ix + nnzpfx
-    r_ok = root_cnt[:, :, None] > 0
-    r_rank_m = at(torch.where(r_ok, r_rank, DUMP))
-    val[r_rank_m] = root.abs().reshape(-1)
-    raw[r_rank_m] = root_cnt[:, :, None].expand(root.shape).reshape(-1)
-    s_ok = r_ok & (root != 0)
-    s_rank = at(torch.where(s_ok, r_rank + 1, DUMP))
-    val[s_rank] = (root < 0).to(_I32).reshape(-1)
-    raw.index_fill_(0, s_rank, 1)
-
-    # --- per-channel plane counts (encode.c:181-182) ----------------------
-    pr = at(stats["planes_base"][:, None]
-            + torch.arange(C, dtype=_I32, device=dev))
-    val[pr] = stats["planes"].reshape(-1)
-    vli.index_fill_(0, pr, True)
-
-    # --- ref-pass leading run tokens + final flush (rle_flush) ------------
-    rr_rank = at(torch.where(stats["refrun_ok"],
-                             stats["step_base"] + 2 * stats["nS"], DUMP))
-    val[rr_rank] = stats["refrun_val"].reshape(-1)
-    vli.index_fill_(0, rr_rank, True)
-    t_last = at(stats["T"][:, None] - 1)
-    val[t_last] = stats["carry_end"]
-    vli.index_fill_(0, t_last, True)
-
-    return (tok_val[:, :padded_T], tok_raw[:, :padded_T],
-            tok_vli[:, :padded_T])
+    counts, VLI flags) from kernel A's (N, padded_T / 2) pairs: one call of
+    :func:`finish_tokens` (kernel 12 on the card) on the pairs and the root
+    band as they lie and the schedule's step tables.  Returns contiguous
+    arrays, rows at stride padded_T."""
+    del channels, padded_T  # the pairs' and the root band's shapes
+    return finish_tokens(
+        pairs, lin[:, :, :pyr.pixels[0]], stats["base_sched"],
+        stats["nS_sched"], stats["cin_sched"], stats["valid_sched"],
+        stats["root_cnt"], stats["root_base"], stats["planes_base"],
+        stats["planes"], stats["refrun_ok"], stats["step_base"], stats["nS"],
+        stats["refrun_val"], stats["T"], stats["carry_end"])
 
 
 def _vli_ab(tok_val, tok_vli):
@@ -264,6 +180,6 @@ def _stage2_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     Returns ((N, padded_T) tv, tr, tf, orders, vmag, com): the packed
     elements and unit indexing of kernel A, which kernel B reuses in
     :func:`emit._stage2_emit`."""
-    zp, sgn, vmag, com = _sig_tokens(lin, stats, pyr, channels, padded_T)
-    tv, tr, tf = _finish_tokens(zp, sgn, lin, stats, pyr, channels, padded_T)
+    pairs, vmag, com = _sig_tokens(lin, stats, pyr, channels, padded_T)
+    tv, tr, tf = _finish_tokens(pairs, lin, stats, pyr, channels, padded_T)
     return tv, tr, tf, _vli_orders(tv, tf, padded_T), vmag, com

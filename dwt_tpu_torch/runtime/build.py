@@ -76,6 +76,16 @@ ENTRY_POINTS = {
                             _P),
     # (S, sms, per_sm, smem): the codeword kernel's launch plan
     "dwt_codeword_plan": (_L, _P, _P, _P),
+    # (pairs, pair_row, base, base_row, nS, ns_row, cin, cin_row, valid,
+    #  valid_row, S, root, root_frame, root_ch, pix0, C, root_cnt,
+    #  root_base, planes_base, planes, rr_ok, step_base, step_nS, rr_val, G,
+    #  T, carry_end, val, raw, vli, nframes, padded_T, stream)
+    "dwt_finish_tokens": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _L, _P,
+                          _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _L, _P, _P, _P, _P, _P, _L, _L, _P),
+    # (lin, lin_frame, lin_ch, nframes, C, root_pad, n, valid, tail, out,
+    #  stream)
+    "dwt_packed_elems": (_P, _L, _L, _L, _L, _L, _L, _P, _L, _P, _P),
     # (lin, valid, unit_chunk, chunk_base, nS, lastS, z0, zup, planes,
     #  rows, nlin, n, nchunk, group, stream)
     "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,

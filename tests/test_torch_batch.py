@@ -213,14 +213,13 @@ def test_batch_plain_equals_per_frame(batched, name, kernel):
 @pytest.mark.parametrize("name", list(GEOMS))
 def test_batch_vli_orders_read_in_place(batched, name):
     """The sub-batch's VLI order scan gets the token finisher's arrays as
-    they lie, each frame's row followed by its spare slot (row stride
-    padded_T + 1), and no transpose runs; its orders are the plain
-    version's on those arrays."""
+    they lie, contiguous rows at stride padded_T (no spare slot), and no
+    transpose runs; its orders are the plain version's on those arrays."""
     from dwt_tpu_torch.ops import vli_scan
 
     run, _, batch_calls, single_calls = batched[name]
     padded_T, tv, tf, orders = run[2], run[3], run[5], run[6]
-    assert tv.stride(0) == tf.stride(0) == padded_T + 1
+    assert tv.stride(0) == tf.stride(0) == padded_T
     (val, vli), = batch_calls["vli_orders"]
     assert torch.equal(val, tv) and torch.equal(vli, tf)
     assert val.dtype == torch.int32 and vli.dtype == torch.bool

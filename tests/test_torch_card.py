@@ -834,8 +834,8 @@ def _batch_pairs():
     """Each batched kernel's wrapper and plain version, and the codec
     module that calls it."""
     from dwt_tpu_torch.codec import emit, stage1, tokens
-    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather, pack,
-                                   transpose, vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
+                                   pack, transpose, vli_scan)
 
     return {
         "hilbert_gather": (stage1, hilbert_gather.hilbert_gather,
@@ -851,12 +851,17 @@ def _batch_pairs():
                        vli_scan.vli_orders_plain),
         "codeword_pieces": (emit, codeword.codeword_pieces,
                             codeword.codeword_pieces_plain),
+        "finish_tokens": (tokens, finish.finish_tokens,
+                          finish.finish_tokens_plain),
+        "packed_elems": (tokens, finish.packed_elems,
+                         finish.packed_elems_plain),
     }
 
 
 @pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
 def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
-    """Kernels 1-4, the VLI scan and kernel 11 (the codeword pieces) as a
+    """Kernels 1-4, the VLI scan, kernel 11 (the codeword pieces) and
+    kernels 12 and 13 (the token finisher, the packed elements) as a
     3-frame sub-batch calls them (a flat, a noise and a mixed frame: three
     token counts, one with no detail plane), each launched once for the
     sub-batch (kernel 6 not at all) and each call held to its plain
@@ -1104,3 +1109,109 @@ def test_stage1_frames_reuses_its_staging_buffer(cuda):
     lin_cpu, stats_cpu = Encoder(64, 48, 3, device="cpu").stage1_frames(a)
     assert torch.equal(lin.cpu(), lin_cpu)
     assert torch.equal(stats["T"].cpu(), stats_cpu["T"])
+
+
+FINISH_SHAPES = [
+    # (w, h, c, frames, cut): the smallest bucket (8,192 slots) at 1 and 7
+    # frames, frame counts that are no multiple of 4, schedules cut by a
+    # byte budget and by a tiled budget's layer cap, a 4K frame
+    (8, 8, 1, 1, None), (9, 8, 3, 7, None), (64, 48, 3, 3, None),
+    (96, 80, 3, 5, "capacity"), (128, 32, 1, 2, "layer"),
+    (320, 240, 3, 6, "capacity"), (3840, 2160, 3, 1, None)]
+
+
+def _finish_inputs(w, h, c, n, cut, cuda):
+    """Stage 1 of n frames on the card, the schedule cut where asked
+    ("capacity": a byte budget of T / 24 bytes; "layer": a tiled budget's
+    cap at layer 2), and kernel A's pairs as ``_sig_tokens`` leaves them:
+    (encoder, lin, stats, padded_T, pairs)."""
+    from dwt_tpu_torch.codec import encoder, tokens
+    from dwt_tpu_torch.codec.stage1 import frame
+
+    rng = np.random.default_rng(w * h + n)
+    imgs = np.stack([random_image(rng, w, h, c, ("mixed", "noise", "flat")[
+        i % 3]) for i in range(n)])
+    enc = encoder.Encoder(w, h, c, device=cuda)
+    lin, stats = enc.stage1_frames(imgs)
+    if cut:
+        host = encoder.host_stats(stats)
+        upds = {}
+        for i in range(n):
+            sh = frame(host, i)
+            upd = (encoder._truncate_schedule(sh, int(sh["T"]) // 24,
+                                              enc.pyr, c)
+                   if cut == "capacity" else
+                   encoder._truncate_schedule_to_layer(sh, 2, enc.pyr, c))
+            if upd is not None:
+                upds[i] = upd
+        assert upds
+        stats = encoder.patch_frames(stats, upds)
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    pairs, _, _ = tokens._sig_tokens(lin, stats, enc.pyr, c, padded_T)
+    return enc, lin, stats, padded_T, pairs
+
+
+@pytest.mark.parametrize("w,h,c,n,cut", FINISH_SHAPES)
+def test_finish_kernels_equal_plain(cuda, w, h, c, n, cut):
+    """Kernels 12 and 13 against their plain versions on the same CUDA
+    tensors, every output exact, dtype and shape included: the finisher on
+    the pair buffer's rows in place and on a contiguous copy, one launch a
+    call, its rows at stride padded_T; the packed elements of the frames."""
+    from dwt_tpu_torch.codec import stage1
+    from dwt_tpu_torch.ops import finish
+
+    enc, lin, stats, padded_T, pairs = _finish_inputs(w, h, c, n, cut, cuda)
+    assert pairs.stride(0) > pairs.shape[1] or n == 1
+    keys = ("base_sched", "nS_sched", "cin_sched", "valid_sched",
+            "root_cnt", "root_base", "planes_base", "planes", "refrun_ok",
+            "step_base", "nS", "refrun_val", "T", "carry_end")
+    root = lin[:, :, :enc.pyr.pixels[0]]
+    tables = [stats[k] for k in keys]
+    want = finish.finish_tokens_plain(pairs, root, *tables)
+    before = finish.finish_tokens.launches
+    for args in ((pairs, root), (pairs.contiguous(), root.contiguous())):
+        got = finish.finish_tokens(*args, *tables)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            assert g.dtype == w_.dtype and g.shape == (n, padded_T)
+            assert g.stride() == (padded_T, 1) and torch.equal(g, w_)
+    assert finish.finish_tokens.launches == before + 2
+    valid = stage1.segs_for(enc.pyr, lin.device).valid_t
+    before = finish.packed_elems.launches
+    got = finish.packed_elems(lin, valid)
+    assert finish.packed_elems.launches == before + 1
+    want = finish.packed_elems_plain(lin, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_stage2_tokens_launches_each_kernel_once(cuda):
+    """One ``_stage2_tokens`` of a 3-frame sub-batch on the card: one call
+    of each of kernels 12 and 13 (and of kernel A's wrapper and the VLI
+    order scan), the token arrays contiguous at row stride padded_T on
+    16-byte boundaries (the VLI order scan's 16-byte route), and every
+    output equal to the CPU's."""
+    from dwt_tpu_torch.codec import encoder, tokens
+    from dwt_tpu_torch.ops import compact, finish, vli_scan
+
+    rng = np.random.default_rng(12)
+    imgs = np.stack([random_image(rng, 64, 48, 3, k)
+                     for k in ("mixed", "noise", "flat")])
+    outs = {}
+    for dev in ("cpu", cuda):
+        enc = encoder.Encoder(64, 48, 3, device=dev)
+        lin, stats = enc.stage1_frames(imgs)
+        padded_T = encoder._bucket(int(stats["T"].max()))
+        fns = (finish.finish_tokens, finish.packed_elems,
+               compact.compact_tokens, vli_scan.vli_orders)
+        before = [fn.launches for fn in fns]
+        outs[dev] = tokens._stage2_tokens(lin, stats, enc.pyr, 3, padded_T)
+        torch.cuda.synchronize()
+        if dev == "cpu":
+            continue
+        assert [fn.launches - b for fn, b in zip(fns, before)] == [1] * 4
+        for t in outs[dev][:4]:
+            assert t.shape == (3, padded_T) and t.stride() == (padded_T, 1)
+            assert t.data_ptr() % 16 == 0
+    for a, b in zip(outs["cpu"][:5], outs[cuda][:5]):
+        assert torch.equal(a, b.cpu())

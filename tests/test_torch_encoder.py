@@ -35,6 +35,7 @@ def _port_pipeline(img):
     """The port's intermediates for one image: its stage functions on a
     batch of one frame (frame 0 of every result)."""
     from dwt_tpu_torch.codec import emit, encoder, stage1, tokens
+    from dwt_tpu_torch.ops import finish
 
     h, w, c = img.shape
     enc = encoder.Encoder(w, h, c, device="cpu")
@@ -42,7 +43,8 @@ def _port_pipeline(img):
     lin, stats = stage1._transform_and_stats(torch.as_tensor(img)[None], pyr,
                                              c, c == 1, enc._src)
     padded_T = encoder._bucket(int(stats["T"][0]))
-    zp, sgn, vmag, com = tokens._sig_tokens(lin, stats, pyr, c, padded_T)
+    pairs, vmag, com = tokens._sig_tokens(lin, stats, pyr, c, padded_T)
+    zp, sgn = finish._split_pairs(pairs)
     segs = stage1.segs_for(pyr, lin.device)
     meta_a, _ = tokens._kernel_a_meta(stats, segs, com, padded_T)
     tv, tr, tf, orders, vmag2, com2 = tokens._stage2_tokens(lin, stats, pyr,

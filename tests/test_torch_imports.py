@@ -221,6 +221,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
-        "codeword.cu", "compact.cu", "hilbert_gather.cu",
+        "codeword.cu", "compact.cu", "finish.cu", "hilbert_gather.cu",
         "hilbert_scatter.cu", "lifting.cu", "pack.cu", "plane_stats.cu",
         "probe.cu", "runtime.cu", "transpose.cu", "vli_scan.cu"]

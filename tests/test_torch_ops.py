@@ -155,7 +155,7 @@ def test_plane_stats_fused_equals_loop(rng, w, h, c, kind):
 def test_fill_max_equals_cummax_of_scatter():
     """The token finisher's forward fill equals the JAX package's
     scatter-max + cummax formulation on any positions and values."""
-    from dwt_tpu_torch.codec.tokens import _fill_max
+    from dwt_tpu_torch.ops.finish import _fill_max
 
     rng = np.random.default_rng(5)
     for _ in range(200):
