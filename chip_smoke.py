@@ -50,8 +50,8 @@ seconds:
              sub-batch holds within stage 2's int32 indices; it encodes
              in two sub-batches (counts reset and read), equal to the same
              container in sub-batches of 4,096, decodes back to the
-             frame, and stage 1's kernels equal their plain versions on
-             256 of its tiles.
+             frame, and stage 1's kernels (kernel 14 too) and kernel 15
+             equal their plain versions on 256 of its tiles.
 4. kernels — each kernel again on the 4K main paths' inputs, held against
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
@@ -82,14 +82,20 @@ seconds:
              finisher (on the 4K pairs in a pair buffer's rows, as kernel
              A leaves them) and the packed elements, each beside its
              plain version and bound (no PyTorch call computes either);
-             the tile engines' probe as its one host call, and one cold
-             ``engine_supported`` by the host clock.
+             kernels 14 and 15, the schedule (level sums, step order,
+             carry chain and token bases, on the 4K chunk tables; beside
+             ``torch.argsort`` of its keys as the sort's yardstick) and
+             kernel A's unit tables; the tile engines' probe as its one
+             host call, and one cold ``engine_supported`` by the host
+             clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
              warm encode spends its time (stage times; stage 1 by pass,
              ``tools/stage1_split.py``: upload, colour and lifting,
-             gather, statistics, schedule and carry; device busy time
-             and idle share from torch.profiler, three readings; the
-             device-to-host and host-to-device copies of one; the CUDA
+             gather, statistics, schedule and carry, in turns with the
+             parent tree's where ``--parent DIR`` names one; device busy
+             time and idle share from torch.profiler, three readings; the
+             device-to-host and host-to-device copies of one, which must
+             hold one host-to-device copy at most, the upload; the CUDA
              kernels of one ``_codeword_contribs``: kernel 11 and the
              small ones of the step tables; the emit half by pass,
              ``tools/emit_split.py``: the pieces, the zero fill and pack,
@@ -97,9 +103,10 @@ seconds:
              boundaries, the host totals and the download, in turns with
              the parent tree's where ``--parent DIR`` names one; the
              tokens half by pass, ``tools/tokens_split.py``: the unit
-             indexing, kernel A's meta, table and histograms, the packed
-             elements, kernel A, the finisher and the VLI scan, in turns
-             with the parent's likewise); three
+             tables (kernel 15; the parent's unit indexing and kernel A's
+             meta and table), the histograms, the packed elements, kernel
+             A, the finisher and the VLI scan, in turns with the parent's
+             likewise); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
              share of the tail; three warm tiled encodes (lossless and at
@@ -111,10 +118,11 @@ seconds:
              decode's calls (there also at other channel groups), kernel
              6 on its seeded tensors (the int8 one also by the element
              kernel), the VLI order scan's kernel, stage 1's three
-             kernels, kernel 11, kernels 12 and 13 (the finisher's dense
-             pass and special tokens, the packed elements), and the
+             kernels, kernel 11, kernels 12-15 (the finisher's dense
+             pass and special tokens, the packed elements, the level sums
+             and the schedule, the unit tables), and the
              forward transform launch by launch with the levels each
-             lifts (the scan, stage 1 and kernels 11-13 also at the
+             lifts (the scan, stage 1 and kernels 11-15 also at the
              batch's 7-frame shape in phase 9).
              After the timing phase, so that no profiler session runs
              before it.
@@ -180,10 +188,14 @@ the two-rank run of phase 7 (it needs two cards), and prints no result
 lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
 phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
 DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
-with this one's, splits its emit half and its tokens half by pass in
-turns with this one's (phases 5 and 9), and times its kernel 11 on the same calls in turns
-with this one's at 4K (phase 6) and at 7 frames (phase 9), with each
-build's registers and shared memory a block.
+with this one's, splits its stage 1, its emit half and its tokens half
+by pass in turns with this one's (phases 5 and 9), times its kernel 11
+on the same calls in turns with this one's at 4K (phase 6) and at 7
+frames (phase 9), with each build's registers and shared memory a
+block, and times its ``encode_tiled`` of the small tiles (phase 3) and
+of the benchmark's 15360x8640 frame in 512x512 tiles at a third of its
+lossless container (last) in turns with this one's, each container held
+equal to this tree's.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  On success the last three lines are the kernels' JSON, the
@@ -314,7 +326,8 @@ ENCODE_PATHS = ("encode", "capacity encode", "tiled encode",
 BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
                  "scatter_refbits": 1, "vli_orders": 1, "codeword_pieces": 1,
-                 "finish_tokens": 1, "packed_elems": 1}
+                 "finish_tokens": 1, "packed_elems": 1, "schedule": 1,
+                 "unit_tables": 1}
 # Kernel 6, on no path: seeded tensors of the shapes the VLI order scan
 # gave it (the (nblk, 128) int32 parameters in, the int8 orders back) at
 # the 4K frame's token bucket and a 7-frame 1080p sub-batch's.
@@ -363,18 +376,18 @@ def max_abs_err(name: str, kernel_out, plain_out) -> int:
 class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
     scan, the forward transform, the plane statistics, the codeword
-    pieces, the token finisher, the packed elements and the tile engines'
-    probe), their sources, the TPU kernels (or, for the scan, the
-    transform, the statistics, the pieces, the finisher and the packed
-    elements, the JAX code) they replace and the paths (``ENCODE_PATHS``,
-    ``DECODE_PATHS``) whose runs must launch them."""
+    pieces, the token finisher, the packed elements, the schedule, kernel
+    A's unit tables and the tile engines' probe), their sources, the TPU
+    kernels (or, for kernels 8-15, the JAX code) they replace and the
+    paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch
+    them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
         from dwt_tpu_torch.ops import (codeword, compact, finish,
                                        hilbert_gather, hilbert_scatter,
-                                       lifting, pack, plane_stats, transpose,
-                                       vli_scan)
+                                       lifting, pack, plane_stats, schedule,
+                                       transpose, units, vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
         from dwt_tpu_torch.parallel import tiled as halo
 
@@ -382,7 +395,8 @@ class Kernels:
         # sharded encoder its gather through the composed halo index, and
         # the transform only as the halo DWT's coarse tail, ``dwt2d_fwd``,
         # whose launches count on ``forward_transform``; it reaches the
-        # plane statistics through stage 1's ``_stats_from_lin``).
+        # plane statistics and the schedule through stage 1's
+        # ``_stats_from_lin``).
         self.sites = [(stage1, "forward_transform"),
                       (stage1, "hilbert_gather"), (stage1, "plane_stats"),
                       (tokens, "compact_tokens"),
@@ -390,6 +404,7 @@ class Kernels:
                       (decoder, "hilbert_scatter"),
                       (tokens, "vli_orders"), (emit, "codeword_pieces"),
                       (tokens, "finish_tokens"), (tokens, "packed_elems"),
+                      (stage1, "schedule"), (tokens, "unit_tables"),
                       (sharded, "hilbert_gather"), (halo, "dwt2d_fwd")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
@@ -413,6 +428,8 @@ class Kernels:
             "finish_tokens": (finish.finish_tokens,
                               finish.finish_tokens_plain),
             "packed_elems": (finish.packed_elems, finish.packed_elems_plain),
+            "schedule": (schedule.schedule, schedule.schedule_plain),
+            "unit_tables": (units.unit_tables, units.unit_tables_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -473,6 +490,17 @@ class Kernels:
             ("packed_elems", finish.packed_elems,
              "dwt_tpu_torch/csrc/finish.cu",
              "dwt_tpu/codec/encoder.py:505", ENCODE_PATHS),
+            # Kernels 14 and 15, the schedule (level sums, step order,
+            # carry chain and token bases; two kernels a call) and kernel
+            # A's unit tables: one call a sub-batch each.  No TPU kernel:
+            # they replace the JAX package's XLA in _stats_from_lin after
+            # the plane statistics, and _unit_common with _kernel_a_meta.
+            ("schedule", schedule.schedule,
+             "dwt_tpu_torch/csrc/schedule.cu",
+             "dwt_tpu/codec/encoder.py:355", ENCODE_PATHS),
+            ("unit_tables", units.unit_tables,
+             "dwt_tpu_torch/csrc/units.cu",
+             "dwt_tpu/codec/encoder.py:521", ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -655,25 +683,15 @@ def fmt_split(parts: dict) -> str:
 
 def wrapper_split_a(torch, vmag, meta, npairs, table) -> str:
     """Kernel A's wrapper in its parts, by CUDA events: the zero fill of
-    the pair buffer, the encoder's unit table (one scatter from flat_ck,
-    recovered here as the table's inverse), the count launch and the
-    place launch (on the kept buffers)."""
-    from dwt_tpu_torch.codec import tokens
+    the pair buffer, the count launch and the place launch (on the kept
+    buffers; the unit table is kernel 15's, timed in its own row)."""
     from dwt_tpu_torch.ops import compact
 
-    flat = table.reshape(-1)
-    flat_ck = torch.empty_like(flat)
-    flat_ck[flat.long()] = torch.arange(flat.numel(), dtype=flat.dtype,
-                                        device=flat.device)
-    flat_ck = flat_ck[None]  # the single-stream encode's one frame
-    if not torch.equal(tokens._kernel_a_table(flat_ck), table):
-        raise AssertionError("kernel A's table is not flat_ck's inverse")
     out = torch.zeros(npairs, dtype=torch.int32, device=vmag.device)
     hist = compact.hist_for(table)
     return fmt_split(dict(
         fill=time_ms(torch, lambda: torch.zeros(npairs, dtype=torch.int32,
                                                 device=vmag.device)),
-        table=time_ms(torch, lambda: tokens._kernel_a_table(flat_ck)),
         count=time_ms(torch, lambda: compact.count(vmag, meta, table, hist)),
         place=time_ms(torch, lambda: compact.place(vmag, meta, table, hist,
                                                    out))))
@@ -838,20 +856,31 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
     return "; ".join(parts)
 
 
-# Kernels 12 and 13 by wrapper, as the profiler names them.
+# Kernels 12-15 by wrapper, as the profiler names them.
 TOKENS_NAMES = {"finish_tokens": ("finish_dense_kernel",
                                   "finish_special_kernel"),
-                "packed_elems": ("packed_elems_kernel",)}
+                "packed_elems": ("packed_elems_kernel",),
+                "schedule": ("level_sums_kernel", "schedule_kernel"),
+                "unit_tables": ("units_kernel",)}
+
+
+def tokens_kept(store: dict) -> dict:
+    """The first kept call of each of kernels 12-15 (kernel 12's pairs
+    laid out again in a pair buffer's rows)."""
+    return {"finish_tokens": as_pair_buffer(store["finish_tokens"][0]),
+            **{k: store[k][0] for k in ("packed_elems", "schedule",
+                                        "unit_tables")}}
 
 
 def tokens_device(torch, kept: dict, rows: list, key: str) -> str:
-    """Kernels 12 and 13's device time (torch.profiler) on their kept
-    calls ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's kernels
+    """Kernels 12-15's device time (torch.profiler) on their kept calls
+    ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's kernels
     summed); returns a line of them beside their bounds."""
-    from dwt_tpu_torch.ops import finish
+    from dwt_tpu_torch.ops import finish, schedule, units
 
     fns = {"finish_tokens": finish.finish_tokens,
-           "packed_elems": finish.packed_elems}
+           "packed_elems": finish.packed_elems,
+           "schedule": schedule.schedule, "unit_tables": units.unit_tables}
     parts = []
     for name, kernels in TOKENS_NAMES.items():
         args = kept[name]
@@ -874,7 +903,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; kernel 6 on its seeded 4K tensors, the int8 one
     also by the element kernel; the VLI order scan's kernel, stage 1's
-    kernels and kernels 12 and 13 at 4K (into ``rows``), kernel 11 in
+    kernels and kernels 12-15 at 4K (into ``rows``), kernel 11 in
     turns with the ``parent`` checkout's where one is given.  Run last, so that no
     profiler session comes before the timing phase that a parent's script
     would not run either."""
@@ -918,7 +947,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                                                       rows, "device_ms"))
     progress("device: " + codeword_device(torch, codeword_args, rows,
                                           "device_ms", parent))
-    progress("device: kernels 12 and 13 at 4K: " + tokens_device(
+    progress("device: kernels 12-15 at 4K: " + tokens_device(
         torch, tokens_kept, rows, "device_ms"))
 
 
@@ -1168,7 +1197,45 @@ def kernel_work(torch, name: str, args) -> tuple:
         return finish_work(torch, args)
     if name == "packed_elems":
         return packed_work(torch, args)
+    if name == "schedule":
+        return schedule_work(torch, args)
+    if name == "unit_tables":
+        return units_work(torch, args)
     return encode_kernel_bytes(torch, name, args), 0
+
+
+def schedule_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 14 must spend on its arguments:
+    each input read once (the chunk tables, the planes, the root band, the
+    level tables) and each leaf it writes written once (not ``planes`` and
+    ``nS_ck``, which it passes through); and, as operations, the compares
+    of its sort, V^2 a frame for its V valid steps (on this data).  Its
+    other operations, a few a step and a chunk, are fewer."""
+    from dwt_tpu_torch.ops import schedule
+
+    out = dict(zip(schedule.OUT_KEYS, schedule.schedule_plain(*args)))
+    nin = sum(t.numel() * t.element_size() for t in args
+              if hasattr(t, "numel"))
+    nout = sum(t.numel() * t.element_size() for k, t in out.items()
+               if k not in ("planes", "planes_max", "T", "nS_ck"))
+    V = out["valid_sched"].sum(dim=1).long()
+    return nin + nout, int((V * V).sum())
+
+
+def units_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 15 must spend: the (N, S) order,
+    validity and step bases read once, the chunk tables read once at each
+    unit (nS_ck, scar_ck, zcar_ck: a unit each), the level and chunk tables
+    once, and for each unit its five int32 columns, its flag, its 32-byte
+    meta row and its table slot written once.  Its operations, a binary
+    search of S bases and a few more a unit, take less time at the INT32
+    rate than those bytes, and are not counted."""
+    order, valid, step_base, nS_ck = args[:4]
+    N, S = order.shape
+    U = nS_ck[0].numel()
+    small = sum(t.numel() * 4 for t in args[6:10])
+    return (N * S * 9 + 3 * 4 * N * U + small
+            + N * U * (5 * 4 + 1 + 32 + 4)), 0
 
 
 def finish_work(torch, args) -> tuple:
@@ -1240,7 +1307,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
                                    hilbert_scatter, lifting, pack,
-                                   plane_stats, transpose, vli_scan)
+                                   plane_stats, schedule, transpose, units,
+                                   vli_scan)
 
     out = []
 
@@ -1517,7 +1585,47 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
             time_ms(torch, lambda: plain(*args), reps=3), nbytes, None, ops)
         progress(f"kernels: {name} {tuple(args[0].shape)} (row stride "
                  f"{args[0].stride(0)}): {nbytes} bytes")
+
+    # 10. kernels 14 and 15, the schedule (on the plane statistics' 4K
+    # chunk tables) and kernel A's unit tables (on kernel 14's leaves),
+    # each held to its plain version (the eager passes the encoder ran
+    # before, with a vectorised chain for the host walk).  No PyTorch call
+    # computes either function; torch.argsort of the S schedule keys is
+    # the sort's yardstick.
+    for name, fn, plain in (
+            ("schedule", schedule.schedule, schedule.schedule_plain),
+            ("unit_tables", units.unit_tables, units.unit_tables_plain)):
+        args = got[name][0]
+        nbytes, ops = kernel_work(torch, name, args)
+        lib_ms = None
+        if name == "schedule":
+            keys = schedule_keys(torch, args[0], args[6].numel())
+            lib_ms = time_ms(torch, lambda: torch.argsort(keys, dim=1,
+                                                          stable=True))
+        row(name, fn(*args), plain(*args), time_ms(torch, lambda: fn(*args)),
+            time_ms(torch, lambda: plain(*args), reps=3), nbytes, lib_ms,
+            ops)
+        progress(f"kernels: {name} {tuple(args[0].shape)}: {nbytes} bytes, "
+                 f"{ops} compares")
     return out
+
+
+def schedule_keys(torch, planes, L: int):
+    """The (N, S) schedule keys of kernel 14's frames (the plain version's
+    formula), invalid steps at 2^30: the input of the sort's yardstick."""
+    from dwt_tpu_torch.ops.plane_stats import PMAX
+
+    N, C = planes.shape
+    dev = planes.device
+    pm = planes.amax(dim=1)[:, None, None, None]
+    c = torch.arange(C, dtype=torch.int32, device=dev)[None, :, None, None]
+    l_ = torch.arange(L, dtype=torch.int32, device=dev)[None, None, :, None]
+    p = torch.arange(PMAX, dtype=torch.int32, device=dev)[None, None, None]
+    sec = (c > 0).to(torch.int32)
+    layers = torch.where(sec == 0, pm - 2 - p + l_, pm - 1 - p + l_)
+    key = ((layers + 1) << 16) | (sec << 12) | (l_ << 6) | c
+    return torch.where(p < planes[:, :, None, None], key, 2**30).reshape(
+        N, -1)
 
 
 def seeded_transposes(torch) -> dict:
@@ -1649,8 +1757,8 @@ def profile(torch, enc, img, parent: str | None) -> None:
         torch, lambda: emit._codeword_contribs(stats, tv, tr, tf, orders,
                                                padded_T, nwords)))
     del lin, stats, tv, tr, tf, orders, vmag, com
-    progress("profile: stage 1 at 4K by pass: " + stage1_split(torch, enc,
-                                                               img[None]))
+    progress("profile: stage 1 at 4K by pass (tools/stage1_split.py): "
+             + stage1_split(torch, enc, img[None], parent))
     progress("profile: emit half at 4K by pass (tools/emit_split.py): "
              + emit_splits(torch, enc, img[None], parent))
     progress("profile: tokens half at 4K by pass (tools/tokens_split.py): "
@@ -1684,7 +1792,11 @@ def profile(torch, enc, img, parent: str | None) -> None:
              + "; ".join(readings))
     copies = encode_copies(torch, enc, img)
     progress(f"profile: copies in one warm encode: {copies['DtoH']} "
-             f"device-to-host, {copies['HtoD']} host-to-device")
+             f"device-to-host, {copies['HtoD']} host-to-device (the frame's "
+             f"upload alone: stage 1 makes none)")
+    if copies["HtoD"] > 1:
+        raise AssertionError(f"one warm encode made {copies['HtoD']} "
+                             f"host-to-device copies; the upload is the one")
     progress("profile: top device time (last one): " + "; ".join(
         f"{name[:60]} {t / 1e3:.2f} ms x{n}" for name, (t, n) in top))
 
@@ -1755,14 +1867,27 @@ def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None,
     return " | ".join(out)
 
 
-def stage1_split(torch, enc, imgs: np.ndarray) -> str:
+def stage1_split(torch, enc, imgs: np.ndarray,
+                 parent: str | None = None) -> str:
     """``tools/stage1_split.py``'s split of one stage 1 of ``imgs``: the
     means of three runs, each pass by the host clock between synchronised
-    marks and by CUDA events, beside the unmarked ``stage1_frames``."""
-    res = tool("stage1_split").split(torch, enc, imgs, 3)
-    return "; ".join(f"{k} {h:.2f} ms" + ("" if d is None else
-                                         f" ({d:.2f} events)")
-                     for k, (h, d) in res.items())
+    marks and by CUDA events, beside the unmarked ``stage1_frames``; on
+    this tree's encoder ``enc`` and, where ``parent`` names a checkout, on
+    its encoder of the same geometry, in turns (this tree, the parent, the
+    parent, this tree)."""
+    mod = tool("stage1_split")
+    encs, order = {"this tree": enc}, ["this tree"]
+    if parent:
+        encs["parent"] = parent_module(parent, "codec.encoder").get_encoder(
+            enc.pyr.width, enc.pyr.height, enc.channels)
+        order = ["this tree", "parent", "parent", "this tree"]
+    out = []
+    for name in order:
+        res = mod.split(torch, encs[name], imgs, 3)
+        out.append(f"{name}: " + "; ".join(
+            f"{k} {h:.2f} ms" + ("" if d is None else f" ({d:.2f} events)")
+            for k, (h, d) in res.items()))
+    return " | ".join(out)
 
 
 def lift_split(torch, imgs: np.ndarray) -> str:
@@ -1790,7 +1915,7 @@ def lift_split(torch, imgs: np.ndarray) -> str:
         + f"; device {sum(m for _, m in ms):.4f} ms, {events}"
 
 
-def small_tiles(torch, K: Kernels, tiled) -> None:
+def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
     """Phase 3b, sub-batches within stage 2's int32 indices: a
     ``SMALL_SIDE`` square RGB frame in ``SMALL_TILE`` tiles, one geometry
     of more tiles than one sub-batch holds.  The pixel bound alone made
@@ -1798,11 +1923,12 @@ def small_tiles(torch, K: Kernels, tiled) -> None:
     host); ``encode_tiled`` now makes two (``BatchEncoder.max_frames``),
     each launching every encode kernel (counts reset and read).  Gates:
     the container equals the same frame's encoded ``SMALL_SUB`` tiles a
-    sub-batch, ``decode_tiled`` of it gives the frame back, and the
-    transform and the plane statistics equal their plain versions on the
-    first 256 tiles."""
+    sub-batch, ``decode_tiled`` of it gives the frame back, and stage 1's
+    kernels and kernel 15 equal their plain versions on the first 256
+    tiles.  Where ``parent`` names a checkout, its ``encode_tiled`` of the
+    frame must give the same container, and both are timed in turns."""
     from dwt_tpu_torch.codec import encoder, stage1
-    from dwt_tpu_torch.ops import lifting, plane_stats
+    from dwt_tpu_torch.ops import lifting, plane_stats, schedule, units
 
     t0 = time.perf_counter()
     img = random_image(SMALL_SIDE, SMALL_SIDE, C, seed=1)
@@ -1851,6 +1977,22 @@ def small_tiles(torch, K: Kernels, tiled) -> None:
             segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
     err = max(err, max_abs_err("plane_stats", plane_stats.plane_stats(*args),
                                plane_stats.plane_stats_plain(*args)))
+    n = x.shape[0]
+    planes, *tabs = plane_stats.plane_stats(*args)
+    args = (planes.reshape(n, C),
+            *(t.reshape(n, C, *t.shape[1:]) for t in tabs),
+            lin[:, :, :pyr.pixels[0]], segs.real_t, segs.level_chunk_base_t,
+            segs.level_nchunk_t, schedule.level_warps(segs.level_nchunk))
+    got = schedule.schedule(*args)
+    err = max(err, max_abs_err("schedule", got,
+                               schedule.schedule_plain(*args)))
+    st = dict(zip(schedule.OUT_KEYS, got))
+    args = (st["order"], st["valid_sched"], st["step_base"], st["nS_ck"],
+            st["scar_ck"], st["zcar_ck"], segs.level_nchunk_t,
+            segs.level_chunk_base_t, segs.ch_start_t, segs.ch_len_t, segs.n,
+            encoder._bucket(int(st["T"].max())))
+    err = max(err, max_abs_err("unit_tables", units.unit_tables(*args),
+                               units.unit_tables_plain(*args)))
     if err:
         raise AssertionError(f"small tiles: a stage-1 kernel differs from "
                              f"its plain version (max abs err {err})")
@@ -1859,9 +2001,57 @@ def small_tiles(torch, K: Kernels, tiled) -> None:
              f"refused ({refused}); encode_tiled in {nsub} sub-batches of "
              f"{sub} at most -> {len(full)} bytes in {secs:.2f} s, launches "
              f"{counts}; equal to the container of {SMALL_SUB} tiles a "
-             f"sub-batch; decode_tiled gives the frame back; the transform "
-             f"and the plane statistics equal their plain versions on 256 "
-             f"tiles; {time.perf_counter() - t0:.1f} s")
+             f"sub-batch; decode_tiled gives the frame back; the transform, "
+             f"the plane statistics, the schedule and the unit tables equal "
+             f"their plain versions on 256 tiles; "
+             f"{time.perf_counter() - t0:.1f} s")
+    if parent:
+        progress("timing: small tiles, encode_tiled in turns with the "
+                 "parent: " + tiled_turns(torch, tiled, parent, img,
+                                          SMALL_TILE, 0, full))
+
+
+def tiled_turns(torch, tiled, parent: str, img: np.ndarray, tile: tuple,
+                budget: int, want: bytes) -> str:
+    """``encode_tiled`` of ``img`` by this tree and by the checkout at
+    ``parent`` in turns (this tree, the parent, the parent, this tree),
+    after one warm call each, by the host clock, synchronised; each
+    container must equal ``want``."""
+    fns = {"this tree": tiled.encode_tiled,
+           "parent": parent_module(parent, "codec.tiled").encode_tiled}
+    mp = img.shape[0] * img.shape[1] / 1e6
+    times = []
+    for name in ("this tree", "parent", "parent", "this tree"):
+        if name not in [n for n, _ in times]:
+            fns[name](img, tile=tile, budget=budget)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fns[name](img, tile=tile, budget=budget)
+        torch.cuda.synchronize()
+        times.append((name, time.perf_counter() - t0))
+        if out != want:
+            raise AssertionError(f"{name}'s encode_tiled differs from this "
+                                 f"tree's first")
+    return "; ".join(f"{n} {1e3 * t:.1f} ms ({mp / t:.2f} MP/s)"
+                     for n, t in times)
+
+
+def uhd16k_turns(torch, tiled, parent: str, card: str) -> None:
+    """The benchmark's ``uhd16k-tiled`` encode (a 15360x8640 RGB frame,
+    "mixed", seed 0, in 512x512 tiles at a third of its lossless
+    container) by this tree and by the checkout at ``parent`` in turns;
+    both must give the same container."""
+    t0 = time.perf_counter()
+    img = random_image(15360, 8640, C, seed=0)
+    full = tiled.encode_tiled(img, tile=TILE)
+    budget = len(full) // 3
+    cut = tiled.encode_tiled(img, tile=TILE, budget=budget)
+    progress(f"timing: 16K frame made and encoded lossless ({len(full)} "
+             f"bytes), {time.perf_counter() - t0:.1f} s")
+    progress(f"timing: 15360x8640 encode_tiled in {TILE} tiles at budget "
+             f"{budget}, in turns with the parent: "
+             + tiled_turns(torch, tiled, parent, img, TILE, budget, cut)
+             + f" on {card}")
 
 
 def sha256_pixels(img: np.ndarray) -> str:
@@ -2627,7 +2817,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"batch: each of the {BATCH_N} streams equal to the "
              f"single-stream encoder's on the card (three passes)")
     progress(f"profile: stage 1 of a {sub}-frame sub-batch by pass: "
-             + stage1_split(torch, enc.enc, frames[:sub]))
+             + stage1_split(torch, enc.enc, frames[:sub], parent))
     progress(f"timing: warm batch encode of {mp:.1f} MP, MP/s: batch "
              + ", ".join(f"{m:.2f}" for m in rates["batch"])
              + "; single-stream encoder looped over the frames "
@@ -2655,7 +2845,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     # as kernel A leaves them: a kept call is a contiguous copy), beside
     # its bound.
     from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
-                                   lifting, pack, plane_stats, vli_scan)
+                                   lifting, pack, plane_stats, schedule,
+                                   units, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
@@ -2668,6 +2859,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
         "vli_orders": lambda a: vli_scan.vli_orders(*a),
         "finish_tokens": lambda a: finish.finish_tokens(*a),
         "packed_elems": lambda a: finish.packed_elems(*a),
+        "schedule": lambda a: schedule.schedule(*a),
+        "unit_tables": lambda a: units.unit_tables(*a),
     }
     parts = []
     for row in rows:
@@ -2693,7 +2886,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
                   "plane_stats": plane_stats.plane_stats_plain,
                   "codeword_pieces": codeword.codeword_pieces_plain,
                   "finish_tokens": finish.finish_tokens_plain,
-                  "packed_elems": finish.packed_elems_plain}
+                  "packed_elems": finish.packed_elems_plain,
+                  "schedule": schedule.schedule_plain,
+                  "unit_tables": units.unit_tables_plain}
         if name in plains:
             plain = ", plain " + format(time_ms(torch, lambda: (
                 plains[name](*kept[0])), reps=3), ".3f") + " ms"
@@ -2704,11 +2899,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"device: stage 1 at the batch of {sub} frames: "
              + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
                              rows, "batch_device_ms"))
-    progress(f"device: kernels 12 and 13 at the batch of {sub} frames: "
-             + tokens_device(torch, {
-                 "finish_tokens": as_pair_buffer(store["finish_tokens"][0]),
-                 "packed_elems": store["packed_elems"][0]},
-                 rows, "batch_device_ms"))
+    progress(f"device: kernels 12-15 at the batch of {sub} frames: "
+             + tokens_device(torch, tokens_kept(store), rows,
+                             "batch_device_ms"))
     val, vli = store["vli_orders"][0]
     progress(f"device: at the batch of {sub} frames, "
              + vli_device(torch, val, vli, rows, "batch_device_ms"))
@@ -2806,7 +2999,7 @@ def main(argv: list) -> int:
     lossy_decodes(torch, K, decoder, stream)
     capacity_encode(K, enc, img, stream, info["tokens"])
     full, tiled_scatter = tiled_paths(torch, K, tiled, img)
-    small_tiles(torch, K, tiled)
+    small_tiles(torch, K, tiled, parent)
 
     # 4. kernels against their plain versions, on the main path's inputs
     transposes = seeded_transposes(torch)
@@ -2815,9 +3008,7 @@ def main(argv: list) -> int:
     device_inputs = (got["hilbert_scatter"][0], tiled_scatter,
                      transposes["4K"], got["vli_orders"][0],
                      {k: got[k][0] for k in STAGE1_NAMES},
-                     got["codeword_pieces"][0],
-                     {"finish_tokens": as_pair_buffer(got["finish_tokens"][0]),
-                      "packed_elems": got["packed_elems"][0]}, rows)
+                     got["codeword_pieces"][0], tokens_kept(got), rows)
     del got, tiled_scatter, transposes
     torch.cuda.empty_cache()
 
@@ -2861,6 +3052,8 @@ def main(argv: list) -> int:
 
     # 9. the batch throughput mode: BASELINE config 4
     batch_phase(torch, K, rows, card, parent)
+    if parent:
+        uhd16k_turns(torch, tiled, parent, card)
 
     # A time not measured (NaN: the profiler dropped the kernel's events)
     # prints as null.

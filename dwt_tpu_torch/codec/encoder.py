@@ -191,9 +191,12 @@ def patch_stats(stats, upd: dict) -> dict:
     """One frame's ``stats`` with the leaves of a schedule cut (numpy)
     replaced by tensors on the stats' device, in the stage-1 dtypes."""
     dev = stats["order"].device
-    return {**stats, **{k: torch.as_tensor(v, dtype=_PATCH_DTYPES[k],
-                                           device=dev)
-                        for k, v in upd.items()}}
+    out = {**stats, **{k: torch.as_tensor(v, dtype=_PATCH_DTYPES[k],
+                                          device=dev)
+                       for k, v in upd.items()}}
+    if "T_host" in stats:
+        out["T_host"] = np.asarray(upd["T"], dtype=np.int32)
+    return out
 
 
 def patch_frames(stats, upds: dict) -> dict:
@@ -212,6 +215,9 @@ def patch_frames(stats, upds: dict) -> dict:
         t[rows] = torch.as_tensor(np.stack([upds[i][k] for i in ids]),
                                   dtype=dt, device=dev)
         out[k] = t
+    if "T_host" in stats:
+        out["T_host"] = stats["T_host"].copy()
+        out["T_host"][ids] = [upds[i]["T"] for i in ids]
     return out
 
 
@@ -477,7 +483,7 @@ class Encoder:
         t0 = time.perf_counter()
         img = np.asarray(img)
         lin, stats = self.stage1(img)
-        T = int(stats["T"])
+        T = int(stats["T_host"])
         if capacity > 0:
             # Budget-bounded work: mask schedule steps past the byte budget
             # before stage 2 (encode.c:192-216).

@@ -15,11 +15,13 @@ refinement bit when q > p, so every token's position in the stream is a
 function of per-chunk plane histograms and one carry chain over the
 (channel, level, plane) schedule.
 
-Two kernels serve this stage besides the gather: the colour transform and
-the lifting (``ops/lifting.py:forward_transform``, a launch a level), and
-the per-chunk plane statistics (``ops/plane_stats.py:plane_stats``, two
-launches); the rest of the statistics and the schedule are small eager
-tensor work and one carry chain on the host.
+Three kernels serve this stage besides the gather: the colour transform
+and the lifting (``ops/lifting.py:forward_transform``, a launch a large
+level and one for the coarse tail), the per-chunk plane statistics
+(``ops/plane_stats.py:plane_stats``, one launch), and the level sums,
+schedule order, carry chain and token bases (``ops/schedule.py:schedule``,
+kernel 14, one call of two kernels).  Stage 1 then copies each frame's
+planes_max and T to the host, in one copy, and makes no copy to the card.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops.hilbert_gather import hilbert_gather
 from ..ops.lifting import forward_transform
 from ..ops.plane_stats import (PMAX, UNIT, _excl_cumsum, _ilog2, detail_q,
                                plane_stats, plane_tables_plain)
+from ..ops.schedule import OUT_KEYS, level_sums_plain, level_warps, schedule
 
 # Adaptive VLI order states (vli.h:67-84): enough for run lengths < 2^28.
 NSTATE = 31
@@ -113,7 +116,6 @@ class _Segs:
         self.ch_start_t = t(self.ch_start)
         self.ch_len_t = t(self.ch_len)
         self.ch_valid_t = t(self.ch_valid)
-        self.chunk_level_t = t(np.repeat(np.arange(self.L), lv_cnt))
 
     def bcast(self, small: torch.Tensor) -> torch.Tensor:
         """(C, L) per-segment values -> (C, n) per-element."""
@@ -181,29 +183,13 @@ def _plane_stats(q, valid, segs: _Segs, C: int, L: int, planes_max):
 
 def _level_stats(nS_ck, lastS_ck, z0_ck, zup_ck, segs: _Segs):
     """(nS, nZ, trailZ, nS_ck, nZ_ck) from the chunk tables of
-    :func:`plane_stats`.
-
-    trailZ(c, l, p) — zeros after the level's last newly significant
-    element (rle.h run threading) — decomposes because level-local indices
-    are monotone across a level's chunks: the level's lastS lies in one
-    chunk k*, so z_upto = sum_{k<k*} nZ_ck[k] + (chunk-local zeros at
-    idx <= lastS)."""
-    nZ_ck = z0_ck[..., None] + _excl_cumsum(nS_ck, dim=2)
-
-    def lvl(x, red):
-        return torch.stack(
-            [red(x[:, b : b + c]) for b, c in
-             zip(segs.level_chunk_base, segs.level_nchunk)], dim=1)
-
-    nS = lvl(nS_ck, lambda s: s.sum(dim=1, dtype=_I32))
-    nZ = lvl(nZ_ck, lambda s: s.sum(dim=1, dtype=_I32))
-    lastS = lvl(lastS_ck, lambda s: s.amax(dim=1))  # (C, L, PMAX)
-    lastS_cc = lastS[:, segs.chunk_level_t]  # (C, nchunk, PMAX)
-    zcar = segs.level_excl_cumsum(nZ_ck)
-    is_k = (lastS_ck == lastS_cc) & (lastS_ck >= 0)
-    z_upto = lvl(torch.where(is_k, zcar + zup_ck, 0),
-                 lambda s: s.sum(dim=1, dtype=_I32))
-    return nS, nZ, nZ - z_upto, nS_ck, nZ_ck
+    :func:`plane_stats`: the level sums of kernel 14's plain version
+    (``ops/schedule.py:level_sums_plain``), which the tests hold to the
+    JAX package's ``_plane_stats``."""
+    nS, nZ, trailZ, nZ_ck, _, _ = level_sums_plain(
+        nS_ck, lastS_ck, z0_ck, zup_ck, segs.level_chunk_base,
+        segs.level_nchunk)
+    return nS, nZ, trailZ, nS_ck, nZ_ck
 
 
 def _plane_stats_loop(q, valid, segs: _Segs, C: int, L: int, planes_max):
@@ -273,146 +259,27 @@ def _linearize(coeff, src, pyr: Pyramid, channels: int):
     return lin
 
 
-def _carry_chain(carry0, valid_s, nS_s, nZ_s, trailZ_s, nRef_s):
-    """Zero-run carry chain over the schedule steps (rle.h cnt threading)
-    of N frames, on the host: ``carry0`` (N,), the rest (N, S) in schedule
-    order.  The chain has C * L * PMAX steps a frame, a few hundred to a
-    few thousand, and is sequential.  Returns (N, 3, S) int32 carry_in,
-    refrun_val and refrun_ok (0/1), and the (N,) carry at the end."""
-    N, S = valid_s.shape
-    out = np.zeros((N, 3, S), np.int32)
-    ends = np.zeros(N, np.int32)
-    for f in range(N):
-        cin, rrv, rro = [], [], []
-        carry = int(carry0[f])
-        for v, s_cnt, z_cnt, t_z, r_cnt in zip(
-                *(a[f].tolist() for a in (valid_s, nS_s, nZ_s, trailZ_s,
-                                          nRef_s))):
-            rv = t_z if s_cnt > 0 else carry + z_cnt
-            cin.append(carry)
-            rrv.append(rv)
-            rro.append(v and r_cnt > 0 and rv > 0)
-            if v:
-                carry = 0 if r_cnt > 0 else rv
-        out[f] = cin, rrv, rro
-        ends[f] = carry
-    return out, ends
-
-
 def _stats_from_lin(lin, pyr: Pyramid, channels: int):
     """Stage-1 statistics of N frames from their (N, C, nlin) linearized
-    coefficients: every leaf with a leading frame axis.  One
-    device-to-host copy (the carry chain's inputs and each frame's
-    planes_max, checked here by :func:`_check_planes`) and one
-    host-to-device copy (the chain's results) for the N frames."""
-    dev = lin.device
+    coefficients: every leaf with a leading frame axis.  The plane
+    statistics' kernel, then kernel 14 (:func:`schedule`), which writes
+    every leaf on the device; then one device-to-host copy, each frame's
+    planes_max and T (``T_host``, the token bucket's input), checked here
+    by :func:`_check_planes`.  No host-to-device copy."""
     N = lin.shape[0]
-    pix0 = pyr.pixels[0]
-    L, C = pyr.levels, channels
-    S = C * L * PMAX
-    segs = segs_for(pyr, dev)
-
-    root = lin[:, :, :pix0]
+    C = channels
+    segs = segs_for(pyr, lin.device)
     planes, *tables = plane_stats(
         lin.reshape(N * C, -1), segs.valid_t, segs.idx_local,
         segs.block_chunk, segs.unit_chunk_t, segs.chunk_base_t)
-    planes = planes.reshape(N, C)
-    planes_max = planes.amax(dim=1)  # (N,)
-
-    nS, nZ, trailZ, nS_ck, nZ_ck = (
-        x.reshape(N, C, *x.shape[1:]) for x in _level_stats(*tables, segs))
-    pm = planes_max[:, None, None, None]
-    p_ix = torch.arange(PMAX, dtype=_I32, device=dev)[None, None, None, :]
-    nRef = torch.where(p_ix < pm, segs.real_t[None, None, :, None] - nZ - nS,
-                       0)
-
-    # --- schedule order over each frame's (C, L, PMAX) step grid ----------
-    c_ix = torch.arange(C, dtype=_I32, device=dev)[None, :, None, None]
-    l_ix = torch.arange(L, dtype=_I32, device=dev)[None, None, :, None]
-    sec = (c_ix > 0).to(_I32)
-    layers = torch.where(sec == 0, pm - 2 - p_ix + l_ix,
-                         pm - 1 - p_ix + l_ix)
-    valid = (p_ix < planes[:, :, None, None]).expand(N, C, L, PMAX)
-    key = ((layers + 1) << 16) | (sec << 12) | (l_ix << 6) | c_ix
-    key = torch.where(valid, key, 2**30).reshape(N, S)
-    order = torch.argsort(key, dim=1, stable=True)  # schedule order of steps
-
-    def sched(x):
-        return x.reshape(N, S).gather(1, order)
-
-    nS_s, nZ_s, trailZ_s, nRef_s = map(sched, (nS, nZ, trailZ, nRef))
-    valid_s = sched(valid)
-
-    # When planes_max == 0 the degenerate pre-step (plane index -1,
-    # encode.c:190-194) contributes chunk 0's positions as pure zeros.
-    host = torch.cat([x.to(_I32) for x in (
-        valid_s, nS_s, nZ_s, trailZ_s, nRef_s, planes_max[:, None])],
-        dim=1).cpu().numpy()
-    pm_host = host[:, 5 * S]
-    _check_planes(int(pm_host.max()))
-    chain, carry_end = _carry_chain(
-        np.where(pm_host == 0, segs.real[0], 0),
-        *(host[:, k * S:(k + 1) * S] for k in range(5)))
-    back = torch.as_tensor(np.concatenate(
-        [chain.reshape(N, 3 * S), carry_end[:, None]], axis=1), device=dev)
-    carry_in_s, refrun_val_s = back[:, :S], back[:, S:2 * S]
-    refrun_ok_s = back[:, 2 * S:3 * S] != 0
-
-    # --- token counts / bases ---------------------------------------------
-    root_max = root.abs().amax(dim=2)
-    root_cnt = torch.where(root_max > 0,
-                           1 + _ilog2(root_max.clamp(min=1)), 0).to(_I32)
-    nnz_root = (root != 0).sum(dim=2, dtype=_I32)
-    root_tokens = (1 + torch.where(root_cnt > 0, pix0 + nnz_root, 0)).to(_I32)
-    root_base = _excl_cumsum(root_tokens)
-    planes_base = root_tokens.sum(dim=1, dtype=_I32)  # (N,)
-    steps_base0 = planes_base + C
-
-    # Refinement bits are not tokens: they are raw bits at closed-form
-    # positions, packed straight into the stream words.  Each step's base
-    # is padded to an even slot (the extra slot is a 0-bit raw token), as
-    # kernel A and the token finisher work in pair space.  (The JAX
-    # package pads to its TPU pack kernel's blocks instead; the CUDA pack
-    # kernel has no blocks, and this is the JAX package's layout on the
-    # CPU, so every intermediate still compares one to one.)
-    cnt_s = torch.where(valid_s, 2 * nS_s + refrun_ok_s.to(_I32), 0)
-    cnt_al = (cnt_s + 1) // 2 * 2
-    steps_base0_al = (steps_base0 + 1) // 2 * 2
-    base_s = (steps_base0_al[:, None] + _excl_cumsum(cnt_al)).to(_I32)
-    T = (steps_base0_al + cnt_al.sum(dim=1, dtype=_I32) + 1).to(_I32)  # flush
-    # Refinement-bit injection site of a step: the next step's base.
-    inj_pos_s = torch.cat([base_s[:, 1:], (T - 1)[:, None]], dim=1).to(_I32)
-    nref_v = torch.where(valid_s, nRef_s, 0)
-    refpfx_s = _excl_cumsum(nref_v).to(_I32)
-
-    def unsort(x):
-        out = torch.zeros((N, S), dtype=x.dtype, device=dev)
-        return out.scatter_(1, order, x).reshape(N, C, L, PMAX)
-
-    return lin, dict(
-        planes=planes, planes_max=planes_max,
-        nS=nS, nRef=nRef, root_cnt=root_cnt, root_base=root_base,
-        planes_base=planes_base,
-        step_base=unsort(base_s),
-        step_end=unsort((base_s + cnt_s).to(_I32)),
-        inj_pos=unsort(inj_pos_s),
-        refpfx=unsort(refpfx_s),
-        carry_in=unsort(carry_in_s),
-        refrun_val=unsort(refrun_val_s),
-        refrun_ok=unsort(refrun_ok_s),
-        valid=valid.contiguous(),
-        carry_end=back[:, 3 * S].contiguous(),
-        T=T,
-        order=order.to(_I32),
-        nS_ck=nS_ck,
-        nZ_ck=nZ_ck,
-        # Schedule-ordered (N, S) step views for the token finisher and the
-        # kernel metadata.
-        base_sched=base_s,
-        nS_sched=torch.where(valid_s, nS_s, 0),
-        cin_sched=carry_in_s,
-        valid_sched=valid_s,
-    )
+    stats = dict(zip(OUT_KEYS, schedule(
+        planes.reshape(N, C), *(t.reshape(N, C, *t.shape[1:]) for t in tables),
+        lin[:, :, :pyr.pixels[0]], segs.real_t, segs.level_chunk_base_t,
+        segs.level_nchunk_t, level_warps(segs.level_nchunk))))
+    host = stats.pop("head").cpu().numpy()
+    _check_planes(int(host[0].max()))
+    stats["T_host"] = host[1]
+    return lin, stats
 
 
 def frame(tree: dict, i: int) -> dict:

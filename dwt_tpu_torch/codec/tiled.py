@@ -85,7 +85,7 @@ class BatchEncoder:
         (that of its largest T, unless ``padded_T`` gives one) ->
         (payloads, (n, LMAX) int64 layer bit ends)."""
         lin, stats = batch
-        padded_T = padded_T or _enc._bucket(int(stats["T"].max()))
+        padded_T = padded_T or _enc._bucket(int(stats["T_host"].max()))
         payloads, _, ends = self.enc.emit_frames(lin, stats, padded_T)
         return payloads, ends
 
@@ -150,7 +150,7 @@ def budget_cuts(layer_bytes: list, budget: int) -> np.ndarray:
 def _reemit(enc: BatchEncoder, lin, stats) -> bytes:
     """One tile's payload emitted again without the layer mask (``lin``
     and ``stats``: that frame's, as ``Encoder.stage1`` gives them)."""
-    return enc.enc.emit(lin, stats, _enc._bucket(int(stats["T"])))[0]
+    return enc.enc.emit(lin, stats, _enc._bucket(int(stats["T_host"])))[0]
 
 
 def _budget_work(groups: dict, C: int, budget: int, n_tiles: int,

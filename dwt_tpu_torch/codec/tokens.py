@@ -2,14 +2,15 @@
 finisher and the adaptive-VLI order scan.
 
 Port of ``dwt_tpu/codec/encoder.py`` ``_packed_elems``,
-``_unit_common``, ``_kernel_a_meta``, ``_sig_tokens_pallas`` (here
-:func:`_sig_tokens`, always through kernel A), ``_finish_tokens``,
-``_vli_ab``, ``_vli_orders`` and ``_stage2_tokens``.  Every function
-takes a leading frame axis (N frames of one geometry at one token bucket:
-the JAX package's functions under ``jax.vmap``); the kernels launch once
-for the N frames, over their arrays laid end to end.  On the card the
-packed elements (kernel 13), kernel A, the token finisher (kernel 12) and
-the VLI order scan are one call each; the token arrays come back
+``_unit_common`` and ``_kernel_a_meta`` (here :func:`_unit_tables`),
+``_sig_tokens_pallas`` (here :func:`_sig_tokens`, always through kernel
+A), ``_finish_tokens``, ``_vli_ab``, ``_vli_orders`` and
+``_stage2_tokens``.  Every function takes a leading frame axis (N frames
+of one geometry at one token bucket: the JAX package's functions under
+``jax.vmap``); the kernels launch once for the N frames, over their
+arrays laid end to end.  On the card kernel A's unit tables (kernel 15),
+the packed elements (kernel 13), kernel A, the token finisher (kernel 12)
+and the VLI order scan are one call each; the token arrays come back
 contiguous, rows at stride padded_T.
 """
 
@@ -18,14 +19,15 @@ from __future__ import annotations
 import torch
 
 from ..geometry import Pyramid
-from ..ops import compact
+from ..ops import compact, units
 from ..ops.compact import compact_tokens
 from ..ops.finish import finish_tokens, packed_elems
 # Not called on the encode path since the VLI order scan reads the token
 # arrays in place; the benchmark wraps ``tokens.transpose2d`` by this name.
 from ..ops.transpose import transpose2d  # noqa: F401
+from ..ops.units import unit_tables
 from ..ops.vli_scan import vli_orders
-from .stage1 import PMAX, _Segs, _excl_cumsum, _ilog2, segs_for
+from .stage1 import _Segs, _ilog2, segs_for
 
 _I32 = torch.int32
 
@@ -35,11 +37,6 @@ _I32 = torch.int32
 VLI_BLOCK = 128
 
 
-def _frame_ix(n: int, device) -> torch.Tensor:
-    """(n, 1) int32 frame index, for per-frame offsets."""
-    return torch.arange(n, dtype=_I32, device=device)[:, None]
-
-
 def _packed_elems(lin, segs: _Segs):
     """((N*C*n + E) / SUBA, SUBA) int32 rows for the compaction kernels,
     frame after frame: bits 0-29 |coeff|, bit 30 sign, -1 = padding.  One
@@ -47,71 +44,22 @@ def _packed_elems(lin, segs: _Segs):
     return packed_elems(lin, segs.valid_t)
 
 
-def _unit_common(stats, segs: _Segs, pyr: Pyramid, channels: int):
-    """Per-unit (schedule step x E-element chunk) indexing shared by both
-    compaction kernels, in each frame's stream order.  All (N, U) int32
-    with U = C * PMAX * nchunk, each frame's own (elements counted from
-    its first)."""
-    L, C = pyr.levels, channels
-    order = stats["order"]  # (N, S)
-    N, dev = order.shape[0], order.device
-    c_s = order // (L * PMAX)
-    l_s = (order // PMAX) % L
-    p_s = order % PMAX
-    ups = segs.level_nchunk_t[l_s.long()]
-    ubase = _excl_cumsum(ups)
-    U = C * PMAX * segs.nchunk
-    u = torch.arange(U, dtype=_I32, device=dev).expand(N, U).contiguous()
-    sidx = torch.searchsorted(ubase, u, right=True) - 1
-    k = u - ubase.gather(1, sidx)
-    c_u, l_u, p_u = (x.gather(1, sidx) for x in (c_s, l_s, p_s))
-    chunkid = segs.level_chunk_base_t[l_u.long()] + k
-    elem = c_u * segs.n + segs.ch_start_t[chunkid.long()]
-    elen = segs.ch_len_t[chunkid.long()]
-    flat_step = order.gather(1, sidx)
-    flat_ck = (c_u * segs.nchunk + chunkid) * PMAX + p_u
-    return dict(elem=elem, elen=elen, p=p_u, flat_step=flat_step,
-                flat_ck=flat_ck, valid=stats["valid_sched"].gather(1, sidx))
-
-
-def _kernel_a_meta(stats, segs: _Segs, com, padded_T: int):
-    """(N*U, 8) int32 metadata of kernel A over the N frames, and the pair
-    buffer of one frame: frame f's rows read its elements (col 0 past the
-    earlier frames' N*C*n) and write pairs f * pairbuf onwards (col 3)."""
-    fck, fst = com["flat_ck"].long(), com["flat_step"].long()
-    N, C = fck.shape[0], stats["planes"].shape[1]
-    scar = segs.level_excl_cumsum(stats["nS_ck"]).reshape(N, -1)
-    zcar = segs.level_excl_cumsum(stats["nZ_ck"]).reshape(N, -1)
-    nS_u = stats["nS_ck"].reshape(N, -1).gather(1, fck)
-    u_pair0 = ((stats["step_base"].reshape(N, -1).gather(1, fst) >> 1)
-               + scar.gather(1, fck))
-    pairbuf = padded_T // 2 + compact.WTOK_BIG + 256
-    # The window start is kept as the TPU kernel's (128-aligned, clipped),
-    # so the table compares one to one; the kernel writes at col3 + col4.
-    ws = torch.clamp(u_pair0 & ~127, 0,
-                     (pairbuf - compact.WTOK_BIG) // 128 * 128)
-    f = _frame_ix(N, fck.device)
-    meta = torch.stack([
-        (com["elem"] + f * (C * segs.n)) // compact.SUBA, com["elen"],
-        com["p"], ws + f * pairbuf, u_pair0 - ws,
-        zcar.gather(1, fck),
-        torch.where(com["valid"], nS_u, 0),
-        torch.zeros_like(nS_u),
-    ], dim=2).to(_I32)
-    return meta.reshape(-1, 8), pairbuf
-
-
-def _kernel_a_table(flat_ck):
-    """(N * C * nchunk, PMAX) int32 unit table of kernel A's CUDA version:
-    the meta row of each (frame, channel, chunk, plane) unit, i.e. the
-    inverse of the permutation (N, U) ``flat_ck`` with frame f's units
-    offset by f * U (one scatter on the device, no host sync).  Its grid
-    is static for a geometry and batch size."""
-    N, U = flat_ck.shape
-    flat = (flat_ck + _frame_ix(N, flat_ck.device) * U).reshape(-1).long()
-    table = torch.empty(N * U, dtype=_I32, device=flat_ck.device)
-    table[flat] = torch.arange(N * U, dtype=_I32, device=flat_ck.device)
-    return table.reshape(-1, PMAX)
+def _unit_tables(stats, segs: _Segs, padded_T: int) -> tuple:
+    """Per-unit (schedule step x E-element chunk) tables of the N frames,
+    in each frame's stream order: one call of :func:`unit_tables` (kernel
+    15 on the card).  Returns (unit indexing: the (N, U) columns of
+    ``units.COM_KEYS`` that both compaction kernels read, U = C * PMAX *
+    nchunk, each frame's own, and kernel A's (N * C * nchunk, PMAX) unit
+    table as "table"; kernel A's (N*U, 8) int32 meta rows, frame f's rows
+    reading its elements past the earlier frames' N*C*n and writing pairs
+    f * pairbuf onwards; the pair buffer of one frame, pairbuf)."""
+    out = unit_tables(
+        stats["order"], stats["valid_sched"], stats["step_base"],
+        stats["nS_ck"], stats["scar_ck"], stats["zcar_ck"],
+        segs.level_nchunk_t, segs.level_chunk_base_t, segs.ch_start_t,
+        segs.ch_len_t, segs.n, padded_T)
+    com = dict(zip(units.OUT_KEYS, out))
+    return com, com.pop("meta"), units.pair_buffer(padded_T)
 
 
 def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
@@ -125,12 +73,11 @@ def _sig_tokens(lin, stats, pyr: Pyramid, channels: int, padded_T: int):
     group live for B has a live A unit (ops/compact.py:scatter_refbits).
     ``ops/finish.py:_split_pairs`` splits the pairs into zero-prefixes
     and signs."""
+    del channels  # the stats' shapes
     N = lin.shape[0]
     segs = segs_for(pyr, lin.device)
-    com = _unit_common(stats, segs, pyr, channels)
-    meta, pairbuf = _kernel_a_meta(stats, segs, com, padded_T)
+    com, meta, pairbuf = _unit_tables(stats, segs, padded_T)
     vmag = _packed_elems(lin, segs)
-    com["table"] = _kernel_a_table(com["flat_ck"])
     com["hist"] = compact.hist_for(com["table"])
     pairs = compact_tokens(vmag, meta, N * pairbuf, com["table"],
                            com["hist"]).reshape(N, pairbuf)[:, : padded_T // 2]

@@ -16,7 +16,7 @@ only its first col-6 outputs; outputs outside the buffer are dropped.
   of a unit gets the pair value ``(zero-prefix << 1) | sign`` at pair slot
   ``col3 + col4 + j`` (zero-prefix = col5 + zeros before it in the unit).
   The CUDA version is chunk-major: a (G, P) unit table (:func:`unit_table`,
-  or the encoder's ``tokens._kernel_a_table``) groups the units that
+  or the encoder's from ``ops/units.py``, kernel 15) groups the units that
   share a chunk of elements, slot q holding the meta row of plane q (-1:
   none), and two launches over G chunks x SUBLEN-element sub-ranges count
   and then place, reading each element once a launch for all its planes.

@@ -111,8 +111,8 @@ class ShardedEncoder:
         lin, stats = _stats_from_lin(
             sharded_lin(img, self.mesh, pyr, self.gray, self._src)[None],
             pyr, self.channels)
-        payloads, _, _ = self._enc.emit_frames(lin, stats,
-                                               _bucket(int(stats["T"][0])))
+        payloads, _, _ = self._enc.emit_frames(
+            lin, stats, _bucket(int(stats["T_host"][0])))
         stream = self._enc.header() + payloads[0]
         return stream[:capacity] if capacity > 0 else stream
 

@@ -90,6 +90,14 @@ ENTRY_POINTS = {
     #  rows, nlin, n, nchunk, group, stream)
     "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
                         _P),
+    # (planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, root_frame, root_ch,
+    #  pix0, real, lcb, lnc, nframes, C, L, nchunk, warps, outs, stream)
+    "dwt_schedule": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L,
+                     _L, _L, _L, _P, _P),
+    # (order, valid_sched, step_base, nS_ck, scar, zcar, lnc, lcb, ch_start,
+    #  ch_len, nframes, C, L, nchunk, n, padded_T, parts, outs, stream)
+    "dwt_unit_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                        _L, _L, _L, _L, _P, _P),
 }
 
 

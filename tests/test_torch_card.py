@@ -1215,3 +1215,76 @@ def test_stage2_tokens_launches_each_kernel_once(cuda):
             assert t.data_ptr() % 16 == 0
     for a, b in zip(outs["cpu"][:5], outs[cuda][:5]):
         assert torch.equal(a, b.cpu())
+
+
+# Kernels 14 and 15 at the main paths' shapes (a 4K frame, a 7-frame
+# 1080p sub-batch of the batch mode) and at small ones (16x16 tiles: two
+# levels; grey).
+SCHEDULE_SHAPES = [(3840, 2160, 3, 1), (1920, 1080, 3, 7), (16, 16, 3, 5),
+                   (96, 80, 1, 3)]
+
+
+def _frames(w, h, c, n):
+    rng = np.random.default_rng(w + h + n)
+    return np.stack([random_image(rng, w, h, c, ("mixed", "noise", "flat")[
+        i % 3]) for i in range(n)])
+
+
+@pytest.mark.parametrize("w,h,c,n", SCHEDULE_SHAPES)
+def test_schedule_kernel_equals_plain(cuda, w, h, c, n):
+    """Kernel 14 against its plain version on the same CUDA tensors, every
+    output exact, dtype and shape included; one launch a call; with the
+    encoder's warps a block of the level sums and with 1 and 32."""
+    from dwt_tpu_torch.codec import encoder, stage1
+    from dwt_tpu_torch.ops import schedule as sc
+    from dwt_tpu_torch.ops.lifting import forward_transform
+    from dwt_tpu_torch.ops.plane_stats import plane_stats
+
+    enc = encoder.Encoder(w, h, c, device=cuda)
+    x = torch.as_tensor(_frames(w, h, c, n), device=cuda)
+    lin = stage1._linearize(forward_transform(x, enc.pyr, c == 3), enc._src,
+                            enc.pyr, c)
+    segs = stage1.segs_for(enc.pyr, lin.device)
+    planes, *tabs = plane_stats(lin.reshape(n * c, -1), segs.valid_t,
+                                segs.idx_local, segs.block_chunk,
+                                segs.unit_chunk_t, segs.chunk_base_t)
+    args = (planes.reshape(n, c),
+            *(t.reshape(n, c, *t.shape[1:]) for t in tabs),
+            lin[:, :, :enc.pyr.pixels[0]], segs.real_t,
+            segs.level_chunk_base_t, segs.level_nchunk_t)
+    want = sc.schedule_plain(*args)
+    for warps in (sc.level_warps(segs.level_nchunk), 1, 32):
+        before = sc.schedule.launches
+        got = sc.schedule(*args, warps)
+        torch.cuda.synchronize()
+        assert sc.schedule.launches == before + 1
+        for k, g, w_ in zip(sc.OUT_KEYS, got, want):
+            assert g.dtype == w_.dtype and g.shape == w_.shape, k
+            assert torch.equal(g, w_), (k, warps)
+
+
+@pytest.mark.parametrize("w,h,c,n", SCHEDULE_SHAPES)
+def test_unit_tables_kernel_equals_plain(cuda, w, h, c, n):
+    """Kernel 15 against its plain version on the same CUDA tensors (stage
+    1's on the card), every output exact, at the frames' token bucket and
+    at four times it; one launch a call."""
+    from dwt_tpu_torch.codec import encoder, stage1
+    from dwt_tpu_torch.ops import units
+
+    enc = encoder.Encoder(w, h, c, device=cuda)
+    lin, stats = enc.stage1_frames(_frames(w, h, c, n))
+    segs = stage1.segs_for(enc.pyr, lin.device)
+    bucket = encoder._bucket(int(stats["T_host"].max()))
+    for padded_T in (bucket, 4 * bucket):
+        args = (stats["order"], stats["valid_sched"], stats["step_base"],
+                stats["nS_ck"], stats["scar_ck"], stats["zcar_ck"],
+                segs.level_nchunk_t, segs.level_chunk_base_t,
+                segs.ch_start_t, segs.ch_len_t, segs.n, padded_T)
+        before = units.unit_tables.launches
+        got = units.unit_tables(*args)
+        torch.cuda.synchronize()
+        assert units.unit_tables.launches == before + 1
+        want = units.unit_tables_plain(*args)
+        for k, g, w_ in zip(units.OUT_KEYS, got, want):
+            assert g.dtype == w_.dtype and g.shape == w_.shape, k
+            assert torch.equal(g, w_), k

@@ -233,10 +233,9 @@ def _encode_units(img):
                                              enc.pyr, c, c == 1, enc._src)
     padded_T = encoder._bucket(int(stats["T"][0]))
     segs = stage1.segs_for(enc.pyr, lin.device)
-    com = tokens._unit_common(stats, segs, enc.pyr, c)
-    meta, pairbuf = tokens._kernel_a_meta(stats, segs, com, padded_T)
+    com, meta, pairbuf = tokens._unit_tables(stats, segs, padded_T)
     vmag = tokens._packed_elems(lin, segs)
-    return vmag, meta, pairbuf, tokens._kernel_a_table(com["flat_ck"]), segs
+    return vmag, meta, pairbuf, com["table"], segs
 
 
 @pytest.mark.parametrize("w,h,c", [(96, 80, 3), (64, 48, 1), (9, 8, 3)])

@@ -46,7 +46,7 @@ def _port_pipeline(img):
     pairs, vmag, com = tokens._sig_tokens(lin, stats, pyr, c, padded_T)
     zp, sgn = finish._split_pairs(pairs)
     segs = stage1.segs_for(pyr, lin.device)
-    meta_a, _ = tokens._kernel_a_meta(stats, segs, com, padded_T)
+    _, meta_a, _ = tokens._unit_tables(stats, segs, padded_T)
     tv, tr, tf, orders, vmag2, com2 = tokens._stage2_tokens(lin, stats, pyr,
                                                             c, padded_T)
     nwords = emit._stream_words(pyr, c, padded_T)

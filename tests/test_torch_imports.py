@@ -223,4 +223,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert [p.name for p in build.sources()] == [
         "codeword.cu", "compact.cu", "finish.cu", "hilbert_gather.cu",
         "hilbert_scatter.cu", "lifting.cu", "pack.cu", "plane_stats.cu",
-        "probe.cu", "runtime.cu", "transpose.cu", "vli_scan.cu"]
+        "probe.cu", "runtime.cu", "schedule.cu", "transpose.cu", "units.cu",
+        "vli_scan.cu"]

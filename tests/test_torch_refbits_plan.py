@@ -268,7 +268,7 @@ def _encoder_drive(img):
                                           enc.pyr, c, padded_T, nwords)
     meta_b = emit._kernel_b_meta(stats, segs, com, refstart, enc.pyr,
                                  padded_T, nwords)
-    meta_a, _ = tokens._kernel_a_meta(stats, segs, com, padded_T)
+    _, meta_a, _ = tokens._unit_tables(stats, segs, padded_T)
     return (vmag.numpy(), meta_b.numpy(), words[0].numpy(),
             com["table"].numpy(), meta_a.numpy())
 

@@ -17,10 +17,17 @@ by CUDA events:
   the start of ``_linearize``;
 * gather: ``_linearize`` (the gather kernel and the root band);
 * statistics: the plane statistics (``_detail_q`` and ``_plane_stats``, or
-  ``plane_stats`` and ``_level_stats``, whichever the tree calls);
-* schedule and carry: the rest of ``_stats_from_lin`` (the schedule's
-  small launches, the device-to-host copy, the host carry chain, the
-  host-to-device copy, the token bases).
+  ``plane_stats`` and ``_level_stats``, whichever the tree calls: a tree
+  with kernel 14 calls ``plane_stats`` alone, the level sums being
+  kernel 14's);
+* schedule and carry: the rest of ``_stats_from_lin`` (with kernel 14,
+  its one call and the one device-to-host copy of planes_max and T;
+  before, the level sums' and the schedule's small launches, a
+  device-to-host copy, the host carry chain, a host-to-device copy and
+  the token bases).
+
+``split`` measures the tree that ``enc`` (an ``Encoder``) comes from, so
+``chip_smoke.py --parent`` splits two trees in turns in one process.
 
 The marks synchronise the card, so the passes add up to more than an
 unmarked stage 1; the unmarked ``stage1_frames`` is timed beside them.
@@ -34,6 +41,7 @@ line a shape, with the card's name and power limit.  Needs a card; exits
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -58,7 +66,8 @@ def frames(root: str, w: int, h: int, n: int):
 def split_once(torch, enc, imgs) -> dict:
     """One stage 1 of ``imgs`` with its passes marked: {pass: (host ms,
     device ms)}, and "stage1" for the marked whole."""
-    from dwt_tpu_torch.codec import stage1
+    stage1 = importlib.import_module(
+        type(enc).__module__.rsplit(".", 1)[0] + ".stage1")
 
     marks = {}
 

@@ -12,10 +12,14 @@ them.  Stage 1 runs once, outside the split; then
 ``tokens._stage2_tokens`` runs with these passes marked, each by the host
 clock between synchronised marks and by CUDA events:
 
+* unit tables: ``tokens.unit_tables``, kernel 15 (each unit's step,
+  chunk and plane, kernel A's meta rows and unit table), in a tree that
+  has it; in one before it:
 * unit indexing: ``tokens._unit_common`` (each unit's step, chunk and
   plane);
 * kernel A's meta, table and histograms: ``tokens._kernel_a_meta``,
-  ``tokens._kernel_a_table`` and ``compact.hist_for``;
+  ``tokens._kernel_a_table`` and ``compact.hist_for`` (with kernel 15,
+  ``compact.hist_for`` alone);
 * packed elements: ``tokens._packed_elems``;
 * kernel A: ``tokens.compact_tokens`` (its zeroed pair buffer and its
   count and place launches);
@@ -23,12 +27,12 @@ clock between synchronised marks and by CUDA events:
 * VLI scan: ``tokens._vli_orders``;
 * rest: the tokens half less the passes above (the glue between them).
 
-The split wraps these names only, so it measures any tree that keeps
-them.  The marks synchronise the card, so the passes add up to more than
-an unmarked tokens half, which is timed beside them ("tokens half
-unmarked": the call alone between two synchronised marks).  A pass's
-event time is the card's clock between its marks, idle gaps included, not
-its busy time.  The means of ``--reps`` runs after one warm run are
+The split wraps these names only, those the tree has, so it measures
+any tree that keeps some of them.  The marks synchronise the card, so
+the passes add up to more than an unmarked tokens half, which is timed
+beside them ("tokens half unmarked": the call alone between two
+synchronised marks).  A pass's event time is the card's clock between
+its marks, idle gaps included, not its busy time.  The means of ``--reps`` runs after one warm run are
 printed as one JSON line a shape, with the card's name and power limit.
 Needs a card; exits 1 without one.
 """
@@ -47,7 +51,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 META = "kernel A's meta, table and histograms"
 # (module, name) of each marked call -> its pass.
-PASSES = {("tokens", "_unit_common"): "unit indexing",
+PASSES = {("tokens", "unit_tables"): "unit tables",
+          ("tokens", "_unit_common"): "unit indexing",
           ("tokens", "_kernel_a_meta"): META,
           ("tokens", "_kernel_a_table"): META,
           ("compact", "hist_for"): META,
@@ -95,6 +100,7 @@ def split_once(torch, enc, lin, stats, padded_T: int,
             return out
         return run
 
+    passes = {k: v for k, v in passes.items() if hasattr(mods[k[0]], k[1])}
     saved = {k: getattr(mods[k[0]], k[1]) for k in passes}
     for k, name in passes.items():
         setattr(mods[k[0]], k[1], timed(name, saved[k]))
