@@ -85,7 +85,9 @@ seconds:
              kernels 14 and 15, the schedule (level sums, step order,
              carry chain and token bases, on the 4K chunk tables; beside
              ``torch.argsort`` of its keys as the sort's yardstick) and
-             kernel A's unit tables; the tile engines' probe as its one
+             kernel A's unit tables, and both on a seeded sweep of channel
+             and level counts up to the kernel's 2,048 steps a frame
+             (``schedule_sweep``); the tile engines' probe as its one
              host call, and one cold ``engine_supported`` by the host
              clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
@@ -119,8 +121,10 @@ seconds:
              6 on its seeded tensors (the int8 one also by the element
              kernel), the VLI order scan's kernel, stage 1's three
              kernels, kernel 11, kernels 12-15 (the finisher's dense
-             pass and special tokens, the packed elements, the level sums
-             and the schedule, the unit tables), and the
+             pass and special tokens, the packed elements, the schedule,
+             the unit tables; kernels 14 and 15 also by CUDA events, in
+             turns with the parent's where ``--parent DIR`` names one),
+             and the
              forward transform launch by launch with the levels each
              lifts (the scan, stage 1 and kernels 11-15 also at the
              batch's 7-frame shape in phase 9).
@@ -192,7 +196,7 @@ with this one's, splits its stage 1, its emit half and its tokens half
 by pass in turns with this one's (phases 5 and 9), times its kernel 11
 on the same calls in turns with this one's at 4K (phase 6) and at 7
 frames (phase 9), with each build's registers and shared memory a
-block, and times its ``encode_tiled`` of the small tiles (phase 3) and
+block, and its kernels 14 and 15 likewise, and times its ``encode_tiled`` of the small tiles (phase 3) and
 of the benchmark's 15360x8640 frame in 512x512 tiles at a third of its
 lossless container (last) in turns with this one's, each container held
 equal to this tree's.
@@ -491,7 +495,7 @@ class Kernels:
              "dwt_tpu_torch/csrc/finish.cu",
              "dwt_tpu/codec/encoder.py:505", ENCODE_PATHS),
             # Kernels 14 and 15, the schedule (level sums, step order,
-            # carry chain and token bases; two kernels a call) and kernel
+            # carry chain and token bases; one cluster launch) and kernel
             # A's unit tables: one call a sub-batch each.  No TPU kernel:
             # they replace the JAX package's XLA in _stats_from_lin after
             # the plane statistics, and _unit_common with _kernel_a_meta.
@@ -604,6 +608,11 @@ def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
     return total / reps
 
 
+# The kernels that kernel_events found in a wrong count in all three of
+# its sessions: {name matched: the count each session saw}.
+PROFILER_MISSES: dict = {}
+
+
 def kernel_events(torch, fn, match: str, n: int = 10,
                   per_call: int = 0) -> list:
     """[(name, device us)] of the kernels whose name holds ``match`` in
@@ -619,6 +628,7 @@ def kernel_events(torch, fn, match: str, n: int = 10,
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
@@ -631,6 +641,8 @@ def kernel_events(torch, fn, match: str, n: int = 10,
         if ev and not len(ev) % n and (not per_call
                                        or len(ev) == per_call * n):
             return [(e.name, e.time_range.elapsed_us()) for e in ev]
+        seen.append(len(ev))
+    PROFILER_MISSES[match] = seen
     return None  # none, or some dropped by the profiler
 
 
@@ -860,7 +872,7 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
 TOKENS_NAMES = {"finish_tokens": ("finish_dense_kernel",
                                   "finish_special_kernel"),
                 "packed_elems": ("packed_elems_kernel",),
-                "schedule": ("level_sums_kernel", "schedule_kernel"),
+                "schedule": ("schedule_kernel",),
                 "unit_tables": ("units_kernel",)}
 
 
@@ -949,6 +961,8 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                                           "device_ms", parent))
     progress("device: kernels 12-15 at 4K: " + tokens_device(
         torch, tokens_kept, rows, "device_ms"))
+    progress("device: kernels 14 and 15 at 4K, in turns: "
+             + schedule_turns(torch, tokens_kept, parent))
 
 
 def vli_device(torch, val, vli, rows: list, key: str) -> str:
@@ -1208,9 +1222,10 @@ def schedule_work(torch, args) -> tuple:
     """(bytes, integer operations) kernel 14 must spend on its arguments:
     each input read once (the chunk tables, the planes, the root band, the
     level tables) and each leaf it writes written once (not ``planes`` and
-    ``nS_ck``, which it passes through); and, as operations, the compares
-    of its sort, V^2 a frame for its V valid steps (on this data).  Its
-    other operations, a few a step and a chunk, are fewer."""
+    ``nS_ck``, which it passes through); and, as operations, the pair
+    terms of its closed-form sort, C * L for each of a frame's V valid
+    steps (on this data).  Its other operations, a few a step and a
+    chunk, are fewer."""
     from dwt_tpu_torch.ops import schedule
 
     out = dict(zip(schedule.OUT_KEYS, schedule.schedule_plain(*args)))
@@ -1218,23 +1233,23 @@ def schedule_work(torch, args) -> tuple:
               if hasattr(t, "numel"))
     nout = sum(t.numel() * t.element_size() for k, t in out.items()
                if k not in ("planes", "planes_max", "T", "nS_ck"))
-    V = out["valid_sched"].sum(dim=1).long()
-    return nin + nout, int((V * V).sum())
+    C, L = args[0].shape[1], args[6].numel()
+    return nin + nout, int(out["valid_sched"].sum()) * C * L
 
 
 def units_work(torch, args) -> tuple:
     """(bytes, integer operations) kernel 15 must spend: the (N, S) order,
-    validity and step bases read once, the chunk tables read once at each
-    unit (nS_ck, scar_ck, zcar_ck: a unit each), the level and chunk tables
-    once, and for each unit its five int32 columns, its flag, its 32-byte
-    meta row and its table slot written once.  Its operations, a binary
-    search of S bases and a few more a unit, take less time at the INT32
-    rate than those bytes, and are not counted."""
-    order, valid, step_base, nS_ck = args[:4]
+    unit bases, validity and step bases read once, the chunk tables read
+    once at each unit (nS_ck, scar_ck, zcar_ck: a unit each), the level and
+    chunk tables once, and for each unit its five int32 columns, its flag,
+    its 32-byte meta row and its table slot written once.  Its operations,
+    a binary search of S bases and a few more a unit, take less time at
+    the INT32 rate than those bytes, and are not counted."""
+    order, nS_ck = args[0], args[4]
     N, S = order.shape
     U = nS_ck[0].numel()
-    small = sum(t.numel() * 4 for t in args[6:10])
-    return (N * S * 9 + 3 * 4 * N * U + small
+    small = sum(t.numel() * 4 for t in args[7:10])
+    return (N * S * 13 + 3 * 4 * N * U + small
             + N * U * (5 * 4 + 1 + 32 + 4)), 0
 
 
@@ -1606,8 +1621,150 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
             time_ms(torch, lambda: plain(*args), reps=3), nbytes, lib_ms,
             ops)
         progress(f"kernels: {name} {tuple(args[0].shape)}: {nbytes} bytes, "
-                 f"{ops} compares")
+                 f"{ops} pair terms of the sort")
+    progress("kernels: " + schedule_sweep(torch))
     return out
+
+
+# The sweep of kernels 14 and 15: channels a frame, and frames a call.
+SWEEP_CHANNELS = (1, 2, 3, 32)
+SWEEP_FRAMES = 3
+
+
+def schedule_sweep(torch) -> str:
+    """Kernels 14 and 15 against their plain versions (max abs err 0) on
+    seeded tables at every level count L from 1 up to the kernel's limit
+    (S = C * L * 29 <= 2,048 steps, L <= 64) for each C of
+    ``SWEEP_CHANNELS``: cluster sizes min(8, C * L) from 1 to 8 and blocks
+    of 1 to 9 rows.  Each call's frame 0 has no planes (planes_max 0),
+    frame 2's channel 0 every plane, the others random planes; chunk
+    counts 1-6 a level, small counts with many zeros, ties among the
+    chunks' last positions.  Returns a line of what ran; raises on a
+    difference."""
+    from dwt_tpu_torch.ops import schedule, units
+    from dwt_tpu_torch.ops.plane_stats import PMAX
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device="cuda")
+
+    rng = np.random.default_rng(14)
+    N = SWEEP_FRAMES
+    calls, steps, clusters, err = 0, 0, set(), 0
+    t0 = time.perf_counter()
+    for C in SWEEP_CHANNELS:
+        for L in range(1, min(schedule.MAX_LEVELS,
+                              schedule.MAX_STEPS // (C * PMAX)) + 1):
+            lnc = rng.integers(1, 7, L)
+            nchunk = int(lnc.sum())
+            ck = (N, C, nchunk, PMAX)
+            nS_ck = np.where(rng.random(ck) < 0.5, 0,
+                             rng.integers(0, 40, ck))
+            planes = rng.integers(0, PMAX + 1, (N, C))
+            planes[0] = 0
+            planes[2, 0] = PMAX
+            ch_len = rng.integers(1, 65537, nchunk)
+            host = (planes, nS_ck, rng.integers(-1, 6, ck),
+                    rng.integers(0, 300, (N, C, nchunk)),
+                    rng.integers(0, 50, ck), rng.integers(-70, 70, (N, C, 7)),
+                    rng.integers(100, 900, L),
+                    np.concatenate([[0], np.cumsum(lnc)[:-1]]), lnc)
+            args = tuple(map(i32, host))
+            got = schedule.schedule(*args)
+            err = max(err, max_abs_err("schedule", got,
+                                       schedule.schedule_plain(*args)))
+            st = dict(zip(schedule.OUT_KEYS, got))
+            uargs = (st["order"], st["ubase_sched"], st["valid_sched"],
+                     st["step_base"], st["nS_ck"], st["scar_ck"],
+                     st["zcar_ck"], args[7], i32(np.cumsum(ch_len) - ch_len),
+                     i32(ch_len), int(ch_len.sum()),
+                     1 << max(13, int(st["T"].max()).bit_length()))
+            err = max(err, max_abs_err("unit_tables", units.unit_tables(*uargs),
+                                       units.unit_tables_plain(*uargs)))
+            calls += 1
+            steps = max(steps, C * L * PMAX)
+            clusters.add(min(8, C * L))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"the sweep of kernels 14 and 15 differs from "
+                             f"their plain versions (max abs err {err})")
+    return (f"kernels 14 and 15 equal to their plain versions (max abs err "
+            f"0) on a seeded sweep of {calls} calls of {N} frames: C in "
+            f"{SWEEP_CHANNELS}, L from 1 to the limit, up to {steps} steps a "
+            f"frame, cluster sizes {sorted(clusters)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+# Kernels 14 and 15 by tree, as the profiler names them (the parent's
+# kernel 14 was two kernels).
+SCHED_KERNELS = {"this tree": {"schedule": ("schedule_kernel",),
+                               "unit_tables": ("units_kernel",)},
+                 "parent": {"schedule": ("level_sums_kernel",
+                                         "schedule_kernel"),
+                            "unit_tables": ("units_kernel",)}}
+
+
+def schedule_turns(torch, kept: dict, parent: str | None) -> str:
+    """Kernels 14 and 15 on their kept calls ``kept[wrapper]``: each by
+    CUDA events around the wrapper (``time_ms``) and by device time
+    (torch.profiler), this tree's and, where ``parent`` names a checkout,
+    the parent's in turns (this tree, the parent, the parent, this tree),
+    each call's leaves held equal to this tree's.  The parent's unit
+    tables take the levels' chunk counts where this tree takes
+    ``ubase_sched``."""
+    from dwt_tpu_torch.ops import schedule, units
+
+    trees = {"this tree": (schedule, units)}
+    order = ["this tree"]
+    if parent:
+        trees["parent"] = (parent_module(parent, "ops.schedule"),
+                           parent_module(parent, "ops.units"))
+        order = ["this tree", "parent", "parent", "this tree"]
+    parts = []
+    for name in ("schedule", "unit_tables"):
+        args = kept[name]
+        want = (dict(zip(schedule.OUT_KEYS, schedule.schedule(*args)))
+                if name == "schedule" else units.unit_tables(*args))
+        times: dict = {}
+        for tree in order:
+            sched, unit = trees[tree]
+            if name == "schedule":
+                # the parent's level sums took their warps from the caller
+                fargs = args + ((sched.level_warps(args[8].tolist()),)
+                                if tree == "parent" else ())
+                fn = lambda a=fargs, m=sched: m.schedule(*a)  # noqa
+            else:
+                fargs = args
+                if tree == "parent":  # the levels' chunk counts
+                    lcb, nchunk = args[7], args[4].shape[2]
+                    lnc = torch.diff(lcb, append=lcb.new_tensor([nchunk]))
+                    fargs = (args[0], *args[2:7], lnc, *args[7:])
+                fn = lambda a=fargs, m=unit: m.unit_tables(*a)  # noqa
+            got = fn()
+            if name == "schedule":
+                same = all(torch.equal(v, want[k]) for k, v in
+                           zip(sched.OUT_KEYS, got))
+            else:
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not same:
+                raise AssertionError(f"{name} of {tree} differs")
+            ev = time_ms(torch, fn, reps=50)
+            dev = sum(kernel_ms(torch, fn, k, per_call=1)
+                      for k in SCHED_KERNELS[tree][name])
+            times.setdefault(tree, []).append((ev, dev))
+        parts.append(f"{name} {tuple(args[0].shape)}: " + "; ".join(
+            f"{tree} " + ", ".join(f"{e:.4f} ms ({d:.4f} device)"
+                                  for e, d in v)
+            for tree, v in times.items()))
+    misses = {k: PROFILER_MISSES.pop(k) for k in ("schedule_kernel",
+                                                  "level_sums_kernel",
+                                                  "units_kernel")
+              if k in PROFILER_MISSES}
+    return ("; ".join(parts) + " (events around the wrapper, device by "
+            "torch.profiler)" + ("" if parent else " (no --parent given)")
+            + (f"; not measured where the profiler saw a wrong count of "
+               f"kernels in 10 calls, three sessions: {misses}" if misses
+               else ""))
 
 
 def schedule_keys(torch, planes, L: int):
@@ -1982,13 +2139,13 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
     args = (planes.reshape(n, C),
             *(t.reshape(n, C, *t.shape[1:]) for t in tabs),
             lin[:, :, :pyr.pixels[0]], segs.real_t, segs.level_chunk_base_t,
-            segs.level_nchunk_t, schedule.level_warps(segs.level_nchunk))
+            segs.level_nchunk_t)
     got = schedule.schedule(*args)
     err = max(err, max_abs_err("schedule", got,
                                schedule.schedule_plain(*args)))
     st = dict(zip(schedule.OUT_KEYS, got))
-    args = (st["order"], st["valid_sched"], st["step_base"], st["nS_ck"],
-            st["scar_ck"], st["zcar_ck"], segs.level_nchunk_t,
+    args = (st["order"], st["ubase_sched"], st["valid_sched"],
+            st["step_base"], st["nS_ck"], st["scar_ck"], st["zcar_ck"],
             segs.level_chunk_base_t, segs.ch_start_t, segs.ch_len_t, segs.n,
             encoder._bucket(int(st["T"].max())))
     err = max(err, max_abs_err("unit_tables", units.unit_tables(*args),
@@ -2902,6 +3059,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"device: kernels 12-15 at the batch of {sub} frames: "
              + tokens_device(torch, tokens_kept(store), rows,
                              "batch_device_ms"))
+    progress(f"device: kernels 14 and 15 at the batch of {sub} frames, in "
+             f"turns: " + schedule_turns(torch, tokens_kept(store), parent))
     val, vli = store["vli_orders"][0]
     progress(f"device: at the batch of {sub} frames, "
              + vli_device(torch, val, vli, rows, "batch_device_ms"))

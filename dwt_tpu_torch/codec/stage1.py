@@ -20,7 +20,7 @@ and the lifting (``ops/lifting.py:forward_transform``, a launch a large
 level and one for the coarse tail), the per-chunk plane statistics
 (``ops/plane_stats.py:plane_stats``, one launch), and the level sums,
 schedule order, carry chain and token bases (``ops/schedule.py:schedule``,
-kernel 14, one call of two kernels).  Stage 1 then copies each frame's
+kernel 14, one launch of a cluster of blocks a frame).  Stage 1 then copies each frame's
 planes_max and T to the host, in one copy, and makes no copy to the card.
 """
 
@@ -38,7 +38,7 @@ from ..ops.hilbert_gather import hilbert_gather
 from ..ops.lifting import forward_transform
 from ..ops.plane_stats import (PMAX, UNIT, _excl_cumsum, _ilog2, detail_q,
                                plane_stats, plane_tables_plain)
-from ..ops.schedule import OUT_KEYS, level_sums_plain, level_warps, schedule
+from ..ops.schedule import OUT_KEYS, level_sums_plain, schedule
 
 # Adaptive VLI order states (vli.h:67-84): enough for run lengths < 2^28.
 NSTATE = 31
@@ -275,7 +275,7 @@ def _stats_from_lin(lin, pyr: Pyramid, channels: int):
     stats = dict(zip(OUT_KEYS, schedule(
         planes.reshape(N, C), *(t.reshape(N, C, *t.shape[1:]) for t in tables),
         lin[:, :, :pyr.pixels[0]], segs.real_t, segs.level_chunk_base_t,
-        segs.level_nchunk_t, level_warps(segs.level_nchunk))))
+        segs.level_nchunk_t)))
     host = stats.pop("head").cpu().numpy()
     _check_planes(int(host[0].max()))
     stats["T_host"] = host[1]

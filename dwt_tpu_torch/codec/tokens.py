@@ -54,9 +54,9 @@ def _unit_tables(stats, segs: _Segs, padded_T: int) -> tuple:
     reading its elements past the earlier frames' N*C*n and writing pairs
     f * pairbuf onwards; the pair buffer of one frame, pairbuf)."""
     out = unit_tables(
-        stats["order"], stats["valid_sched"], stats["step_base"],
-        stats["nS_ck"], stats["scar_ck"], stats["zcar_ck"],
-        segs.level_nchunk_t, segs.level_chunk_base_t, segs.ch_start_t,
+        stats["order"], stats["ubase_sched"], stats["valid_sched"],
+        stats["step_base"], stats["nS_ck"], stats["scar_ck"],
+        stats["zcar_ck"], segs.level_chunk_base_t, segs.ch_start_t,
         segs.ch_len_t, segs.n, padded_T)
     com = dict(zip(units.OUT_KEYS, out))
     return com, com.pop("meta"), units.pair_buffer(padded_T)

@@ -22,68 +22,101 @@ steps in that order, where a valid step maps the carry to 0 (nRef > 0),
 chain starts at ``real[0]`` when ``planes_max`` is 0 (the degenerate
 pre-step, encode.c:190-194); the root band's token counts; the
 pair-aligned step bases, T, the injection sites and refinement-bit
-prefixes, each put back at its (c, l, p) slot.  Two extra leaves serve
+prefixes, each put back at its (c, l, p) slot.  Three extra leaves serve
 kernel A's unit tables (``ops/units.py``): ``scar_ck`` and ``zcar_ck``,
-the level-exclusive cumsums over the chunks of ``nS_ck`` and ``nZ_ck``.
-``head`` is (2, N): ``planes_max`` and ``T`` (views of its rows), which
-the encoder copies to the host in one copy.  ``planes`` and ``nS_ck`` are
-the inputs themselves.
+the level-exclusive cumsums over the chunks of ``nS_ck`` and ``nZ_ck``,
+and ``ubase_sched``, each step's first unit: the exclusive sum in
+schedule order of the steps' level chunk counts (the ``ubase`` of
+``dwt_tpu/codec/encoder.py:_unit_common``, :535-536; it depends on
+``order`` alone, so the schedule cuts leave it as it is).  ``head`` is
+(2, N): ``planes_max`` and ``T`` (views of its rows), which the encoder
+copies to the host in one copy.  ``planes`` and ``nS_ck`` are the inputs
+themselves.
 
-On the card one call (``launches`` grows by 1) of two kernels: the level
-sums, a block a (frame, channel, level), then the schedule, a block a
-frame.  On the CPU: :func:`schedule_plain`, the eager passes and a
-vectorised chain.
+On the card one launch (``launches`` grows by 1) of a cluster of blocks a
+frame, its outputs carved from one allocation (:func:`_layout`).  On the
+CPU: :func:`schedule_plain`, the eager passes and a vectorised chain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import operator
 
 import torch
 
 from ..runtime import build
-from ._launch import need
+from ._launch import arena_layout, carve, cuda_or_cpu, need
 from .plane_stats import PMAX, _excl_cumsum, _ilog2
 
 _I32 = torch.int32
-# Steps a frame the schedule kernel takes: its block of 256 threads walks
-# at most 8 a thread, and its shared memory holds 7 int32 tables of S.
+# Steps a frame the schedule kernel takes: its block of 1,024 threads
+# walks at most 2 a thread, and its shared memory holds 5 int32 tables of
+# S.
 MAX_STEPS = 2048
 # Channels a frame: one lane of a warp each.
 MAX_CHANNELS = 32
-# Warps a block of the level sums at most.
-MAX_WARPS = 32
+# Levels: the schedule key's level field has 6 bits.
+MAX_LEVELS = 64
 
 OUT_KEYS = (
     "head", "planes", "planes_max", "nS", "nRef", "root_cnt", "root_base",
     "planes_base", "step_base", "step_end", "inj_pos", "refpfx", "carry_in",
     "refrun_val", "refrun_ok", "valid", "carry_end", "T", "order", "nS_ck",
     "nZ_ck", "base_sched", "nS_sched", "cin_sched", "valid_sched",
-    "scar_ck", "zcar_ck")
+    "scar_ck", "zcar_ck", "ubase_sched")
 
-# The tensors the kernels write, in the order of csrc/schedule.cu's
-# ``enum Out``: int32, then the three bool grids.  ``nZ_lv`` and ``tz_lv``
-# (the level sums of nZ and trailZ) pass from the first kernel to the
-# second.
+# The tensors the kernel writes, in the order of csrc/schedule.cu's ``enum
+# Out``: int32, then the three bool grids.
 _INT_OUTS = ("head", "root_cnt", "root_base", "planes_base", "carry_end",
              "nS", "nRef", "step_base", "step_end", "inj_pos", "refpfx",
              "carry_in", "refrun_val", "order", "base_sched", "nS_sched",
-             "cin_sched", "nZ_lv", "tz_lv", "nZ_ck", "scar_ck", "zcar_ck")
+             "cin_sched", "ubase_sched", "nZ_ck", "scar_ck", "zcar_ck")
 _BOOL_OUTS = ("refrun_ok", "valid", "valid_sched")
+_OUTS = _INT_OUTS + _BOOL_OUTS
+# After the kernel's outputs: head's rows, and the inputs passed through.
+_ALIASES = ("planes_max", "T")
+_PASSED = ("planes", "nS_ck")
+# OUT_KEYS from [outputs, aliases, passed].
+_PICK = operator.itemgetter(*((_OUTS + _ALIASES + _PASSED).index(k)
+                              for k in OUT_KEYS))
+# The inputs: names, dimensions.
+_IN_NAMES = ("planes", "nS_ck", "lastS_ck", "z0_ck", "zup_ck", "root",
+             "real", "level_chunk_base", "level_nchunk")
+_IN_DIMS = (2, 4, 4, 3, 4, 3, 1, 1, 1)
 
 
 def _shapes(N: int, C: int, L: int, nchunk: int) -> dict:
+    """The shape of each tensor the kernel writes."""
     grid, ck = (N, C, L, PMAX), (N, C, nchunk, PMAX)
     out = {"head": (2, N), "root_cnt": (N, C), "root_base": (N, C),
            "planes_base": (N,), "carry_end": (N,)}
     out.update({k: grid for k in ("nS", "nRef", "step_base", "step_end",
                                   "inj_pos", "refpfx", "carry_in",
-                                  "refrun_val", "nZ_lv", "tz_lv",
-                                  "refrun_ok", "valid")})
+                                  "refrun_val", "refrun_ok", "valid")})
     out.update({k: (N, C * L * PMAX) for k in (
-        "order", "base_sched", "nS_sched", "cin_sched", "valid_sched")})
+        "order", "base_sched", "nS_sched", "cin_sched", "ubase_sched",
+        "valid_sched")})
     out.update({k: ck for k in ("nZ_ck", "scar_ck", "zcar_ck")})
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(N: int, C: int, L: int, nchunk: int) -> tuple:
+    """The kernel's one allocation at a shape: (its bytes, the views of
+    its outputs in ``_OUTS`` order and of head's two rows, as
+    ``_launch.carve`` takes them, the offsets struct the C entry point
+    takes)."""
+    shapes = _shapes(N, C, L, nchunk)
+    nbytes, views, offsets = arena_layout(
+        [(torch.bool if k in _BOOL_OUTS else _I32, shapes[k])
+         for k in _OUTS])
+    head = views[_OUTS.index("head")][3]
+    rows = tuple((_I32, (N,), (1,), head + r * N) for r in range(2))
+    return (nbytes, views + rows,
+            build.offsets(len(offsets))((ctypes.c_int64 * len(offsets))(
+                *offsets)))
 
 
 def level_sums_plain(nS_ck, lastS_ck, z0_ck, zup_ck, bases, counts) -> tuple:
@@ -149,42 +182,32 @@ def chain_plain(carry0, valid_s, nS_s, nZ_s, trailZ_s, nRef_s) -> tuple:
 def _check(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
            level_chunk_base, level_nchunk) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises on anything the kernels do not take."""
-    need("schedule planes", planes, _I32, 2)
-    for name, t in (("nS_ck", nS_ck), ("lastS_ck", lastS_ck),
-                    ("zup_ck", zup_ck)):
-        need(f"schedule {name}", t, _I32, 4)
-    need("schedule z0_ck", z0_ck, _I32, 3)
-    need("schedule root", root, _I32, 3)
-    for name, t in (("real", real), ("level_chunk_base", level_chunk_base),
-                    ("level_nchunk", level_nchunk)):
-        need(f"schedule {name}", t, _I32, 1)
+    on the CPU; raises on anything the kernel does not take.  One pass over
+    the tensors: the wrapper's host time is most of the call's."""
+    ts = (planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
+          level_chunk_base, level_nchunk)
+    if (any(t.dtype != _I32 for t in ts)
+            or tuple(t.dim() for t in ts) != _IN_DIMS):
+        for name, t, nd in zip(_IN_NAMES, ts, _IN_DIMS):
+            need(f"schedule {name}", t, _I32, nd)
     N, C = planes.shape
     nchunk, L = nS_ck.shape[2], real.numel()
-    if (any(t.shape != (N, C, nchunk, PMAX) for t in (nS_ck, lastS_ck,
-                                                     zup_ck))
-            or z0_ck.shape != (N, C, nchunk) or root.shape[:2] != (N, C)
+    ck = (N, C, nchunk, PMAX)
+    if (nS_ck.shape != ck or lastS_ck.shape != ck or zup_ck.shape != ck
+            or z0_ck.shape != ck[:3] or root.shape[:2] != (N, C)
             or level_chunk_base.numel() != L or level_nchunk.numel() != L):
         raise ValueError(
             f"schedule: inconsistent shapes: planes {tuple(planes.shape)}, "
             f"chunk tables {tuple(nS_ck.shape)}, zeros "
             f"{tuple(z0_ck.shape)}, root {tuple(root.shape)}, {L} levels")
-    if not 1 <= C <= MAX_CHANNELS or L < 1 or root.shape[2] < 1:
+    if (not 1 <= C <= MAX_CHANNELS or not 1 <= L <= MAX_LEVELS
+            or root.shape[2] < 1):
         raise ValueError(f"schedule: {C} channels (1 to {MAX_CHANNELS}), "
-                         f"{L} levels and a root band of {root.shape[2]} "
-                         "do not fit")
-    tensors = (planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
-               level_chunk_base, level_nchunk)
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"schedule: tensors on several devices "
-                         f"{sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
+                         f"{L} levels (1 to {MAX_LEVELS}) and a root band "
+                         f"of {root.shape[2]} do not fit")
+    if not cuda_or_cpu("schedule", ts):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"schedule: unsupported device {dev}")
-    if not all(t.is_contiguous() for t in tensors if t is not root):
+    if not all(t.is_contiguous() for t in ts if t is not root):
         raise ValueError("schedule: every table must be contiguous")
     if root.stride(2) != 1 and root.shape[2] > 1:
         raise ValueError("schedule: the root band's rows must be of unit "
@@ -196,9 +219,9 @@ def _check(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
 
 
 def schedule_plain(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
-                   level_chunk_base, level_nchunk, warps: int = 0) -> tuple:
+                   level_chunk_base, level_nchunk) -> tuple:
     """Plain PyTorch version of :func:`schedule` (it reads the level
-    tables on the host; ``warps`` is accepted for the same signature)."""
+    tables on the host)."""
     _check(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
            level_chunk_base, level_nchunk)
     N, C = planes.shape
@@ -233,6 +256,8 @@ def schedule_plain(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
         return x.reshape(N, S).gather(1, order)
 
     nS_s, nZ_s, trailZ_s, nRef_s = map(sched, (nS, nZ, trailZ, nRef))
+    # Each step's first unit: the chunk counts of the steps before it.
+    ubase_s = _excl_cumsum(level_nchunk[(order // PMAX) % L]).to(_I32)
     valid_s = sched(valid)
     carry0 = torch.where(planes_max == 0, real[0], 0).to(_I32)
     carry_in_s, refrun_val_s, refrun_ok_s, carry_end = chain_plain(
@@ -279,58 +304,40 @@ def schedule_plain(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
         carry_end=carry_end, T=head[1], order=order.to(_I32), nS_ck=nS_ck,
         nZ_ck=nZ_ck, base_sched=base_s,
         nS_sched=torch.where(valid_s, nS_s, 0), cin_sched=carry_in_s,
-        valid_sched=valid_s, scar_ck=scar, zcar_ck=zcar)
+        valid_sched=valid_s, scar_ck=scar, zcar_ck=zcar,
+        ubase_sched=ubase_s)
     return tuple(out[k] for k in OUT_KEYS)
 
 
-def level_warps(level_nchunk: list) -> int:
-    """Warps a block of the level sums: about 4 chunks of the longest level
-    a warp (``MAX_WARPS`` at most)."""
-    return max(1, min(MAX_WARPS, -(-max(level_nchunk) // 4)))
-
-
 def schedule(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
-             level_chunk_base, level_nchunk, warps: int = 0) -> tuple:
+             level_chunk_base, level_nchunk) -> tuple:
     """Chunk tables of N frames of C channels (``planes`` (N, C) and the
     (N, C, nchunk, PMAX) tables of ``ops/plane_stats.py``, ``z0_ck`` (N, C,
     nchunk)), their (N, C, pix0) root band (rows of unit stride at any
     frame and channel stride), each level's real element count, first
     chunk and chunk count (L,) -> the stats leaves of ``OUT_KEYS``, int32
     but for the bool ``refrun_ok``, ``valid`` and ``valid_sched``.  On the
-    card one call of two kernels (``launches`` grows by 1); ``warps``
-    (default :func:`level_warps` of the levels, which reads
-    ``level_nchunk`` on the host unless given) sets the level sums'
-    block."""
+    card one launch (``launches`` grows by 1); its outputs are views of
+    one new allocation a call, 256-byte aligned."""
     if not _check(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, real,
                   level_chunk_base, level_nchunk):
         return schedule_plain(planes, nS_ck, lastS_ck, z0_ck, zup_ck, root,
                               real, level_chunk_base, level_nchunk)
-    if warps < 0 or warps > MAX_WARPS:
-        raise ValueError(f"schedule: {warps} warps a block, past "
-                         f"{MAX_WARPS}")
     N, C = planes.shape
     nchunk, L = nS_ck.shape[2], real.numel()
-    dev = planes.device
-    shapes = _shapes(N, C, L, nchunk)
-    outs = {k: torch.empty(shapes[k], device=dev,
-                           dtype=torch.bool if k in _BOOL_OUTS else _I32)
-            for k in _INT_OUTS + _BOOL_OUTS}
+    nbytes, views, offsets = _layout(N, C, L, nchunk)
+    outs = carve(nbytes, views, planes.device)
     if N:
-        warps = warps or level_warps(level_nchunk.tolist())
-        ptrs = (ctypes.c_void_p * len(outs))(
-            *(outs[k].data_ptr() for k in _INT_OUTS + _BOOL_OUTS))
-        lib = build.library()
-        build.check(lib.dwt_schedule(
+        build.check(build.library().dwt_schedule(
             planes.data_ptr(), nS_ck.data_ptr(), lastS_ck.data_ptr(),
             z0_ck.data_ptr(), zup_ck.data_ptr(), root.data_ptr(),
             root.stride(0), root.stride(1), root.shape[2], real.data_ptr(),
             level_chunk_base.data_ptr(), level_nchunk.data_ptr(), N, C, L,
-            nchunk, warps, ctypes.addressof(ptrs), build.stream_of(planes)),
+            nchunk, outs[0].data_ptr(), offsets, build.stream_of(planes)),
             "schedule")
         schedule.launches += 1
-    head = outs["head"]
-    outs.update(planes=planes, planes_max=head[0], T=head[1], nS_ck=nS_ck)
-    return tuple(outs[k] for k in OUT_KEYS)
+    outs += (planes, nS_ck)
+    return _PICK(outs)
 
 
 schedule.launches = 0

@@ -8,7 +8,8 @@ U = C * PMAX * nchunk a frame, in each frame's stream order (steps in
 schedule order, a step's chunks in order).  Unit u of frame f lies in
 the step s whose exclusive sum of ``level_nchunk[l_s]`` over the
 schedule is the last at most u, at chunk k = u less that sum of its
-level.  :func:`unit_tables` writes, per unit:
+level: stage 1's ``ubase_sched`` (``ops/schedule.py``).
+:func:`unit_tables` writes, per unit:
 
 * the six (N, U) columns that kernel B's meta reads too: ``elem`` (the
   unit's first element of the frame's packed elements), ``elen``, ``p``,
@@ -26,7 +27,8 @@ level.  :func:`unit_tables` writes, per unit:
 * the (N * C * nchunk, PMAX) inverse table: the meta row of each
   (frame, channel, chunk, plane) unit.
 
-On the card one launch (``launches`` grows by 1).  On the CPU:
+On the card one launch (``launches`` grows by 1), one unit a thread,
+its outputs carved from one allocation (:func:`_layout`).  On the CPU:
 :func:`unit_tables_plain`, the eager passes (searchsorted, gathers, a
 scatter) the encoder ran before.
 """
@@ -34,19 +36,24 @@ scatter) the encoder ran before.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..runtime import build
 from . import compact
-from ._launch import need
-from .plane_stats import PMAX, _excl_cumsum
+from ._launch import arena_layout, carve, cuda_or_cpu, need
+from .plane_stats import PMAX
 from .schedule import MAX_STEPS
 
 _I32 = torch.int32
 COM_KEYS = ("elem", "elen", "p", "flat_step", "flat_ck", "valid")
 OUT_KEYS = COM_KEYS + ("meta", "table")
-UNITS_PER_BLOCK = 2048  # units a block of the kernel takes, about
+# The inputs: names, dtypes.
+_IN_NAMES = ("order", "ubase_sched", "valid_sched", "step_base", "nS_ck",
+             "scar_ck", "zcar_ck", "level_chunk_base", "ch_start", "ch_len")
+_IN_TYPES = (_I32, _I32, torch.bool) + (_I32,) * 7
+_IN_DIMS = (2, 2, 2, 4, 4, 4, 4, 1, 1, 1)
 
 
 def pair_buffer(padded_T: int) -> int:
@@ -55,44 +62,46 @@ def pair_buffer(padded_T: int) -> int:
     return padded_T // 2 + compact.WTOK_BIG + 256
 
 
-def _check(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-           level_nchunk, level_chunk_base, ch_start, ch_len) -> bool:
+@functools.lru_cache(maxsize=64)
+def _layout(N: int, C: int, nchunk: int) -> tuple:
+    """The kernel's one allocation at a shape: (its bytes, the views of
+    ``OUT_KEYS`` as ``_launch.carve`` takes them, the offsets struct the C
+    entry point takes)."""
+    U = C * PMAX * nchunk
+    nbytes, views, offsets = arena_layout(
+        [(_I32, (N, U))] * 5 + [(torch.bool, (N, U)), (_I32, (N * U, 8)),
+                                (_I32, (N * C * nchunk, PMAX))])
+    return (nbytes, views, build.offsets(len(offsets))(
+        (ctypes.c_int64 * len(offsets))(*offsets)))
+
+
+def _check(order, ubase_sched, valid_sched, step_base, nS_ck, scar_ck,
+           zcar_ck, level_chunk_base, ch_start, ch_len) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises on anything the kernel does not take."""
-    need("unit_tables order", order, _I32, 2)
-    need("unit_tables valid_sched", valid_sched, torch.bool, 2)
-    for name, t in (("step_base", step_base), ("nS_ck", nS_ck),
-                    ("scar_ck", scar_ck), ("zcar_ck", zcar_ck)):
-        need(f"unit_tables {name}", t, _I32, 4)
-    for name, t in (("level_nchunk", level_nchunk),
-                    ("level_chunk_base", level_chunk_base),
-                    ("ch_start", ch_start), ("ch_len", ch_len)):
-        need(f"unit_tables {name}", t, _I32, 1)
+    on the CPU; raises on anything the kernel does not take.  One pass over
+    the tensors: the wrapper's host time is most of the call's."""
+    ts = (order, ubase_sched, valid_sched, step_base, nS_ck, scar_ck,
+          zcar_ck, level_chunk_base, ch_start, ch_len)
+    if (tuple(t.dtype for t in ts) != _IN_TYPES
+            or tuple(t.dim() for t in ts) != _IN_DIMS):
+        for name, t, dt, nd in zip(_IN_NAMES, ts, _IN_TYPES, _IN_DIMS):
+            need(f"unit_tables {name}", t, dt, nd)
     N, S = order.shape
     C, L, nchunk = step_base.shape[1], step_base.shape[2], nS_ck.shape[2]
-    if (valid_sched.shape != (N, S) or step_base.shape != (N, C, L, PMAX)
-            or S != C * L * PMAX
-            or any(t.shape != (N, C, nchunk, PMAX)
-                   for t in (nS_ck, scar_ck, zcar_ck))
-            or level_nchunk.numel() != L or level_chunk_base.numel() != L
+    ck = (N, C, nchunk, PMAX)
+    if (ubase_sched.shape != (N, S) or valid_sched.shape != (N, S)
+            or step_base.shape != (N, C, L, PMAX) or S != C * L * PMAX
+            or nS_ck.shape != ck or scar_ck.shape != ck
+            or zcar_ck.shape != ck or level_chunk_base.numel() != L
             or ch_start.numel() != nchunk or ch_len.numel() != nchunk):
         raise ValueError(
             f"unit_tables: inconsistent shapes: order {tuple(order.shape)}, "
             f"step grid {tuple(step_base.shape)}, chunk tables "
-            f"{tuple(nS_ck.shape)}, {level_nchunk.numel()} levels, "
+            f"{tuple(nS_ck.shape)}, {level_chunk_base.numel()} levels, "
             f"{ch_start.numel()} chunks")
-    tensors = (order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-               level_nchunk, level_chunk_base, ch_start, ch_len)
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"unit_tables: tensors on several devices "
-                         f"{sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
+    if not cuda_or_cpu("unit_tables", ts):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"unit_tables: unsupported device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in ts):
         raise ValueError("unit_tables: every table must be contiguous")
     if S > MAX_STEPS:
         raise ValueError(f"unit_tables: {S} steps a frame, past the "
@@ -103,12 +112,12 @@ def _check(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
     return True
 
 
-def unit_tables_plain(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-                      level_nchunk, level_chunk_base, ch_start, ch_len,
+def unit_tables_plain(order, ubase_sched, valid_sched, step_base, nS_ck,
+                      scar_ck, zcar_ck, level_chunk_base, ch_start, ch_len,
                       n: int, padded_T: int) -> tuple:
     """Plain PyTorch version of :func:`unit_tables`."""
-    _check(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-           level_nchunk, level_chunk_base, ch_start, ch_len)
+    _check(order, ubase_sched, valid_sched, step_base, nS_ck, scar_ck,
+           zcar_ck, level_chunk_base, ch_start, ch_len)
     N, S = order.shape
     C, L, nchunk = step_base.shape[1], step_base.shape[2], nS_ck.shape[2]
     dev = order.device
@@ -118,10 +127,9 @@ def unit_tables_plain(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
     c_s = order // (L * PMAX)
     l_s = (order // PMAX) % L
     p_s = order % PMAX
-    ubase = _excl_cumsum(level_nchunk[l_s.long()])
     u = torch.arange(U, dtype=_I32, device=dev).expand(N, U).contiguous()
-    sidx = torch.searchsorted(ubase, u, right=True) - 1
-    k = u - ubase.gather(1, sidx)
+    sidx = torch.searchsorted(ubase_sched, u, right=True) - 1
+    k = u - ubase_sched.gather(1, sidx)
     c_u, l_u, p_u = (x.gather(1, sidx) for x in (c_s, l_s, p_s))
     chunkid = level_chunk_base[l_u.long()] + k
     elem = c_u * n + ch_start[chunkid.long()]
@@ -159,45 +167,38 @@ def unit_tables_plain(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
     return (*(com[k] for k in COM_KEYS), meta, table.reshape(-1, PMAX))
 
 
-def unit_tables(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-                level_nchunk, level_chunk_base, ch_start, ch_len, n: int,
+def unit_tables(order, ubase_sched, valid_sched, step_base, nS_ck, scar_ck,
+                zcar_ck, level_chunk_base, ch_start, ch_len, n: int,
                 padded_T: int) -> tuple:
-    """Stage 1's (N, S) ``order`` and ``valid_sched``, (N, C, L, PMAX)
-    ``step_base``, (N, C, nchunk, PMAX) ``nS_ck``, ``scar_ck`` and
-    ``zcar_ck``, the levels' chunk counts and first chunks (L,), the
-    chunks' starts and lengths (nchunk,), the detail elements of a channel
-    ``n`` and the token bucket ``padded_T`` -> the (N, U) columns of
+    """Stage 1's (N, S) ``order``, ``ubase_sched`` and ``valid_sched``,
+    (N, C, L, PMAX) ``step_base``, (N, C, nchunk, PMAX) ``nS_ck``,
+    ``scar_ck`` and ``zcar_ck``, the levels' first chunks (L,), the chunks'
+    starts and lengths (nchunk,), the detail elements of a channel ``n``
+    and the token bucket ``padded_T`` -> the (N, U) columns of
     ``COM_KEYS`` (int32, ``valid`` bool), kernel A's (N * U, 8) int32 meta
-    rows and its (N * C * nchunk, PMAX) int32 unit table.  On the card
-    one launch (``launches`` grows by 1)."""
-    if not _check(order, valid_sched, step_base, nS_ck, scar_ck, zcar_ck,
-                  level_nchunk, level_chunk_base, ch_start, ch_len):
-        return unit_tables_plain(order, valid_sched, step_base, nS_ck,
-                                 scar_ck, zcar_ck, level_nchunk,
-                                 level_chunk_base, ch_start, ch_len, n,
-                                 padded_T)
+    rows and its (N * C * nchunk, PMAX) int32 unit table.  ``ubase_sched``
+    must be the schedule's (each step's first unit).  On the card one
+    launch (``launches`` grows by 1); its outputs are views of one new
+    allocation a call, 256-byte aligned."""
+    if not _check(order, ubase_sched, valid_sched, step_base, nS_ck,
+                  scar_ck, zcar_ck, level_chunk_base, ch_start, ch_len):
+        return unit_tables_plain(order, ubase_sched, valid_sched, step_base,
+                                 nS_ck, scar_ck, zcar_ck, level_chunk_base,
+                                 ch_start, ch_len, n, padded_T)
     N = order.shape[0]
     C, L, nchunk = step_base.shape[1], step_base.shape[2], nS_ck.shape[2]
-    U = C * PMAX * nchunk
-    dev = order.device
-    cols = torch.empty((5, N, U), dtype=_I32, device=dev)
-    valid = torch.empty((N, U), dtype=torch.bool, device=dev)
-    meta = torch.empty((N * U, 8), dtype=_I32, device=dev)
-    table = torch.empty((N * C * nchunk, PMAX), dtype=_I32, device=dev)
-    outs = (*cols, valid, meta, table)
+    nbytes, views, offsets = _layout(N, C, nchunk)
+    outs = carve(nbytes, views, order.device)
     if N:
-        parts = max(1, -(-U // UNITS_PER_BLOCK))
-        ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-        lib = build.library()
-        build.check(lib.dwt_unit_tables(
-            order.data_ptr(), valid_sched.data_ptr(), step_base.data_ptr(),
-            nS_ck.data_ptr(), scar_ck.data_ptr(), zcar_ck.data_ptr(),
-            level_nchunk.data_ptr(), level_chunk_base.data_ptr(),
+        build.check(build.library().dwt_unit_tables(
+            order.data_ptr(), ubase_sched.data_ptr(), valid_sched.data_ptr(),
+            step_base.data_ptr(), nS_ck.data_ptr(), scar_ck.data_ptr(),
+            zcar_ck.data_ptr(), level_chunk_base.data_ptr(),
             ch_start.data_ptr(), ch_len.data_ptr(), N, C, L, nchunk, n,
-            padded_T, parts, ctypes.addressof(ptrs), build.stream_of(order)),
+            padded_T, outs[0].data_ptr(), offsets, build.stream_of(order)),
             "unit_tables")
         unit_tables.launches += 1
-    return outs
+    return tuple(outs)
 
 
 unit_tables.launches = 0

@@ -32,6 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@functools.lru_cache(maxsize=None)
+def offsets(n: int) -> type:
+    """The C struct of ``n`` int64 byte offsets that a wrapper passes by
+    value: where each output lies in its one allocation."""
+    return type(f"Offsets{n}", (ctypes.Structure,),
+                {"_fields_": [("at", ctypes.c_int64 * n)]})
+
 # C entry points -> argument types.  Every pointer and the CUDA stream go
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
@@ -91,13 +100,15 @@ ENTRY_POINTS = {
     "dwt_plane_stats": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I,
                         _P),
     # (planes, nS_ck, lastS_ck, z0_ck, zup_ck, root, root_frame, root_ch,
-    #  pix0, real, lcb, lnc, nframes, C, L, nchunk, warps, outs, stream)
+    #  pix0, real, lcb, lnc, nframes, C, L, nchunk, arena, offsets, stream):
+    #  the offsets of csrc/schedule.cu's 24 outputs, by value
     "dwt_schedule": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _L,
-                     _L, _L, _L, _P, _P),
-    # (order, valid_sched, step_base, nS_ck, scar, zcar, lnc, lcb, ch_start,
-    #  ch_len, nframes, C, L, nchunk, n, padded_T, parts, outs, stream)
+                     _L, _L, _P, offsets(24), _P),
+    # (order, ubase, valid_sched, step_base, nS_ck, scar, zcar, lcb,
+    #  ch_start, ch_len, nframes, C, L, nchunk, n, padded_T, arena, offsets,
+    #  stream): the offsets of csrc/units.cu's 8 outputs, by value
     "dwt_unit_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                        _L, _L, _L, _L, _P, _P),
+                        _L, _L, _L, _P, offsets(8), _P),
 }
 
 

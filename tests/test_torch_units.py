@@ -6,10 +6,12 @@
   rows exactly (frame f's element rows and pair windows offset by the
   earlier frames'), at two token buckets, one frame and three; its table
   is the inverse of the units' (frame, channel, chunk, plane) index.
-* The kernel's plan replayed in numpy: each unit's step by a binary
-  search of the schedule's unit bases, which each thread's run of steps
-  and one scan give.
-* The wrapper's checks.
+* Stage 1's ``ubase_sched`` against the unit bases of the JAX package's
+  ``_unit_common``.
+* The kernel's plan replayed in numpy: the staging of a row (one bulk
+  copy of its whole 16-byte words, plain loads around them) at every
+  row start, each unit's step by a binary search of the staged bases.
+* The wrapper's one allocation and its checks.
 
 The kernel runs only on the card: ``tests/test_torch_card.py`` holds it
 against this plain version there.
@@ -22,7 +24,6 @@ import torch
 from imagegen import random_image
 
 PMAX = 29
-THREADS = 256  # the kernel's block (csrc/units.cu)
 
 
 def _port(w, h, c, n, seed):
@@ -79,32 +80,146 @@ def test_unit_tables_plain_equals_jax(monkeypatch, w, h, c, n, scale):
                        torch.arange(n * U, dtype=torch.int32))
 
 
-def _replay_steps(order, lnc, L):
-    """units_kernel's unit bases and each unit's step: per-run sums of the
-    steps' chunk counts, one scan of the runs, a second walk; then a binary
-    search for the last base at most u."""
-    S = order.shape[0]
-    per = -(-S // THREADS)
-    ups = lnc[(order // PMAX) % L]
-    runs = [(min(t * per, S), min(t * per + per, S)) for t in range(THREADS)]
-    ub, acc = np.zeros(S, np.int64), 0
-    for a, b in runs:  # the scan of the runs, then each run's walk
-        for s in range(a, b):
-            ub[s] = acc
-            acc += ups[s]
+def _args(stats, segs, padded_T) -> list:
+    """The arguments of ``unit_tables`` from stage 1's stats."""
+    return [stats["order"], stats["ubase_sched"], stats["valid_sched"],
+            stats["step_base"], stats["nS_ck"], stats["scar_ck"],
+            stats["zcar_ck"], segs.level_chunk_base_t, segs.ch_start_t,
+            segs.ch_len_t, segs.n, padded_T]
+
+
+@pytest.mark.parametrize("w,h,c,n", [(96, 80, 3, 1), (64, 48, 1, 3),
+                                     (16, 16, 3, 3), (8, 8, 1, 1)])
+def test_ubase_sched_equals_jax(monkeypatch, w, h, c, n):
+    """Stage 1's ``ubase_sched`` (the plain version's) is the ``ubase`` of
+    the JAX package's ``_unit_common``: each step's first unit, read off
+    its units' steps (every step has a unit); and the unit columns read
+    from it equal ``_unit_common``'s."""
+    import jax.numpy as jnp
+
+    from dwt_tpu.codec import encoder as je
+    from dwt_tpu.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import units
+
+    monkeypatch.setattr(je, "_use_pallas", lambda: False)
+    enc, stats, segs = _port(w, h, c, n, 3 * w + n)
+    assert stats["ubase_sched"].dtype == torch.int32
+    pyr = compute_pyramid(w, h)
+    jsegs = je._Segs(pyr)
+    com = dict(zip(units.OUT_KEYS, units.unit_tables_plain(
+        *_args(stats, segs, 1 << 13))))
+    for f in range(n):
+        js = {k: jnp.asarray(stats[k][f].numpy()) for k in (
+            "order", "valid_sched", "step_base", "nS_ck", "nZ_ck")}
+        want = je._unit_common(js, jsegs, pyr, c)
+        flat_step = np.asarray(want["flat_step"])
+        first = {}
+        for u, st in enumerate(flat_step):
+            first.setdefault(int(st), u)
+        order = stats["order"][f].numpy()
+        assert np.array_equal(stats["ubase_sched"][f].numpy(),
+                              [first[int(st)] for st in order])
+        for k in units.COM_KEYS:
+            assert np.array_equal(com[k][f].numpy(), np.asarray(want[k])), k
+
+
+@pytest.mark.parametrize("N,C,nchunk", [(1, 3, 136), (7, 3, 39), (3, 1, 2),
+                                        (0, 3, 2)])
+def test_unit_tables_arena_layout(monkeypatch, N, C, nchunk):
+    """Kernel 15's one allocation a call: its outputs as disjoint views at
+    256-byte offsets, of the plain version's dtypes and shapes, in the C
+    source's order; two calls never share it; the wrapper passes the
+    allocation and the offsets to its entry point."""
+    from test_torch_schedule import _arena_checks, _enum, _fake_library
+
+    from dwt_tpu_torch.ops import _launch, units
+
+    _enum("units.cu", units.OUT_KEYS)
+    nbytes, views, offsets = units._layout(N, C, nchunk)
+    offs = list(offsets.at)
+    outs = _launch.carve(nbytes, views, "cpu")
+    _arena_checks(outs, nbytes, offs)
+    U = C * PMAX * nchunk
+    assert [(t.dtype, tuple(t.shape)) for t in outs] == (
+        [(torch.int32, (N, U))] * 5 + [(torch.bool, (N, U)),
+                                       (torch.int32, (N * U, 8)),
+                                       (torch.int32, (N * C * nchunk, PMAX))])
+    if N == 0:
+        return
+    enc, stats, segs = _port(64, 48, 3, N, N)
+    args = _args(stats, segs, 1 << 13)
+    nbytes, views, offsets = units._layout(N, 3, segs.nchunk)
+    calls = []
+    _fake_library(monkeypatch, "dwt_unit_tables", calls)
+    monkeypatch.setattr(units, "_check", lambda *a: True)
+    before = units.unit_tables.launches
+    got = units.unit_tables(*args)
+    again = units.unit_tables(*args)
+    assert units.unit_tables.launches == before + 2 and len(calls) == 2
+    want = units.unit_tables_plain(*args)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+    assert calls[0][-3] == got[0].data_ptr()
+    assert list(calls[0][-2].at) == list(offsets.at)
+    assert calls[0][10:16] == (N, 3, enc.pyr.levels, segs.nchunk, segs.n,
+                               1 << 13)
+    assert (again[0].untyped_storage().data_ptr()
+            != got[0].untyped_storage().data_ptr())
+
+
+def _stage_plan(a: int, S: int) -> tuple:
+    """units_kernel's staging of a row of S ints at byte address ``a`` (a
+    multiple of 4): (head, the bulk copy's (source, shared-memory int
+    index, bytes) or None, the ints loaded plainly)."""
+    e = a + 4 * S
+    lo, hi = (a + 15) & ~15, e & ~15
+    head = (a & 15) >> 2
+    bulk = hi > lo
+    plain = [j for j in range(S) if not bulk or a + 4 * j < lo
+             or a + 4 * j >= hi]
+    copy = (lo, head + (lo - a) // 4, hi - lo) if bulk else None
+    return head, copy, plain
+
+
+@pytest.mark.parametrize("S", [1, 3, 4, 5, 58, 783, 1856, 2048])
+def test_unit_staging_covers_each_int_once(S):
+    """The staged row: at every row start (mod 16), the bulk copy (16-byte
+    source, destination and size) and the plain loads put each int j of
+    the row at head + j, once, inside the buffer of MAX_STEPS + 4 ints."""
+    for a in range(4096, 4096 + 64, 4):
+        head, copy, plain = _stage_plan(a, S)
+        got = [0] * (S + head)
+        for j in plain:
+            got[head + j] += 1
+        if copy:
+            src, at, nbytes = copy
+            assert src % 16 == 0 and at % 4 == 0 and nbytes % 16 == 0
+            assert src == a + 4 * (at - head)
+            for q in range(at, at + nbytes // 4):
+                got[q] += 1
+        assert got[head:] == [1] * S and head + S <= 2048 + 4
+        assert len(plain) <= (6 if copy else S)
+
+
+def _replay_steps(ubase, U):
+    """units_kernel's step of each of U units, a unit a thread: a binary
+    search of the staged bases for the last at most u."""
+    S = ubase.shape[0]
     steps = []
-    for u in range(acc):
+    for u in range(U):
         lo, hi = 0, S
         while hi - lo > 1:
             mid = (lo + hi) >> 1
-            lo, hi = (mid, hi) if ub[mid] <= u else (lo, mid)
-        steps.append((lo, u - ub[lo]))
-    return acc, steps
+            lo, hi = (mid, hi) if ubase[mid] <= u else (lo, mid)
+        steps.append((lo, u - int(ubase[lo])))
+    return steps
 
 
 def test_unit_plan_replayed():
-    """The replayed step search gives each unit the step and chunk that
-    the plain version's searchsorted does, on a 3-frame sub-batch."""
+    """The replayed step search over stage 1's ``ubase_sched`` gives each
+    unit the step and chunk that the plain version's searchsorted does, on
+    a 3-frame sub-batch, every unit of a frame found (one block a 256
+    units, a unit a thread)."""
     from dwt_tpu_torch.codec import tokens
 
     enc, stats, segs = _port(64, 48, 3, 3, 5)
@@ -112,10 +227,12 @@ def test_unit_plan_replayed():
     lnc = np.asarray(segs.level_nchunk)
     lcb = np.asarray(segs.level_chunk_base)
     L = enc.pyr.levels
+    U = 3 * PMAX * segs.nchunk
     for f in range(3):
         order = stats["order"][f].numpy()
-        U, steps = _replay_steps(order, lnc, L)
-        assert U == 3 * PMAX * segs.nchunk
+        ubase = stats["ubase_sched"][f].numpy()
+        assert ubase[-1] + lnc[(order[-1] // PMAX) % L] == U
+        steps = _replay_steps(ubase, U)
         ords = np.asarray([order[s] for s, _ in steps])
         chunk = np.asarray([lcb[(order[s] // PMAX) % L] + k
                             for s, k in steps])
@@ -134,20 +251,18 @@ def test_unit_tables_checks(case):
     from dwt_tpu_torch.ops import units
 
     enc, stats, segs = _port(16, 16, 3, 2, 1)
-    args = [stats["order"], stats["valid_sched"], stats["step_base"],
-            stats["nS_ck"], stats["scar_ck"], stats["zcar_ck"],
-            segs.level_nchunk_t, segs.level_chunk_base_t, segs.ch_start_t,
-            segs.ch_len_t, segs.n, 1 << 13]
+    args = _args(stats, segs, 1 << 13)
+    assert units.unit_tables(*args) and units.unit_tables_plain(*args)
     if case == "order dtype":
         args[0] = args[0].long()
     elif case == "valid dtype":
-        args[1] = args[1].to(torch.int32)
+        args[2] = args[2].to(torch.int32)
     elif case == "chunk tables":
-        args[4] = args[4][:1]
+        args[5] = args[5][:1]
     elif case == "chunk starts":
         args[8] = args[8][:-1]
     else:
-        args[5] = torch.empty(args[5].shape, dtype=torch.int32,
+        args[6] = torch.empty(args[6].shape, dtype=torch.int32,
                               device="meta")
     with pytest.raises(ValueError):
         units.unit_tables(*args)
