@@ -27,7 +27,10 @@ seconds:
              and a reduced decode capped at 960x540 (``pixels_max=518400``),
              whose shapes and pixels' SHA-256 must equal the JAX package's
              (constants below), each with its launch counts and its
-             scatter call held to the plain version.  Then a capacity
+             scatter and inverse-transform calls held to the plain
+             versions, and a root-only decode (``pixels_max`` at the root
+             band's pixel count: kernel 16 once, on the root size) equal
+             to the same stream decoded on the CPU.  Then a capacity
              encode (1,000,000 bytes), which must equal the lossless
              stream's prefix with fewer tokens.  Then the tiled paths:
              ``encode_tiled`` of the frame in 512x512 tiles (40 tiles, 4
@@ -87,7 +90,10 @@ seconds:
              ``torch.argsort`` of its keys as the sort's yardstick) and
              kernel A's unit tables, and both on a seeded sweep of channel
              and level counts up to the kernel's 2,048 steps a frame
-             (``schedule_sweep``); the tile engines' probe as its one
+             (``schedule_sweep``); kernel 16, the decoder's inverse
+             transform (on the 4K decode's pyramid; no PyTorch call
+             computes it), with its bound with and without the LL
+             buffers; the tile engines' probe as its one
              host call, and one cold ``engine_supported`` by the host
              clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
@@ -111,9 +117,16 @@ seconds:
              likewise); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
-             share of the tail; three warm tiled encodes (lossless and at
-             a third) and decodes in MP/s, and one ``decode_tiled`` split, by timers wrapped
-             around its own calls, into the thread-pooled host parse, the
+             share of the tail; the decode tail by pass
+             (``tools/tail_split.py``: the bias, the scatter, the root
+             crop and permute, the inverse transform, or on a parent the
+             inverse lifting and then the colour, clamp and cast) at 4K,
+             at the preview's 480x270 and at a 16K tile group of 480
+             512x512 tiles, in turns with the parent tree's where
+             ``--parent DIR`` names one; three warm tiled encodes
+             (lossless and at a third) and decodes in MP/s, and one
+             ``decode_tiled`` split, by timers wrapped around its own
+             calls, into the thread-pooled host parse, the
              upload, the batched tails and the rest (download, mosaic).
 6. device  — the device time of kernels 5 and 6 by torch.profiler,
              beside their bounds: kernel 5 at 4K and at the tiled
@@ -127,7 +140,12 @@ seconds:
              and the
              forward transform launch by launch with the levels each
              lifts (the scan, stage 1 and kernels 11-15 also at the
-             batch's 7-frame shape in phase 9).
+             batch's 7-frame shape in phase 9); kernel 16 launch by
+             launch with the levels each lifts, at 4K, at the preview's
+             480x270 and at the 16K tiled decode's two tile groups
+             (seeded coefficients), each held to its plain version, beside
+             its bounds (the 480-tile group in the kernels' JSON as its
+             ``batch_*`` keys).
              After the timing phase, so that no profiler session runs
              before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
@@ -140,11 +158,14 @@ seconds:
              the stream's length and digest ("sharded encode"),
              ``ShardedDecoder`` of the stream to the frame and of the
              1,000,000-byte prefix to the prefix's shape and digest
-             ("sharded decode"), and ``encode_tiled_sharded`` lossless and
-             at a third of its size to the two container digests ("sharded
-             tiled encode", "budgeted sharded tiled encode").  The
-             sharded encode reaches stage 1's transform kernel only
-             through the halo DWT's coarse tail (``dwt2d_fwd`` on the
+             ("sharded decode"; its coarse tail through ``dwt2d_inv``,
+             kernel 16's int32 route, unless the coarse region is the
+             root band alone, which has no coarse tail to lift), and
+             ``encode_tiled_sharded`` lossless and at a third of its size
+             to the two container digests ("sharded tiled encode",
+             "budgeted sharded tiled encode").  The sharded encode
+             reaches stage 1's transform kernel only through the halo
+             DWT's coarse tail (``dwt2d_fwd`` on the
              levels below the halo levels) and its plane statistics
              through ``_stats_from_lin``; the tiled routes reach both
              through the batch mode's stage 1.  Then warm
@@ -192,8 +213,9 @@ the two-rank run of phase 7 (it needs two cards), and prints no result
 lines.  ``python3 chip_smoke.py --parent DIR`` runs every phase and, in
 phase 4, also times the 4K ``_vli_orders`` of the checkout unpacked at
 DIR (its ``dwt_tpu_torch/`` is enough, built into DIR/build), in turns
-with this one's, splits its stage 1, its emit half and its tokens half
-by pass in turns with this one's (phases 5 and 9), times its kernel 11
+with this one's, splits its stage 1, its emit half, its tokens half and
+its decode tail by pass in turns with this one's (phases 5 and 9), times
+its kernel 11
 on the same calls in turns with this one's at 4K (phase 6) and at 7
 frames (phase 9), with each build's registers and shared memory a
 block, and its kernels 14 and 15 likewise, and times its ``encode_tiled`` of the small tiles (phase 3) and
@@ -381,10 +403,10 @@ class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
     scan, the forward transform, the plane statistics, the codeword
     pieces, the token finisher, the packed elements, the schedule, kernel
-    A's unit tables and the tile engines' probe), their sources, the TPU
-    kernels (or, for kernels 8-15, the JAX code) they replace and the
-    paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose runs must launch
-    them."""
+    A's unit tables, the inverse transform and the tile engines' probe),
+    their sources, the TPU kernels (or, for kernels 8-16, the JAX code)
+    they replace and the paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose
+    runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
@@ -400,7 +422,9 @@ class Kernels:
         # the transform only as the halo DWT's coarse tail, ``dwt2d_fwd``,
         # whose launches count on ``forward_transform``; it reaches the
         # plane statistics and the schedule through stage 1's
-        # ``_stats_from_lin``).
+        # ``_stats_from_lin``; the decoders call the inverse transform by
+        # ``inverse_transform``, the sharded decoder its coarse tail by
+        # ``dwt2d_inv``, whose launches count on ``inverse_transform``).
         self.sites = [(stage1, "forward_transform"),
                       (stage1, "hilbert_gather"), (stage1, "plane_stats"),
                       (tokens, "compact_tokens"),
@@ -409,7 +433,8 @@ class Kernels:
                       (tokens, "vli_orders"), (emit, "codeword_pieces"),
                       (tokens, "finish_tokens"), (tokens, "packed_elems"),
                       (stage1, "schedule"), (tokens, "unit_tables"),
-                      (sharded, "hilbert_gather"), (halo, "dwt2d_fwd")]
+                      (sharded, "hilbert_gather"), (halo, "dwt2d_fwd"),
+                      (decoder, "inverse_transform"), (sharded, "dwt2d_inv")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "forward_transform": (lifting.forward_transform,
@@ -434,6 +459,9 @@ class Kernels:
             "packed_elems": (finish.packed_elems, finish.packed_elems_plain),
             "schedule": (schedule.schedule, schedule.schedule_plain),
             "unit_tables": (units.unit_tables, units.unit_tables_plain),
+            "inverse_transform": (lifting.inverse_transform,
+                                  lifting.inverse_transform_plain),
+            "dwt2d_inv": (lifting.dwt2d_inv, lifting.dwt2d_inv_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -505,6 +533,15 @@ class Kernels:
             ("unit_tables", units.unit_tables,
              "dwt_tpu_torch/csrc/units.cu",
              "dwt_tpu/codec/encoder.py:521", ENCODE_PATHS),
+            # Kernel 16, the inverse transform (a launch for the coarse
+            # tail and one a larger level, the colour, clamps and cast as
+            # the finest level stores).  No TPU kernel: it replaces the
+            # JAX package's XLA dwt2d_inv with ycocg_to_rgb and the clip
+            # and cast of _tail_fn (dwt_tpu/codec/decoder.py:109-112).
+            ("inverse_transform", lifting.inverse_transform,
+             "dwt_tpu_torch/csrc/lifting_inv.cu",
+             "dwt_tpu/ops/lifting.py:112, dwt_tpu/ops/color.py:26",
+             DECODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -514,9 +551,11 @@ class Kernels:
     def counts(self) -> dict:
         return {name: fn.launches for name, fn, _, _, _ in self.rows}
 
-    def check_launched(self, path: str, counts: dict) -> None:
+    def check_launched(self, path: str, counts: dict,
+                       exempt: tuple = ()) -> None:
         idle = [name for name, _, _, _, paths in self.rows
-                if path in paths and counts[name] <= 0]
+                if path in paths and counts[name] <= 0
+                and name not in exempt]
         if idle:
             raise AssertionError(
                 f"kernels never launched on the {path} path: {idle}")
@@ -576,10 +615,12 @@ class Kernels:
         return {name: len(calls) for name, calls in store.items()}
 
     @contextlib.contextmanager
-    def path(self, name: str, store: dict, counts: dict):
+    def path(self, name: str, store: dict, counts: dict,
+             exempt: tuple = ()):
         """Run a path with the launch counts set to 0 before it and read
         into ``counts`` after it, and its kernel inputs kept in ``store``;
-        raise if a kernel of the path was never launched."""
+        raise if a kernel of the path (but those in ``exempt``, which this
+        run of it has no work for) was never launched."""
         import torch
 
         self.reset()
@@ -587,7 +628,7 @@ class Kernels:
             yield
         torch.cuda.synchronize()
         counts.update(self.counts())
-        self.check_launched(name, counts)
+        self.check_launched(name, counts, exempt)
 
 
 def time_ms(torch, fn, setup=lambda: (), reps: int = 10, warm: int = 1):
@@ -1087,6 +1128,27 @@ def transform_work(torch, args) -> tuple:
     return x.numel() * (x.element_size() + 4), 0
 
 
+def inverse_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 16 must spend on its (N, H, W, C)
+    int32 coefficients: read once, and the image (uint8, or int32)
+    written once.  Its integer work, about 14 operations a sample over all
+    levels, takes less time at the INT32 rate than those bytes, and is not
+    counted."""
+    x, to_bytes = args[0], args[3]
+    return x.numel() * (4 + (1 if to_bytes else 4)), 0
+
+
+def ll_bytes(args) -> int:
+    """The bytes kernel 16's LL buffers move between its launches: each
+    launch's output but the last, int32, written once and read once."""
+    from dwt_tpu_torch.ops import lifting
+
+    x, chain = args[0], args[1]
+    n, c = x.shape[0], x.shape[3]
+    return sum(8 * n * c * chain[g[-1] - 1][0] * chain[g[-1] - 1][1]
+               for g in lifting.unlift_levels(chain)[:-1])
+
+
 def plane_stats_work(torch, args) -> tuple:
     """(bytes, integer operations) the plane statistics must spend on
     their arguments: each row's detail elements read once (4 bytes), the
@@ -1510,6 +1572,22 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
              f"the wrapper deriving it on the host {derive_ms:.3f} ms")
     scatter_at_tiles(torch, tiled_scatter)
 
+    # 5b. kernel 16, the inverse transform, as the decoder's tail calls it
+    # on the 4K pyramid: a launch for the coarse tail and one a larger
+    # level, the colour, clamps and cast as the finest level stores; no
+    # PyTorch call computes this function
+    args = got["inverse_transform"][0]
+    nbytes, ops = inverse_work(torch, args)
+    row("inverse_transform", lifting.inverse_transform(*args),
+        lifting.inverse_transform_plain(*args),
+        time_ms(torch, lambda: lifting.inverse_transform(*args)),
+        time_ms(torch, lambda: lifting.inverse_transform_plain(*args),
+                reps=3), nbytes, None, ops)
+    progress(f"kernels: inverse_transform {tuple(args[0].shape)}, levels "
+             f"by launch {lifting.unlift_levels(args[1])}: {nbytes} bytes "
+             f"({nbytes + ll_bytes(args)} with the LL buffers: bound "
+             f"{bound_of(nbytes + ll_bytes(args))[0]:.4f} ms)")
+
     # 6. kernel 6, which no path runs: seeded tensors of the shapes the
     # VLI order scan gave it (int32 (nblk, 128) in, int8 (128, nblk) out),
     # each held to its plain version and timed alone; the row gives the
@@ -1697,11 +1775,11 @@ def schedule_sweep(torch) -> str:
 
 # Kernels 14 and 15 by tree, as the profiler names them (the parent's
 # kernel 14 was two kernels).
-SCHED_KERNELS = {"this tree": {"schedule": ("schedule_kernel",),
-                               "unit_tables": ("units_kernel",)},
-                 "parent": {"schedule": ("level_sums_kernel",
-                                         "schedule_kernel"),
-                            "unit_tables": ("units_kernel",)}}
+# Kernels 14 and 15 by wrapper, as the profiler names them; a tree whose
+# kernel 14 ran its level sums as a kernel of their own also ran
+# level_sums_kernel.
+SCHED_KERNELS = {"schedule": ("schedule_kernel",),
+                 "unit_tables": ("units_kernel",)}
 
 
 def schedule_turns(torch, kept: dict, parent: str | None) -> str:
@@ -1709,9 +1787,12 @@ def schedule_turns(torch, kept: dict, parent: str | None) -> str:
     CUDA events around the wrapper (``time_ms``) and by device time
     (torch.profiler), this tree's and, where ``parent`` names a checkout,
     the parent's in turns (this tree, the parent, the parent, this tree),
-    each call's leaves held equal to this tree's.  The parent's unit
-    tables take the levels' chunk counts where this tree takes
-    ``ubase_sched``."""
+    each call's leaves held equal to this tree's.  A parent from before
+    kernel 14's cluster launch takes the level sums' warps from the
+    caller, and its unit tables the levels' chunk counts where this tree
+    takes ``ubase_sched``."""
+    import inspect
+
     from dwt_tpu_torch.ops import schedule, units
 
     trees = {"this tree": (schedule, units)}
@@ -1728,14 +1809,18 @@ def schedule_turns(torch, kept: dict, parent: str | None) -> str:
         times: dict = {}
         for tree in order:
             sched, unit = trees[tree]
+            old = hasattr(sched, "level_warps")  # level sums of their own
+            kernels = SCHED_KERNELS[name]
             if name == "schedule":
-                # the parent's level sums took their warps from the caller
+                # the old level sums took their warps from the caller
                 fargs = args + ((sched.level_warps(args[8].tolist()),)
-                                if tree == "parent" else ())
+                                if old else ())
+                kernels = ("level_sums_kernel",) * old + kernels
                 fn = lambda a=fargs, m=sched: m.schedule(*a)  # noqa
             else:
                 fargs = args
-                if tree == "parent":  # the levels' chunk counts
+                if "ubase_sched" not in inspect.signature(
+                        unit.unit_tables).parameters:  # the chunk counts
                     lcb, nchunk = args[7], args[4].shape[2]
                     lnc = torch.diff(lcb, append=lcb.new_tensor([nchunk]))
                     fargs = (args[0], *args[2:7], lnc, *args[7:])
@@ -1749,8 +1834,7 @@ def schedule_turns(torch, kept: dict, parent: str | None) -> str:
             if not same:
                 raise AssertionError(f"{name} of {tree} differs")
             ev = time_ms(torch, fn, reps=50)
-            dev = sum(kernel_ms(torch, fn, k, per_call=1)
-                      for k in SCHED_KERNELS[tree][name])
+            dev = sum(kernel_ms(torch, fn, k, per_call=1) for k in kernels)
             times.setdefault(tree, []).append((ev, dev))
         parts.append(f"{name} {tuple(args[0].shape)}: " + "; ".join(
             f"{tree} " + ", ".join(f"{e:.4f} ms ({d:.4f} device)"
@@ -2047,6 +2131,29 @@ def stage1_split(torch, enc, imgs: np.ndarray,
     return " | ".join(out)
 
 
+def tail_turns(torch, img: np.ndarray, parent: str | None,
+               card: str) -> None:
+    """``tools/tail_split.py``'s split of the decode tail of the 4K frame,
+    the preview and a 16K tile group: the means of three runs, each pass
+    by the host clock between synchronised marks and by CUDA events, and
+    the unmarked tail, on inputs parsed by this tree, for this tree's
+    decoder and, where ``parent`` names a checkout, its decoder in turns
+    (this tree, the parent, the parent, this tree)."""
+    from dwt_tpu_torch.codec import decoder, encoder, tiled
+
+    mod = tool("tail_split")
+    decs, order = {"this tree": decoder}, ["this tree"]
+    if parent:
+        decs["parent"] = parent_module(parent, "codec.decoder")
+        order = ["this tree", "parent", "parent", "this tree"]
+    for inp in mod.inputs(torch, decoder, encoder, tiled, img):
+        runs = [f"{name}: {mod.line(mod.split(torch, decs[name], inp, 3))}"
+                for name in order]
+        progress(f"timing: the decode tail by pass, {inp[0]} "
+                 f"{tuple(inp[2].shape)}: " + " | ".join(runs) + f" on {card}")
+    torch.cuda.empty_cache()
+
+
 def lift_split(torch, imgs: np.ndarray) -> str:
     """One forward transform of ``imgs`` launch by launch: each launch's
     device time (``launch_ms``) with the levels it lifts, their sum, and
@@ -2070,6 +2177,80 @@ def lift_split(torch, imgs: np.ndarray) -> str:
                      f"{pyr.heights[g[0]]} {m:.4f} ms"
                      for g, (_, m) in zip(groups, ms)) \
         + f"; device {sum(m for _, m in ms):.4f} ms, {events}"
+
+
+# Kernel 16 in phase 6: (label, (N, H, W, C) seeded coefficients): the
+# preview's 480x270 and the 16K tiled decode's two tile groups (480 of
+# 512x512, 30 of 448x512), beside the 4K decode's kept call.
+UNLIFT_SHAPES = (("preview", (1, 270, 480, 3)),
+                 ("16K tile group", (480, 512, 512, 3)),
+                 ("16K edge tile group", (30, 448, 512, 3)))
+
+
+def unlift_device(torch, kept: tuple, rows: list) -> None:
+    """Phase 6, kernel 16 launch by launch: each launch's device time
+    (torch.profiler, means of 20 calls) with the levels it lifts, their
+    sum and the call's CUDA-event time, beside the bound by bytes without
+    and with the LL buffers: the 4K decode's kept call and seeded
+    coefficients of ``UNLIFT_SHAPES`` (the work does not depend on the
+    values), each also held against its plain version.  The 4K sum goes
+    into kernel 16's row as ``device_ms``, the 480-tile group as its batch
+    column."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    calls = [("4K", kept)]
+    for label, (n, h, w, c) in UNLIFT_SHAPES:
+        x = torch.randint(-700, 700, (n, h, w, c), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        calls.append((label, (x, lifting.pyramid_chain(
+            compute_pyramid(w, h)), True, True)))
+    r = next(r for r in rows if r["name"] == "inverse_transform")
+    for label, args in calls:
+        chain, groups = args[1], lifting.unlift_levels(args[1])
+        err = max_abs_err("inverse_transform",
+                          lifting.inverse_transform(*args),
+                          lifting.inverse_transform_plain(*args))
+        if err:
+            raise AssertionError(f"inverse_transform {label}: kernel differs "
+                                 f"from its plain version (max abs err "
+                                 f"{err})")
+        torch.cuda.empty_cache()
+
+        def fn():
+            return lifting.inverse_transform(*args)
+
+        ev = kernel_events(torch, fn, "inverse_", 20, len(groups))
+        events = time_ms(torch, fn, reps=20)
+        nbytes = inverse_work(torch, args)[0]
+        bound, with_ll = (bound_of(nbytes)[0],
+                          bound_of(nbytes + ll_bytes(args))[0])
+        if ev is None:
+            ms, parts = float("nan"), "not measured (the profiler dropped " \
+                "kernel events)"
+        else:
+            per = [sum(ev[k * len(groups) + i][1] for k in range(20)) / 20e3
+                   for i in range(len(groups))]
+            ms = sum(per)
+            parts = "; ".join(
+                f"levels {list(g)} to {chain[g[-1] - 1][1]}x"
+                f"{chain[g[-1] - 1][0]} ("
+                + ("tail" if "inverse_tail" in ev[i][0] else "level")
+                + f") {m:.4f} ms" for i, (g, m) in enumerate(zip(groups,
+                                                                per)))
+        progress(f"device: inverse_transform {label} "
+                 f"{tuple(args[0].shape)}, equal to its plain version: "
+                 f"{parts}; device {ms:.4f} ms, events {events:.4f} ms; "
+                 f"bound {bound:.4f} ms by bytes ({nbytes} B; share "
+                 f"{bound / ms:.2f}), {with_ll:.4f} ms with the LL buffers")
+        if label == "4K":
+            r["device_ms"] = ms
+        elif label == "16K tile group":
+            r.update(batch_launches=len(groups), batch_ms=events,
+                     batch_bound_ms=bound, batch_device_ms=ms)
+        del args, fn
+        torch.cuda.empty_cache()
 
 
 def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
@@ -2242,6 +2423,30 @@ def lossy_decodes(torch, K: Kernels, decoder, stream: bytes) -> None:
             raise AssertionError(
                 f"{name} decode differs from the JAX package's: {out.shape} "
                 f"sha256 {digest} (want {shape} {want})")
+
+
+def root_only_decode(torch, K: Kernels, decoder, stream: bytes) -> None:
+    """Phase 3's root-only decode: ``pixels_max`` at the root band's pixel
+    count, so that the decoder lifts the root band alone (decode.c:258
+    quirk): kernel 16 once, on the chain of the root size, held against
+    its plain version, and the image against the same stream decoded with
+    ``device="cpu"``.  The scatter has no work on this route."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+
+    px = compute_pyramid(W, H).pixels[0]
+    store, counts = {}, {}
+    with K.path("decode", store, counts, exempt=("hilbert_scatter",)):
+        out, _ = decoder.decode(stream, px)
+    want, _ = decoder.decode(stream, px, device="cpu")
+    progress(f"e2e: root-only decode (pixels_max={px}) -> {out.shape}; "
+             f"launches {counts}; kernels equal to their plain versions: "
+             f"{held_line(K.hold(store))}; equal to the CPU decode: "
+             f"{bool(np.array_equal(out, want))}")
+    if counts["inverse_transform"] != 1 or out.shape != want.shape \
+            or not np.array_equal(out, want):
+        raise AssertionError("the root-only decode on the card differs from "
+                             "the CPU decode or is not one launch of kernel "
+                             "16")
 
 
 def decode_profile(torch, decoder, stream: bytes, img: np.ndarray) -> None:
@@ -2529,10 +2734,10 @@ def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
 
     tag = f"rank {mesh.rank}/{mesh.size} on {mesh.device}"
 
-    def run(name, fn):
+    def run(name, fn, exempt=()):
         store, counts = {}, {}
         t0 = time.perf_counter()
-        with K.path(name, store, counts):
+        with K.path(name, store, counts, exempt):
             result = fn()
         secs = time.perf_counter() - t0
         progress(f"sharded: {tag}: {name} {secs:.2f} s; launches {counts}; "
@@ -2547,7 +2752,15 @@ def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
         raise AssertionError(f"{tag}: the sharded stream differs from the "
                              f"JAX package's: {len(s)} bytes, sha256 {digest}")
     dec = sharded.ShardedDecoder(W, H, C, mesh)
-    out = run("sharded decode", lambda: dec.decode(stream))
+    # Where the coarse region is the root band alone, the sharded decode
+    # has no coarse tail to lift: kernel 16 has no work on it.
+    exempt = () if dec._sub_pyr is not None else ("inverse_transform",)
+    progress(f"sharded: {tag}: the coarse tail is "
+             + (f"{dec._sub_pyr.levels} level(s) of kernel 16 from "
+                f"{dec._sub_pyr.width}x{dec._sub_pyr.height}"
+                if dec._sub_pyr is not None else
+                "the root band alone: kernel 16 has no launch to make there"))
+    out = run("sharded decode", lambda: dec.decode(stream), exempt)
     if not np.array_equal(out, img):
         raise AssertionError(f"{tag}: the sharded decode differs from the "
                              f"frame")
@@ -3155,7 +3368,9 @@ def main(argv: list) -> int:
         raise AssertionError("the lossless decode differs from the frame")
     K.check_launched("decode", dec_launches)
     launches["hilbert_scatter"] = dec_launches["hilbert_scatter"]
+    launches["inverse_transform"] = dec_launches["inverse_transform"]
     lossy_decodes(torch, K, decoder, stream)
+    root_only_decode(torch, K, decoder, stream)
     capacity_encode(K, enc, img, stream, info["tokens"])
     full, tiled_scatter = tiled_paths(torch, K, tiled, img)
     small_tiles(torch, K, tiled, parent)
@@ -3168,6 +3383,7 @@ def main(argv: list) -> int:
                      transposes["4K"], got["vli_orders"][0],
                      {k: got[k][0] for k in STAGE1_NAMES},
                      got["codeword_pieces"][0], tokens_kept(got), rows)
+    inverse_4k = got["inverse_transform"][0]
     del got, tiled_scatter, transposes
     torch.cuda.empty_cache()
 
@@ -3191,6 +3407,7 @@ def main(argv: list) -> int:
     progress(f"timing: warm 4K decode {', '.join(f'{m:.2f}' for m in mps)} "
              f"MP/s on {card}")
     decode_profile(torch, decoder, stream, img)
+    tail_turns(torch, img, parent, card)
     tiled_timing(torch, tiled, img, full, card)
 
     # 6. device times of kernels 5 and 6 (torch.profiler)
@@ -3198,6 +3415,9 @@ def main(argv: list) -> int:
     del device_inputs
     progress("device: the forward transform by launch at 4K: "
              + lift_split(torch, img[None]))
+    unlift_device(torch, inverse_4k, rows)
+    del inverse_4k
+    torch.cuda.empty_cache()
 
     # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
     sharded_phase(torch, K, img, stream, card)

@@ -5,8 +5,9 @@ Port of ``dwt_tpu/codec/decoder.py``'s ``parse_header``, ``_tail_fn`` and
 linearized coefficients: the bit parse of one stream is serial, as in the
 JAX package.  On the device, the inverse tail applies the missing-plane
 midpoint bias, the inverse Hilbert scatter (the CUDA kernel
-``csrc/hilbert_scatter.cu``), the inverse lifting and the inverse colour
-transform.
+``csrc/hilbert_scatter.cu``), then the inverse lifting, the inverse colour
+transform, the clamp and the uint8 cast (kernel 16,
+``csrc/lifting_inv.cu``, through ``ops/lifting.py:inverse_transform``).
 
 Truncation and reduced-resolution semantics follow decode.c:136-268: the
 output size is that of the deepest level actually decoded; a stream that
@@ -26,10 +27,9 @@ import torch
 
 from ..geometry import compute_pyramid
 from ..hilbert import level_of_position, reconstruction_perm
-from ..ops.color import ycocg_to_rgb
 from ..ops.hilbert_gather import engine_supported
 from ..ops.hilbert_scatter import hilbert_scatter, square_runs
-from ..ops.lifting import cdf53_inv, dwt2d_inv
+from ..ops.lifting import inverse_transform, pyramid_chain
 from ..runtime import native
 from .encoder import _device
 
@@ -72,6 +72,7 @@ class _Tail:
         # shared; but the level of a scan position is the full pyramid's.
         self.sub_pyr = compute_pyramid(self.out_w, self.out_h)
         assert self.sub_pyr.levels == out_levels
+        self.chain = pyramid_chain(self.sub_pyr)
         engine_supported(device)  # the tile engines' probe, once a device
         src = scatter_source(self.sub_pyr)
         self.src = torch.as_tensor(src, device=device)
@@ -118,19 +119,17 @@ class _Tail:
         """(N, C, total >= n_out) int32 coefficients on the device and the
         parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C)
         uint8.  The N streams go through one scatter launch as N*C
-        channels."""
+        channels, and one inverse transform (kernel 16 on the card)."""
         N, C, n_out = coeffs.shape[0], self.channels, self.n_out
         if self.out_levels == 0:
             # Root-only decode: the reference still runs one inverse lifting
             # pass at root size (decode.c:258 quirk, SURVEY §2.5).
             x = coeffs[..., :n_out].transpose(1, 2).reshape(
-                N, self.out_h, self.out_w, C)
-            x = cdf53_inv(cdf53_inv(x, axis=-3), axis=-2)
+                N, self.out_h, self.out_w, C).contiguous()
+            chain = ((self.out_h, self.out_w),)
         else:
-            x = dwt2d_inv(self.pyramid(coeffs, missing), self.sub_pyr)
-        if not self.gray:
-            x = ycocg_to_rgb(x)
-        return x.clamp(0, 255).to(torch.uint8)
+            x, chain = self.pyramid(coeffs, missing), self.chain
+        return inverse_transform(x, chain, not self.gray, True)
 
     def __call__(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
         """(C, total >= n_out) int32 coefficients on the device and the

@@ -1,6 +1,7 @@
 """Integer CDF 5/3 lifting, forward and inverse (port of
-``dwt_tpu/ops/lifting.py``), and the encoder's forward transform (kernels
-``csrc/lifting.cu``).
+``dwt_tpu/ops/lifting.py``), the encoder's forward transform (kernel 9,
+``csrc/lifting.cu``) and the decoder's inverse transform (kernel 16,
+``csrc/lifting_inv.cu``).
 
 Every division truncates toward zero (C semantics, never Python's floor);
 odd-length boundary rules follow the reference's cdf53.h:11-33: clamped
@@ -18,6 +19,18 @@ the coefficients and its LL quadrant into one of two ping-pong buffers,
 the next launch's input.  On the CPU: :func:`forward_transform_plain`,
 whole-axis slice arithmetic over all rows or columns of a level at once
 (:func:`dwt2d_fwd_plain`).
+
+:func:`inverse_transform` is its mirror: N (N, H, W, C) int32 coefficient
+pyramids back to pixels, the levels of a ``chain`` of (h, w) output sizes
+lifted coarsest first, then the inverse colour transform, the clamps and
+the uint8 cast where asked.  On the card (:func:`unlift_levels`): one
+``inverse_tail_kernel`` launch for every level whose output holds at most
+``TAIL_SAMPLES`` samples a channel, then one ``inverse_level_kernel``
+launch for each larger level, coarsest first, each reading the LL quadrant
+the launch before wrote into one of two ping-pong buffers and writing its
+output into the other, or, at the finest level, into the result with the
+colour, clamps and cast applied as it stores.  On the CPU:
+:func:`inverse_transform_plain`.
 """
 
 from __future__ import annotations
@@ -27,7 +40,7 @@ import torch
 from ..geometry import Pyramid
 from ..runtime import build
 from ._launch import on_card
-from .color import rgb_to_ycocg
+from .color import rgb_to_ycocg, ycocg_to_rgb
 
 # Samples a channel of the first level the tail kernel lifts in shared
 # memory (int32: 64 KB a block).
@@ -223,13 +236,47 @@ def forward_transform(frames: torch.Tensor, pyr: Pyramid,
 forward_transform.launches = 0
 
 
-def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
-    """Inverse multi-level 2-D DWT (decode.c:16-30) on (..., H, W, C):
-    coarsest level first, columns then rows.  Leading axes are a batch.
-    The input is left as it was."""
+def pyramid_chain(pyr: Pyramid) -> tuple:
+    """The (h, w) output sizes of a whole inverse of ``pyr``, coarsest
+    first: level l's, l = 1..L."""
+    return tuple((pyr.heights[l], pyr.widths[l])
+                 for l in range(1, pyr.levels + 1))
+
+
+def unlift_levels(chain) -> list:
+    """The levels (l = 1..len(chain), ``chain[l - 1]`` level l's output)
+    each launch of :func:`inverse_transform` lifts on the card, coarsest
+    first: every level whose output has at most ``TAIL_SAMPLES`` samples a
+    channel in one launch, then one launch a larger level.  Its length is
+    the launch count."""
+    t = 0
+    while t < len(chain) and chain[t][0] * chain[t][1] <= TAIL_SAMPLES:
+        t += 1
+    return (([tuple(range(1, t + 1))] if t else [])
+            + [(l,) for l in range(t + 1, len(chain) + 1)])
+
+
+def _check_chain(chain, h: int, w: int) -> tuple:
+    """``chain`` as a tuple of int pairs; raises unless it ends at (h, w),
+    each size is the ceil-half of the next and every side is at least 2."""
+    chain = tuple((int(a), int(b)) for a, b in chain)
+    ok = (0 < len(chain) <= build.CHAIN_LEVELS and chain[-1] == (h, w)
+          and all(a >= 2 and b >= 2 for a, b in chain)
+          and all(chain[k] == ((a + 1) // 2, (b + 1) // 2)
+                  for k, (a, b) in enumerate(chain[1:])))
+    if not ok:
+        raise ValueError(f"inverse_transform: {chain} is not a chain of "
+                         f"ceil-halved sizes of at least 2 ending at "
+                         f"{(h, w)}")
+    return chain
+
+
+def _unlift_plain(coeff: torch.Tensor, chain) -> torch.Tensor:
+    """The levels of ``chain`` undone on (..., H, W, C) coefficients, coarsest
+    first: columns, then rows (decode.c:16-30).  The input is left as it
+    was."""
     out = coeff
-    for l in range(1, pyr.levels + 1):
-        w, h = pyr.widths[l], pyr.heights[l]
+    for h, w in chain:
         sub = cdf53_inv(cdf53_inv(out[..., :h, :w, :], axis=-3), axis=-2)
         if (h, w) == tuple(out.shape[-3:-1]):
             out = sub
@@ -238,3 +285,93 @@ def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
                 out = coeff.clone()  # the caller's tensor stays as it was
             out[..., :h, :w, :] = sub
     return out
+
+
+def inverse_transform_plain(coeff: torch.Tensor, chain, colour: bool,
+                            to_bytes: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`inverse_transform`."""
+    x = _unlift_plain(coeff, chain)
+    if colour:
+        x = ycocg_to_rgb(x)
+    return x.clamp(0, 255).to(torch.uint8) if to_bytes else x
+
+
+def inverse_transform(coeff: torch.Tensor, chain, colour: bool,
+                      to_bytes: bool) -> torch.Tensor:
+    """(N, H, W, C) int32 coefficients -> the levels of ``chain`` (their
+    (h, w) output sizes, coarsest first, the last (H, W):
+    :func:`pyramid_chain` for a whole pyramid, the one size (H, W) for the
+    decoder's root-only pass) undone, then, with ``colour`` (C == 3), the
+    inverse YCoCg-R with its decode-side clamps (image.h:41-43), and with
+    ``to_bytes`` the clamp to [0, 255] and the uint8 cast; int32
+    otherwise.  The input is left as it was.  On the card
+    ``len(unlift_levels(chain))`` launches."""
+    if coeff.dim() != 4 or coeff.dtype != torch.int32:
+        raise ValueError(f"inverse_transform: expected (N, H, W, C) int32 "
+                         f"coefficients, got {tuple(coeff.shape)} "
+                         f"{coeff.dtype}")
+    N, H, W, C = coeff.shape
+    chain = _check_chain(chain, H, W)
+    if colour and C != 3:
+        raise ValueError("inverse_transform: the colour transform needs 3 "
+                         "channels")
+    if not on_card("inverse_transform", coeff):
+        return inverse_transform_plain(coeff, chain, colour, to_bytes)
+    if C not in (1, 3):
+        raise ValueError(f"inverse_transform: the kernels take 1 or 3 "
+                         f"channels, not {C}")
+    dev, L = coeff.device, len(chain)
+    out = torch.empty((N, H, W, C), device=dev,
+                      dtype=torch.uint8 if to_bytes else torch.int32)
+    groups = unlift_levels(chain)
+    # Ping-pong LL buffers for the outputs of every launch but the last:
+    # level L - 1's into the first, L - 2's into the second, and so on in
+    # turn (each later one smaller than its buffer).
+    bufs = [torch.empty(N * chain[l - 1][0] * chain[l - 1][1] * C,
+                        dtype=torch.int32, device=dev)
+            for l in (L - 1, L - 2)[:len(groups) - 1]]
+    lib, stream = build.library(), build.stream_of(coeff)
+    co_frame, co_row = H * W * C, W * C
+    # The first large level without a tail reads the root band in place.
+    src, s_frame, s_row = coeff, co_frame, co_row
+    for levels in groups:
+        top = levels[-1]
+        h, w = chain[top - 1]
+        last = top == L
+        if last:
+            dst, d_frame, d_row = out, co_frame, co_row
+        else:
+            dst, d_frame, d_row = bufs[(L - 1 - top) % 2], h * w * C, w * C
+        flags = (int(colour and last), int(to_bytes and last))
+        if h * w <= TAIL_SAMPLES:  # the tail's levels, coarsest first
+            build.check(lib.dwt_unlift_tail(
+                coeff.data_ptr(), co_frame, co_row, N, C,
+                build.chain(chain[:top]), dst.data_ptr(), d_frame, d_row,
+                *flags, stream), "inverse_transform")
+        else:
+            build.check(lib.dwt_unlift_level(
+                coeff.data_ptr(), co_frame, co_row, src.data_ptr(), s_frame,
+                s_row, dst.data_ptr(), d_frame, d_row, N, h, w, C,
+                band_pairs(N, h, w), *flags, stream), "inverse_transform")
+        src, s_frame, s_row = dst, d_frame, d_row
+        inverse_transform.launches += 1
+    return out
+
+
+inverse_transform.launches = 0
+
+
+def dwt2d_inv(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+    """Inverse multi-level 2-D DWT (decode.c:16-30) on (..., H, W, C)
+    int32: coarsest level first, columns then rows.  Leading axes are a
+    batch.  The input is left as it was.  :func:`inverse_transform`'s
+    int32 route without the colour step: on the card its kernel (the
+    frames made contiguous first), on the CPU :func:`dwt2d_inv_plain`."""
+    frames = coeff.reshape((-1,) + tuple(coeff.shape[-3:])).contiguous()
+    return inverse_transform(frames, pyramid_chain(pyr), False,
+                             False).reshape(coeff.shape)
+
+
+def dwt2d_inv_plain(coeff: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dwt2d_inv`."""
+    return _unlift_plain(coeff, pyramid_chain(pyr))

@@ -41,6 +41,28 @@ def offsets(n: int) -> type:
     return type(f"Offsets{n}", (ctypes.Structure,),
                 {"_fields_": [("at", ctypes.c_int64 * n)]})
 
+
+# Levels a chain of csrc/lifting_inv.cu holds (its MAXL): one more than
+# the deepest pyramid's.
+CHAIN_LEVELS = 17
+
+
+class Chain(ctypes.Structure):
+    """The C struct of an inverse transform's chain that a wrapper passes
+    by value: ``n`` levels, level k's output ``h[k - 1]`` x ``w[k - 1]``,
+    coarsest first."""
+    _fields_ = [("n", ctypes.c_int), ("h", ctypes.c_int * CHAIN_LEVELS),
+                ("w", ctypes.c_int * CHAIN_LEVELS)]
+
+
+def chain(sizes) -> Chain:
+    """A :class:`Chain` of the (h, w) sizes ``sizes``, coarsest first."""
+    c = Chain(len(sizes))
+    for k, (h, w) in enumerate(sizes):
+        c.h[k], c.w[k] = h, w
+    return c
+
+
 # C entry points -> argument types.  Every pointer and the CUDA stream go
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
@@ -77,6 +99,13 @@ ENTRY_POINTS = {
     #  h, w, C, nlev, stream)
     "dwt_lift_tail": (_P, _I, _I, _L, _L, _P, _L, _L, _I, _I, _I, _I, _I,
                       _P),
+    # (coeff, co_frame, co_row, ll, ll_frame, ll_row, dst, dst_frame,
+    #  dst_row, n, h, w, C, bp, colour, u8, stream)
+    "dwt_unlift_level": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I,
+                         _I, _I, _I, _P),
+    # (coeff, co_frame, co_row, n, C, chain, dst, dst_frame, dst_row,
+    #  colour, u8, stream): the tail's levels, by value
+    "dwt_unlift_tail": (_P, _L, _L, _I, _I, Chain, _P, _L, _L, _I, _I, _P),
     # (val, val_row, raw, raw_row, vli, vli_row, ord, ord_row, site, nref,
     #  S, off, widx, c0, c1, c2, chunks, nframes, T, nwords, bounds, grid,
     #  scratch, cap, stream)

@@ -1293,3 +1293,124 @@ def test_unit_tables_kernel_equals_plain(cuda, w, h, c, n):
         for k, g, w_ in zip(units.OUT_KEYS, got, want):
             assert g.dtype == w_.dtype and g.shape == w_.shape, k
             assert torch.equal(g, w_), k
+
+
+# Kernel 16's shapes: (w, h, c, n); ragged sizes, a tail that reaches the
+# finest level (small images), large levels of one and several strips and
+# bands, and the paths' own sizes.
+INVERSE_SHAPES = [(8, 8, 3, 1), (17, 9, 1, 3), (70, 50, 3, 7),
+                  (321, 239, 3, 1), (321, 239, 1, 7), (1000, 37, 3, 3),
+                  (513, 129, 1, 3), (480, 270, 3, 1), (512, 448, 3, 7),
+                  (3840, 2160, 3, 1)]
+
+
+@pytest.mark.parametrize("w,h,c,n", INVERSE_SHAPES)
+def test_inverse_kernel_equals_plain(cuda, w, h, c, n):
+    """Kernel 16 (``unlift_levels``: one launch for the tail, one a larger
+    level) against its plain version on the same CUDA tensors: the uint8
+    image with and without the colour, the int32 route with and without
+    it, and ``dwt2d_inv``; coefficients beyond +-255 so that every clamp
+    acts; the input left as it was."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    rng = np.random.default_rng(w * h + n)
+    pyr = compute_pyramid(w, h)
+    chain = lifting.pyramid_chain(pyr)
+    x = torch.as_tensor(rng.integers(-700, 700, (n, h, w, c),
+                                     dtype=np.int32)).to(cuda)
+    x0 = x.clone()
+    for colour, to_bytes in {(c == 3, True), (False, True), (False, False),
+                             (c == 3, False)}:
+        before = lifting.inverse_transform.launches
+        got = lifting.inverse_transform(x, chain, colour, to_bytes)
+        assert lifting.inverse_transform.launches == before + len(
+            lifting.unlift_levels(chain))
+        want = lifting.inverse_transform_plain(x, chain, colour, to_bytes)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), (colour, to_bytes)
+    assert torch.equal(lifting.dwt2d_inv(x[0], pyr),
+                       lifting.dwt2d_inv_plain(x[0], pyr))
+    assert torch.equal(x, x0)
+
+
+@pytest.mark.parametrize("w,h,c", [(313, 263, 3), (8192, 16, 1),
+                                   (16, 8192, 3), (3840, 2160, 3)])
+def test_inverse_kernel_root_chain(cuda, w, h, c):
+    """The decoder's root-only pass: the chain of the root size alone, in
+    the tail or, for a root band of more than ``TAIL_SAMPLES`` samples a
+    channel (8192x16), as a large level reading its LL quadrant from the
+    coefficients; one launch, equal to the plain version."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    pyr = compute_pyramid(w, h)
+    chain = ((pyr.heights[0], pyr.widths[0]),)
+    rng = np.random.default_rng(w + h)
+    x = torch.as_tensor(rng.integers(-700, 700, (3,) + chain[0] + (c,),
+                                     dtype=np.int32)).to(cuda)
+    before = lifting.inverse_transform.launches
+    got = lifting.inverse_transform(x, chain, c == 3, True)
+    assert lifting.inverse_transform.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, lifting.inverse_transform_plain(x, chain, c == 3,
+                                                            True))
+
+
+def test_dwt2d_inv_on_a_view(cuda):
+    """``dwt2d_inv`` on the sharded decoder's coarse corner, a view that is
+    not contiguous, equals the plain version and leaves the view as it
+    was."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    rng = np.random.default_rng(5)
+    big = torch.as_tensor(rng.integers(-700, 700, (270, 480, 3),
+                                       dtype=np.int32)).to(cuda)
+    big0 = big.clone()
+    for hc, wc in ((9, 15), (135, 240)):
+        view = big[:hc, :wc]
+        assert not view.is_contiguous()
+        pyr = compute_pyramid(wc, hc)
+        got = lifting.dwt2d_inv(view, pyr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lifting.dwt2d_inv_plain(view.clone(), pyr))
+    assert torch.equal(big, big0)
+
+
+@pytest.mark.parametrize("w,h,c,pixels", [(321, 239, 3, 0), (96, 80, 1, 0),
+                                          (321, 239, 3, 30),
+                                          (96, 80, 1, 40)])
+def test_decode_tail_is_kernel_16(cuda, monkeypatch, w, h, c, pixels):
+    """A decode tail on the card launches kernel 16
+    ``len(unlift_levels(...))`` times and calls no plain version, on the
+    pyramid route and on the root-only route (``pixels`` below level 1's
+    pixel count); its image equals the CPU decode's."""
+    from dwt_tpu_torch.codec import decoder
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import color, lifting
+
+    img, stream = _port_stream(w, h, c, "mixed")
+    want, _ = decoder.decode(stream, pixels, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's path")
+
+    for mod, name in ((lifting, "inverse_transform_plain"),
+                      (lifting, "_unlift_plain"), (lifting, "cdf53_inv"),
+                      (lifting, "ycocg_to_rgb"), (color, "ycocg_to_rgb")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = lifting.inverse_transform.launches
+    got, _ = decoder.decode(stream, pixels)
+    oh, ow = want.shape[:2]
+    pyr = compute_pyramid(w, h)
+    root = (oh, ow) == (pyr.heights[0], pyr.widths[0])
+    chain = ((oh, ow),) if root else lifting.pyramid_chain(
+        compute_pyramid(ow, oh))
+    assert lifting.inverse_transform.launches == before + len(
+        lifting.unlift_levels(chain))
+    assert np.array_equal(got, want)
+    assert root == (pixels > 0)  # the root-only route where asked
+    if pixels == 0:
+        assert np.array_equal(got, img)
