@@ -91,9 +91,12 @@ seconds:
              kernel A's unit tables, and both on a seeded sweep of channel
              and level counts up to the kernel's 2,048 steps a frame
              (``schedule_sweep``); kernel 16, the decoder's inverse
-             transform (on the 4K decode's pyramid; no PyTorch call
+             transform (on the 4K decode's inputs; no PyTorch call
              computes it), with its bound with and without the LL
-             buffers; the tile engines' probe as its one
+             buffers, and on a seeded sweep of sizes from 2x2 up, 1 and 3
+             channels, up to 40 frames, contiguous and as the decoder
+             hands it over (``inverse_sweep``); the tile engines' probe
+             as its one
              host call, and one cold ``engine_supported`` by the host
              clock.
 5. timing  — three warm encodes of the frame, in MP/s, then where one
@@ -117,13 +120,17 @@ seconds:
              likewise); three
              warm decodes in MP/s, and one decode split into host parse,
              upload, device tail and download, with the scatter kernel's
-             share of the tail; the decode tail by pass
-             (``tools/tail_split.py``: the bias, the scatter, the root
-             crop and permute, the inverse transform, or on a parent the
-             inverse lifting and then the colour, clamp and cast) at 4K,
-             at the preview's 480x270 and at a 16K tile group of 480
-             512x512 tiles, in turns with the parent tree's where
-             ``--parent DIR`` names one; three warm tiled encodes
+             share of the tail; the decode tail gated (``tail_gate``:
+             on the 1,000,000-byte prefix, the lossless 4K, the preview
+             and a budgeted 16K tile group, the tail launches the scatter
+             and kernel 16 and no other kernel, with the eager bias and
+             the pyramid route made to raise) and by pass
+             (``tools/tail_split.py``: the scatter, kernel 16 and the
+             rest; a parent's bias, root crop and permute where it has
+             them, or the inverse lifting and then the colour, clamp and
+             cast) at 4K, at the preview's 480x270 and at a 16K tile
+             group of 480 512x512 tiles, in turns with the parent tree's
+             where ``--parent DIR`` names one; three warm tiled encodes
              (lossless and at a third) and decodes in MP/s, and one
              ``decode_tiled`` split, by timers wrapped around its own
              calls, into the thread-pooled host parse, the
@@ -145,7 +152,10 @@ seconds:
              480x270 and at the 16K tiled decode's two tile groups
              (seeded coefficients), each held to its plain version, beside
              its bounds (the 480-tile group in the kernels' JSON as its
-             ``batch_*`` keys).
+             ``batch_*`` keys); kernel 16's stamps
+             (``tools/inverse_stamps.py``: the tail's and the finest
+             level's phases inside their launches) of this tree and, with
+             ``--parent DIR``, of the parent's.
              After the timing phase, so that no profiler session runs
              before it.
 7. sharded — the multi-GPU routes (``dwt_tpu_torch/parallel``) at world
@@ -1130,12 +1140,15 @@ def transform_work(torch, args) -> tuple:
 
 def inverse_work(torch, args) -> tuple:
     """(bytes, integer operations) kernel 16 must spend on its (N, H, W, C)
-    int32 coefficients: read once, and the image (uint8, or int32)
-    written once.  Its integer work, about 14 operations a sample over all
-    levels, takes less time at the INT32 rate than those bytes, and is not
-    counted."""
+    int32 coefficients (the root band from its root view where one is
+    given): read once, the bias table read once, and the image (uint8, or
+    int32) written once.  Its integer work, about 14 operations a sample
+    over all levels, takes less time at the INT32 rate than those bytes,
+    and is not counted."""
     x, to_bytes = args[0], args[3]
-    return x.numel() * (4 + (1 if to_bytes else 4)), 0
+    bias = args[4] if len(args) > 4 else None
+    return (x.numel() * (4 + (1 if to_bytes else 4))
+            + (0 if bias is None else 4 * bias.numel())), 0
 
 
 def ll_bytes(args) -> int:
@@ -1145,8 +1158,33 @@ def ll_bytes(args) -> int:
 
     x, chain = args[0], args[1]
     n, c = x.shape[0], x.shape[3]
-    return sum(8 * n * c * chain[g[-1] - 1][0] * chain[g[-1] - 1][1]
-               for g in lifting.unlift_levels(chain)[:-1])
+    return sum(8 * n * c * chain[p.levels[-1] - 1][0]
+               * chain[p.levels[-1] - 1][1]
+               for p in lifting.plan_of(*args[:4])[:-1])
+
+
+def decoder_args(torch, gen, n: int, h: int, w: int, c: int) -> tuple:
+    """Seeded arguments of kernel 16 as the decoder hands them over: the
+    (N, H, W, C) view of an (H, W, N, C) tensor (the scatter's output, 0
+    on the root band), the pyramid's chain, colour and cast, a bias table
+    of planes missing on several levels, by frame and channel, and the
+    root band as a view of an (N, C, total) buffer."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import lifting
+
+    pyr = compute_pyramid(w, h)
+    h0, w0 = pyr.heights[0], pyr.widths[0]
+    x = torch.randint(-700, 700, (h, w, n, c), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    x[:h0, :w0] = 0
+    lin = torch.randint(-700, 700, (n, c, h0 * w0 + 5), dtype=torch.int32,
+                        device="cuda", generator=gen)
+    missing = torch.randint(0, 7, (n, c, 16), device="cuda", generator=gen)
+    bias = torch.where(missing >= 2, 1 << (missing - 2).clamp(min=0), 0).to(
+        torch.int32)
+    return (x.permute(2, 0, 1, 3), lifting.pyramid_chain(pyr), c == 3, True,
+            bias, lin[..., :h0 * w0].unflatten(2, (h0, w0)).permute(
+                0, 2, 3, 1))
 
 
 def plane_stats_work(torch, args) -> tuple:
@@ -1584,7 +1622,8 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         time_ms(torch, lambda: lifting.inverse_transform_plain(*args),
                 reps=3), nbytes, None, ops)
     progress(f"kernels: inverse_transform {tuple(args[0].shape)}, levels "
-             f"by launch {lifting.unlift_levels(args[1])}: {nbytes} bytes "
+             f"by launch {[p.levels for p in lifting.plan_of(*args[:4])]}: "
+             f"{nbytes} bytes "
              f"({nbytes + ll_bytes(args)} with the LL buffers: bound "
              f"{bound_of(nbytes + ll_bytes(args))[0]:.4f} ms)")
 
@@ -1701,6 +1740,7 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         progress(f"kernels: {name} {tuple(args[0].shape)}: {nbytes} bytes, "
                  f"{ops} pair terms of the sort")
     progress("kernels: " + schedule_sweep(torch))
+    progress("kernels: " + inverse_sweep(torch))
     return out
 
 
@@ -1771,6 +1811,76 @@ def schedule_sweep(torch) -> str:
             f"{SWEEP_CHANNELS}, L from 1 to the limit, up to {steps} steps a "
             f"frame, cluster sizes {sorted(clusters)}; "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+# The sweep of kernel 16: (w, h) of pyramid chains, and root-only chain
+# sizes (the decoder's root pass, from 2x2 up); frames a call.
+INVERSE_SWEEP_SIZES = ((8, 8), (9, 8), (17, 9), (33, 31), (64, 48),
+                       (70, 50), (129, 65), (240, 135), (321, 239),
+                       (480, 270), (513, 129), (1000, 37))
+INVERSE_SWEEP_ROOTS = ((2, 2), (2, 3), (3, 2), (5, 7), (9, 15), (31, 4))
+INVERSE_SWEEP_FRAMES = (1, 2, 3, 5, 17, 40)
+
+
+def inverse_sweep(torch) -> str:
+    """Kernel 16 against its plain version (max abs err 0) on seeded
+    coefficients: each chain of ``INVERSE_SWEEP_SIZES`` (whole pyramids)
+    and ``INVERSE_SWEEP_ROOTS`` (one level, the root-only pass) with 1 and
+    3 channels and frames of ``INVERSE_SWEEP_FRAMES`` (one count a size,
+    in turn), given contiguous, as the decoder hands it over (the (H, W,
+    N, C) view, a random bias table, the root band as a view of an (N, C,
+    total) buffer) and with its channels apart (a channel stride other
+    than 1), uint8 with the colour and int32 without.  Returns a line of
+    what ran; raises on a difference."""
+    from dwt_tpu_torch.ops import lifting
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    calls, err, plans = 0, 0, set()
+    t0 = time.perf_counter()
+    sizes = [(w, h, False) for w, h in INVERSE_SWEEP_SIZES] + [
+        (w, h, True) for h, w in INVERSE_SWEEP_ROOTS]
+    for i, (w, h, root_only) in enumerate(sizes):
+        n = INVERSE_SWEEP_FRAMES[i % len(INVERSE_SWEEP_FRAMES)]
+        for c in (1, 3):
+            if root_only:
+                lin = torch.randint(-700, 700, (n, c, h * w + 3),
+                                    dtype=torch.int32, device="cuda",
+                                    generator=gen)
+                view = lin[..., :h * w].unflatten(2, (h, w)).permute(
+                    0, 2, 3, 1)
+                variants = [(view, ((h, w),), c == 3, True),
+                            (view.contiguous(), ((h, w),), False, False)]
+            else:
+                args = decoder_args(torch, gen, n, h, w, c)
+                x = args[0].contiguous()
+                x[:, :args[5].shape[1], :args[5].shape[2]] = args[5]
+                planar = x.permute(3, 0, 1, 2).contiguous().permute(
+                    1, 2, 3, 0)  # channels apart
+                variants = [args, args[:2] + (False, False) + args[4:],
+                            (x, args[1], c == 3, True),
+                            (x, args[1], False, False),
+                            (planar, args[1], c == 3, True, args[4])]
+            for a in variants:
+                err = max(err, max_abs_err(
+                    "inverse_transform", lifting.inverse_transform(*a),
+                    lifting.inverse_transform_plain(*a)))
+                plans.add(tuple((len(p.levels), p.cb, p.K, p.F)
+                                for p in lifting.plan_of(*a[:4])))
+                calls += 1
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"the sweep of kernel 16 differs from its plain "
+                             f"version (max abs err {err})")
+    return (f"kernel 16 equal to its plain version (max abs err 0) on a "
+            f"seeded sweep of {calls} calls: {len(INVERSE_SWEEP_SIZES)} "
+            f"pyramids and {len(INVERSE_SWEEP_ROOTS)} root-only sizes, 1 "
+            f"and 3 channels, {INVERSE_SWEEP_FRAMES} frames, contiguous, "
+            f"as the decoder hands it over (bias, root view) and with "
+            f"channels apart; "
+            f"{len(plans)} distinct plans, clusters of "
+            f"{sorted({p[2] for q in plans for p in q if p[1]})} blocks, "
+            f"{sorted({p[3] for q in plans for p in q if not p[1]})} frames "
+            f"a warp; {time.perf_counter() - t0:.1f} s")
 
 
 # Kernels 14 and 15 by tree, as the profiler names them (the parent's
@@ -2131,6 +2241,80 @@ def stage1_split(torch, enc, imgs: np.ndarray,
     return " | ".join(out)
 
 
+def tail_gate(torch, decoder, label: str, geom: tuple, coeffs,
+              missing) -> None:
+    """The decode tail is the scatter and kernel 16: one ``_Tail.batch``
+    of parsed inputs with the eager passes refused (``bias_plain``, the
+    pyramid route, and ``_Tail._bias`` where a tree has it), its launch
+    counts read (the scatter once, kernel 16 ``len(plan_of(...))`` times)
+    and, under torch.profiler, its CUDA kernels by name: those two and no
+    other, beside at most one host-to-device copy (the bias table) and no
+    device-to-device copy.  Its image must equal the unrefused tail's; the
+    bias table must go to kernel 16 where a decoded level has two planes
+    missing.  Raises otherwise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from dwt_tpu_torch.ops import hilbert_scatter, lifting
+
+    w, h, levels, c, gray = geom
+    tail = decoder._tail(w, h, levels, c, gray, coeffs.device)
+    want = tail.batch(coeffs, missing)
+    torch.cuda.synchronize()
+
+    def refuse(fn):
+        def run(*args, **kwargs):
+            raise AssertionError(f"tail gate {label}: an eager pass ran")
+        return run
+
+    calls = []
+    eager = [(decoder, "bias_plain"), (lifting, "bias_plain")] + [
+        (decoder._Tail, n) for n in ("_bias", "pyramid")
+        if hasattr(decoder._Tail, n)]
+    with contextlib.ExitStack() as stack:
+        for obj, name in eager:
+            stack.enter_context(wrapped(obj, name, refuse))
+        stack.enter_context(wrapped(
+            decoder, "inverse_transform",
+            lambda fn: lambda *a: (calls.append(a), fn(*a))[1]))
+        sc, inv = (hilbert_scatter.hilbert_scatter.launches,
+                   lifting.inverse_transform.launches)
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            got = tail.batch(coeffs, missing)
+            torch.cuda.synchronize()
+        sc = hilbert_scatter.hilbert_scatter.launches - sc
+        inv = lifting.inverse_transform.launches - inv
+    plan = lifting.plan_of(*calls[0][:4])
+    ev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [n for n in ev if "emcpy" in n or "emset" in n]
+    kernels = [n for n in ev if n not in copies]
+    names = {}
+    for n in kernels:
+        key = next((k for k in (SCATTER_NAME, "inverse_tail_kernel",
+                                "inverse_level_kernel") if k in n), n)
+        names[key] = names.get(key, 0) + 1
+    biased = (missing[..., :levels] >= 2).any()
+    seen = bool(kernels)
+    ok = (len(calls) == 1 and sc == 1 and inv == len(plan)
+          and torch.equal(got, want)
+          and (calls[0][4] is not None) == bool(biased)
+          and (not seen or (sum(names.values()) == 1 + len(plan)
+                            and names.get(SCATTER_NAME) == 1))
+          and sum("HtoD" in n for n in copies) <= 1
+          and not any("DtoD" in n for n in copies))
+    progress(f"timing: tail gate {label} {tuple(coeffs.shape)}: launches "
+             f"scatter {sc}, kernel 16 {inv} (plan {len(plan)}); CUDA "
+             f"kernels {names if seen else 'not recorded by the profiler'}; "
+             f"copies {copies}; bias table to kernel 16: "
+             f"{calls[0][4] is not None} (planes missing: {bool(biased)}); "
+             f"eager passes refused: {[n for _, n in eager]}")
+    if not ok:
+        raise AssertionError(f"tail gate {label}: the decode tail is not the "
+                             f"scatter and kernel 16 alone")
+
+
 def tail_turns(torch, img: np.ndarray, parent: str | None,
                card: str) -> None:
     """``tools/tail_split.py``'s split of the decode tail of the 4K frame,
@@ -2146,7 +2330,14 @@ def tail_turns(torch, img: np.ndarray, parent: str | None,
     if parent:
         decs["parent"] = parent_module(parent, "codec.decoder")
         order = ["this tree", "parent", "parent", "this tree"]
+    prefix = encoder.get_encoder(W, H, C).encode(img)[:PREFIX_BYTES]
+    _, _, gray, coeffs, missing, levels = decoder._parse(
+        prefix, 0, torch.device("cuda"))
+    tail_gate(torch, decoder, "lossy 4K prefix", (W, H, levels, C, gray),
+              coeffs.cuda()[None], missing[None])
+    del coeffs
     for inp in mod.inputs(torch, decoder, encoder, tiled, img):
+        tail_gate(torch, decoder, inp[0], *inp[1:])
         runs = [f"{name}: {mod.line(mod.split(torch, decs[name], inp, 3))}"
                 for name in order]
         progress(f"timing: the decode tail by pass, {inp[0]} "
@@ -2179,9 +2370,10 @@ def lift_split(torch, imgs: np.ndarray) -> str:
         + f"; device {sum(m for _, m in ms):.4f} ms, {events}"
 
 
-# Kernel 16 in phase 6: (label, (N, H, W, C) seeded coefficients): the
-# preview's 480x270 and the 16K tiled decode's two tile groups (480 of
-# 512x512, 30 of 448x512), beside the 4K decode's kept call.
+# Kernel 16 in phase 6: (label, (N, H, W, C) seeded coefficients as the
+# decoder hands them over, ``decoder_args``): the preview's 480x270 and
+# the 16K tiled decode's two tile groups (480 of 512x512, 30 of 448x512),
+# beside the 4K decode's kept call.
 UNLIFT_SHAPES = (("preview", (1, 270, 480, 3)),
                  ("16K tile group", (480, 512, 512, 3)),
                  ("16K edge tile group", (30, 448, 512, 3)))
@@ -2196,19 +2388,16 @@ def unlift_device(torch, kept: tuple, rows: list) -> None:
     values), each also held against its plain version.  The 4K sum goes
     into kernel 16's row as ``device_ms``, the 480-tile group as its batch
     column."""
-    from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import lifting
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     calls = [("4K", kept)]
     for label, (n, h, w, c) in UNLIFT_SHAPES:
-        x = torch.randint(-700, 700, (n, h, w, c), dtype=torch.int32,
-                          device="cuda", generator=gen)
-        calls.append((label, (x, lifting.pyramid_chain(
-            compute_pyramid(w, h)), True, True)))
+        calls.append((label, decoder_args(torch, gen, n, h, w, c)))
     r = next(r for r in rows if r["name"] == "inverse_transform")
     for label, args in calls:
-        chain, groups = args[1], lifting.unlift_levels(args[1])
+        chain = args[1]
+        groups = [p.levels for p in lifting.plan_of(*args[:4])]
         err = max_abs_err("inverse_transform",
                           lifting.inverse_transform(*args),
                           lifting.inverse_transform_plain(*args))
@@ -2251,6 +2440,29 @@ def unlift_device(torch, kept: tuple, rows: list) -> None:
                      batch_bound_ms=bound, batch_device_ms=ms)
         del args, fn
         torch.cuda.empty_cache()
+
+
+def unlift_stamps(parent: str | None, card: str) -> None:
+    """Phase 6, kernel 16 inside its launches: ``tools/inverse_stamps.py``
+    (the kernel built alone with ``-DDWT_STAMPS``) on this tree and, where
+    ``parent`` names a checkout, on the parent's kernel, in processes of
+    their own: each launch's device time, the tail's phases (table set-up,
+    loads, each level, store) and the finest level's warps' phases
+    (prologue, load issue, column walk, row shuffles, store) at 4K, the
+    preview's 480x270 and a 16K tile group of 480 512x512 tiles."""
+    for name, root in (("this tree", ROOT), ("parent", parent)):
+        if root is None:
+            progress("device: kernel 16's stamps of a parent not measured (no "
+                     "--parent given)")
+            continue
+        r = subprocess.run([sys.executable, os.path.join(
+            ROOT, "tools", "inverse_stamps.py"), "--root", root, "--reps",
+            "10"], capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"inverse_stamps on {name} exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+        for line in r.stdout.splitlines():
+            progress(f"device: kernel 16's stamps, {name}: {line} on {card}")
 
 
 def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
@@ -3418,6 +3630,7 @@ def main(argv: list) -> int:
     unlift_device(torch, inverse_4k, rows)
     del inverse_4k
     torch.cuda.empty_cache()
+    unlift_stamps(parent, card)
 
     # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
     sharded_phase(torch, K, img, stream, card)

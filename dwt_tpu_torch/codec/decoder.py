@@ -3,11 +3,15 @@
 Port of ``dwt_tpu/codec/decoder.py``'s ``parse_header``, ``_tail_fn`` and
 ``decode``.  The host C++ parser (``runtime/native.py``) fills the
 linearized coefficients: the bit parse of one stream is serial, as in the
-JAX package.  On the device, the inverse tail applies the missing-plane
-midpoint bias, the inverse Hilbert scatter (the CUDA kernel
-``csrc/hilbert_scatter.cu``), then the inverse lifting, the inverse colour
-transform, the clamp and the uint8 cast (kernel 16,
-``csrc/lifting_inv.cu``, through ``ops/lifting.py:inverse_transform``).
+JAX package.  On the device, the inverse tail is two launches or more
+and no eager pass: the inverse Hilbert scatter (the CUDA kernel
+``csrc/hilbert_scatter.cu``), then kernel 16 (``csrc/lifting_inv.cu``,
+through ``ops/lifting.py:inverse_transform``), which reads the scatter's
+output, the root band in the parsed coefficients and a small table of the
+missing-plane midpoint bias in place, adds the bias to each detail
+coefficient as it loads it, and runs the inverse lifting, the inverse
+colour transform, the clamp and the uint8 cast.  A warm decode uploads the
+coefficients and, where planes are missing, that table.
 
 Truncation and reduced-resolution semantics follow decode.c:136-268: the
 output size is that of the deepest level actually decoded; a stream that
@@ -26,10 +30,10 @@ import numpy as np
 import torch
 
 from ..geometry import compute_pyramid
-from ..hilbert import level_of_position, reconstruction_perm
+from ..hilbert import reconstruction_perm
 from ..ops.hilbert_gather import engine_supported
 from ..ops.hilbert_scatter import hilbert_scatter, square_runs
-from ..ops.lifting import inverse_transform, pyramid_chain
+from ..ops.lifting import bias_plain, inverse_transform, pyramid_chain
 from ..runtime import native
 from .encoder import _device
 
@@ -54,9 +58,9 @@ def scatter_source(pyr) -> np.ndarray:
 class _Tail:
     """The inverse tail for one (geometry, decoded levels, channels)
     combination on one device.  Its static tables (the scatter's source
-    index and its run table, and the level of each scan position) are
-    built once and kept on the device, so a warm decode uploads only the
-    coefficients and the (C, 16) ``missing`` table."""
+    index and its run table) are built once and kept on the device, so a
+    warm decode uploads only the coefficients and, where planes are
+    missing, the (N, C, 16) bias table made from ``missing``."""
 
     def __init__(self, width: int, height: int, out_levels: int,
                  channels: int, gray: bool, device: torch.device):
@@ -68,8 +72,8 @@ class _Tail:
         if out_levels == 0:
             return
         # The level chain of the reduced pyramid coincides with the
-        # original's lower levels, so scan order and lifting geometry are
-        # shared; but the level of a scan position is the full pyramid's.
+        # original's lower levels, so scan order, lifting geometry and the
+        # level of a scan position are shared.
         self.sub_pyr = compute_pyramid(self.out_w, self.out_h)
         assert self.sub_pyr.levels == out_levels
         self.chain = pyramid_chain(self.sub_pyr)
@@ -78,58 +82,67 @@ class _Tail:
         self.src = torch.as_tensor(src, device=device)
         self.runs = tuple(torch.as_tensor(a, device=device)
                           for a in square_runs(src))  # (sq_ptr, runs)
-        # Level of each scan position, shifted by one (root band -> 0) to
-        # index an (N, C, 17) bias table whose column 0 is 0.
-        self.lvl_idx = torch.as_tensor(
-            level_of_position(pyr)[:self.n_out] + 1, device=device)
 
-    def _bias(self, lin: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
-        """Midpoint bias for planes lost to truncation: push nonzero detail
-        coefficients of (N, C, n_out) ``lin`` away from zero by
-        2^(missing-2) (decode.c:50-58)."""
-        bias_l = np.where(missing >= 2,
-                          np.left_shift(1, np.clip(missing - 2, 0, 30)), 0)
-        table = np.zeros(missing.shape[:2] + (17,), np.int32)
-        table[..., 1:] = bias_l
-        bias = torch.as_tensor(table, device=self.device).index_select(
-            2, self.lvl_idx)
-        return lin + torch.sign(lin) * bias
+    def bias_table(self, missing: np.ndarray) -> torch.Tensor | None:
+        """The (N, C, 16) int32 midpoint-bias magnitudes of the parser's
+        (N, C, 16) missing-plane counts on the device: 2^(missing - 2)
+        where two planes or more are missing (decode.c:50-58), else 0; None
+        where no decoded level has two planes missing."""
+        if not (missing[..., :self.out_levels] >= 2).any():
+            return None
+        # Made in pinned memory and uploaded without blocking the host
+        # (the pinned block is not reused before its copy is done).
+        table = torch.empty(missing.shape, dtype=torch.int32,
+                            pin_memory=self.device.type == "cuda")
+        np.copyto(table.numpy(), np.where(missing >= 2, np.left_shift(
+            1, np.clip(missing - 2, 0, 30)), 0), casting="unsafe")
+        return table.to(self.device, non_blocking=True)
+
+    def _views(self, coeffs: torch.Tensor) -> tuple:
+        """(N, C, total >= n_out) int32 coefficients on the device -> the
+        scatter's (outH, outW, N * C) output as an (N, outH, outW, C) view
+        (one scatter launch for the N streams as N*C channels; 0 on the
+        root band) and the root band as an (N, h0, w0, C) view of
+        ``coeffs``."""
+        N, C = coeffs.shape[0], self.channels
+        x = hilbert_scatter(coeffs.reshape(N * C, -1), self.src, *self.runs)
+        x = x.view(self.out_h, self.out_w, N, C).permute(2, 0, 1, 3)
+        h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
+        root = coeffs[..., :h0 * w0].unflatten(2, (h0, w0)).permute(
+            0, 2, 3, 1)
+        return x, root
 
     def pyramid(self, coeffs: torch.Tensor,
                 missing: np.ndarray) -> torch.Tensor:
         """(N, C, total >= n_out) int32 coefficients on the device and the
         parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C) int32
         coefficients in the deinterleaved pyramid layout, midpoint bias
-        applied (``out_levels`` > 0).  The N streams go through one scatter
-        launch as N*C channels; the root band is written as a raster
-        crop."""
-        N, C = coeffs.shape[0], self.channels
-        lin = coeffs
-        if (missing[:, :, :self.out_levels] >= 2).any():
-            lin = self._bias(coeffs[..., :self.n_out], missing)
-        x = hilbert_scatter(lin.reshape(N * C, -1), self.src, *self.runs)
-        x = x.reshape(self.out_h, self.out_w, N, C).permute(
-            2, 0, 1, 3).contiguous()  # a copy only when N > 1
-        h0, w0 = self.sub_pyr.heights[0], self.sub_pyr.widths[0]
-        x[:, :h0, :w0] = lin[..., :h0 * w0].transpose(1, 2).reshape(
-            N, h0, w0, C)
-        return x
+        applied (``out_levels`` > 0), for the sharded decoder: the
+        scatter's output copied to frame-major order, the root band written
+        into it, the bias by ``lifting.bias_plain``."""
+        x, root = self._views(coeffs)
+        x = x.contiguous()
+        x[:, :root.shape[1], :root.shape[2]] = root
+        bias = self.bias_table(missing)
+        return x if bias is None else bias_plain(x, self.chain, bias)
 
     def batch(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
         """(N, C, total >= n_out) int32 coefficients on the device and the
         parser's (N, C, 16) missing-plane counts -> (N, outH, outW, C)
-        uint8.  The N streams go through one scatter launch as N*C
-        channels, and one inverse transform (kernel 16 on the card)."""
+        uint8: one scatter launch for the N streams as N*C channels, then
+        kernel 16 (on the card) reading the scatter's output, the root band
+        and the bias table in place."""
         N, C, n_out = coeffs.shape[0], self.channels, self.n_out
         if self.out_levels == 0:
             # Root-only decode: the reference still runs one inverse lifting
             # pass at root size (decode.c:258 quirk, SURVEY §2.5).
-            x = coeffs[..., :n_out].transpose(1, 2).reshape(
-                N, self.out_h, self.out_w, C).contiguous()
-            chain = ((self.out_h, self.out_w),)
-        else:
-            x, chain = self.pyramid(coeffs, missing), self.chain
-        return inverse_transform(x, chain, not self.gray, True)
+            x = coeffs[..., :n_out].unflatten(
+                2, (self.out_h, self.out_w)).permute(0, 2, 3, 1)
+            return inverse_transform(x, ((self.out_h, self.out_w),),
+                                     not self.gray, True)
+        x, root = self._views(coeffs)
+        return inverse_transform(x, self.chain, not self.gray, True,
+                                 self.bias_table(missing), root)
 
     def __call__(self, coeffs: torch.Tensor, missing: np.ndarray) -> torch.Tensor:
         """(C, total >= n_out) int32 coefficients on the device and the

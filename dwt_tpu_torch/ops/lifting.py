@@ -23,7 +23,7 @@ whole-axis slice arithmetic over all rows or columns of a level at once
 :func:`inverse_transform` is its mirror: N (N, H, W, C) int32 coefficient
 pyramids back to pixels, the levels of a ``chain`` of (h, w) output sizes
 lifted coarsest first, then the inverse colour transform, the clamps and
-the uint8 cast where asked.  On the card (:func:`unlift_levels`): one
+the uint8 cast where asked.  On the card (:func:`unlift_plan`): one
 ``inverse_tail_kernel`` launch for every level whose output holds at most
 ``TAIL_SAMPLES`` samples a channel, then one ``inverse_level_kernel``
 launch for each larger level, coarsest first, each reading the LL quadrant
@@ -35,16 +35,37 @@ colour, clamps and cast applied as it stores.  On the CPU:
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..geometry import Pyramid
 from ..runtime import build
-from ._launch import on_card
+from ._launch import cuda_or_cpu, on_card
 from .color import rgb_to_ycocg, ycocg_to_rgb
 
-# Samples a channel of the first level the tail kernel lifts in shared
-# memory (int32: 64 KB a block).
+# Samples a channel of the first level the forward tail kernel lifts in
+# shared memory (int32: 64 KB a block).
 TAIL_SAMPLES = 16384
+# The inverse's tail: samples a channel of its top level at most, sides
+# below TAIL_SIDE, and a block's shared memory (csrc inverse_tail_kernel);
+# blocks a cluster at most, and the SMs its clusters aim to cover.  The
+# cap and the cluster were chosen by tools/inverse_stamps.py --sweep on an
+# H100: a larger top level makes the tail's loads latency-bound on the
+# few SMs of its clusters, and a cluster of 8 beats one block.
+UNLIFT_TAIL_SAMPLES = 16384
+TAIL_SIDE = 1 << 15
+TAIL_SMEM = 232448
+CLUSTER_MAX = 8
+TAIL_ROWS = 8  # rows a block of a cluster holds at least
+CARD_SMS = 132  # an H100 SXM's
+# Where the frames are interleaved: the tail's cap (the strided loads
+# make a large tail slow: 1,024 was the fastest of 1,024, 4,096 and 16,384
+# on 480 512x512 tiles), and the frames a warp of a large inverse level
+# reads together (csrc F: 1 or 2; 2 was the fastest of 1, 2, 4 and 8).
+INTERLEAVED_TAIL_SAMPLES = 1024
+LANE_FRAMES = 2
 # Warps a large level's launch aims for: row pairs a warp (a power of two,
 # 16 at most) are halved until the launch has at least this many.
 WARP_TARGET = 4096
@@ -163,12 +184,14 @@ def tail_level(pyr: Pyramid) -> int:
                  if pyr.heights[l] * pyr.widths[l] <= TAIL_SAMPLES), 0)
 
 
-def band_pairs(n: int, h: int, w: int) -> int:
+def band_pairs(n: int, h: int, w: int, F: int = 1) -> int:
     """Row pairs a warp of one large level's launch over n frames of h x
-    w: halved from 16 until the launch has ``WARP_TARGET`` warps."""
-    strips = -(-((w + 1) // 2) // STRIP_PAIRS)
+    w (the inverse's with F frames a warp and 32 / F - 2 stored pairs a
+    strip): halved from 16 until the launch has ``WARP_TARGET`` warps."""
+    strips = -(-((w + 1) // 2) // (STRIP_PAIRS if F == 1 else 32 // F - 2))
     bp = 16
-    while bp > 1 and n * strips * -(-((h + 1) // 2) // bp) < WARP_TARGET:
+    while bp > 1 and -(-n // F) * strips * -(-((h + 1) // 2) // bp) \
+            < WARP_TARGET:
         bp //= 2
     return bp
 
@@ -243,17 +266,92 @@ def pyramid_chain(pyr: Pyramid) -> tuple:
                  for l in range(1, pyr.levels + 1))
 
 
-def unlift_levels(chain) -> list:
-    """The levels (l = 1..len(chain), ``chain[l - 1]`` level l's output)
-    each launch of :func:`inverse_transform` lifts on the card, coarsest
-    first: every level whose output has at most ``TAIL_SAMPLES`` samples a
-    channel in one launch, then one launch a larger level.  Its length is
-    the launch count."""
-    t = 0
-    while t < len(chain) and chain[t][0] * chain[t][1] <= TAIL_SAMPLES:
-        t += 1
-    return (([tuple(range(1, t + 1))] if t else [])
-            + [(l,) for l in range(t + 1, len(chain) + 1)])
+class Launch(NamedTuple):
+    """One launch of :func:`inverse_transform` on the card: the levels it
+    lifts (l = 1..len(chain), ``chain[l - 1]`` level l's output) and its
+    shape.  The tail: ``cb`` channels a cluster of ``K`` blocks of ``Y``
+    warps, ``R`` rows of ``pitch`` samples a block in shared memory; a
+    larger level: ``bp`` row pairs and ``F`` frames a warp (F = 2 on
+    interleaved frames, adjacent warps on adjacent frame groups)."""
+    levels: tuple
+    cb: int = 0
+    K: int = 0
+    R: int = 0
+    pitch: int = 0
+    Y: int = 0
+    bp: int = 0
+    F: int = 0
+
+
+def skew(x: int) -> int:
+    """The tail's shared-memory column of grid column x (csrc skew)."""
+    return x + (x >> 5)
+
+
+def tail_block(h: int, w: int, tasks: int, cb: int,
+               sms: int = CARD_SMS) -> tuple:
+    """(K, R, pitch, shared bytes) of a tail whose top level is h x w, over
+    ``tasks`` clusters of ``cb`` channels: K doubled from 1 (to
+    ``CLUSTER_MAX``, and while a block keeps ``TAIL_ROWS`` rows) until the
+    blocks cover the card's ``sms``."""
+    K = 1
+    while K < CLUSTER_MAX and tasks * K < sms and h >= 2 * K * TAIL_ROWS:
+        K *= 2
+    R, pitch = -(-h // K), skew(w - 1) + 1
+    return K, R, pitch, 4 * (cb * R * pitch + w + R
+                             + cb * (build.CHAIN_LEVELS + 1))
+
+
+def unlift_plan(chain, n: int = 1, c: int = 3, image: bool = True,
+                interleaved: bool = False, sms: int = CARD_SMS) -> list:
+    """The launches of :func:`inverse_transform` on the card for n frames
+    of c channels (``image``: the last launch stores the colour or bytes;
+    ``interleaved``: the detail view's frames lie between its columns),
+    coarsest first: the tail, every level up to the largest whose output
+    has at most ``TAIL_SAMPLES`` samples a channel and whose band fits a
+    block's shared memory (a block holds c channels where it stores the
+    image or reads interleaved frames), then one launch a larger level."""
+    L, plan = len(chain), []
+    for t in range(L, 0, -1):
+        h, w = chain[t - 1]
+        cap = INTERLEAVED_TAIL_SAMPLES if interleaved else UNLIFT_TAIL_SAMPLES
+        if h * w > cap or max(h, w) >= TAIL_SIDE:
+            continue
+        cb = c if (t == L and image) or interleaved else 1
+        K, R, pitch, smem = tail_block(h, w, n * (c // cb), cb, sms)
+        if smem <= TAIL_SMEM:
+            s = cb * R * w
+            Y = 32 if s > 4096 else (8 if s > 1024 else 4)
+            plan.append(Launch(tuple(range(1, t + 1)), cb, K, R, pitch, Y))
+            break
+    F = min(LANE_FRAMES, 1 << (n - 1).bit_length()) if interleaved else 1
+    for l in range(len(plan[0].levels) + 1 if plan else 1, L + 1):
+        h, w = chain[l - 1]
+        plan.append(Launch((l,), bp=band_pairs(n, h, w, F), F=F))
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(*args) -> tuple:
+    """:func:`unlift_plan`, once for each set of arguments (a tool that
+    changes the plan's constants clears it)."""
+    return tuple(unlift_plan(*args))
+
+
+def plan_of(coeff: torch.Tensor, chain, colour: bool,
+            to_bytes: bool) -> tuple:
+    """:func:`unlift_plan` of one :func:`inverse_transform` call's
+    arguments (on the card, its card's SM count), made once a shape."""
+    N, _, _, C = coeff.shape
+    sms = (_card_sms(coeff.device.index or 0) if coeff.is_cuda
+           else CARD_SMS)
+    return _plan(tuple(chain), N, C, bool(colour or to_bytes),
+                 N > 1 and coeff.stride(0) < coeff.stride(2), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_chain(chain, h: int, w: int) -> tuple:
@@ -287,25 +385,58 @@ def _unlift_plain(coeff: torch.Tensor, chain) -> torch.Tensor:
     return out
 
 
+def bias_plain(x: torch.Tensor, chain, bias: torch.Tensor) -> torch.Tensor:
+    """The midpoint bias (decode.c:50-58) on (N, H, W, C) coefficients x,
+    in place: each nonzero detail coefficient of chain level k + 1 (its
+    output ``chain[k]`` less the LL quadrant) pushed away from zero by
+    ``bias[n, c, k]``.  Returns x."""
+    for k, (h, w) in enumerate(chain):
+        b = bias[:, :, k][:, None, None, :]
+        for quad in (x[:, (h + 1) // 2:h, :w], x[:, :(h + 1) // 2,
+                                                 (w + 1) // 2:w]):
+            quad += torch.sign(quad) * b
+    return x
+
+
 def inverse_transform_plain(coeff: torch.Tensor, chain, colour: bool,
-                            to_bytes: bool) -> torch.Tensor:
+                            to_bytes: bool, bias: torch.Tensor | None = None,
+                            root: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`inverse_transform`."""
-    x = _unlift_plain(coeff, chain)
+    x = coeff
+    if bias is not None or root is not None:
+        x = coeff.clone(memory_format=torch.contiguous_format)
+        if root is not None:
+            x[:, :root.shape[1], :root.shape[2]] = root
+        if bias is not None:
+            bias_plain(x, chain, bias)
+    x = _unlift_plain(x, chain)
     if colour:
         x = ycocg_to_rgb(x)
     return x.clamp(0, 255).to(torch.uint8) if to_bytes else x
 
 
 def inverse_transform(coeff: torch.Tensor, chain, colour: bool,
-                      to_bytes: bool) -> torch.Tensor:
+                      to_bytes: bool, bias: torch.Tensor | None = None,
+                      root: torch.Tensor | None = None) -> torch.Tensor:
     """(N, H, W, C) int32 coefficients -> the levels of ``chain`` (their
     (h, w) output sizes, coarsest first, the last (H, W):
     :func:`pyramid_chain` for a whole pyramid, the one size (H, W) for the
     decoder's root-only pass) undone, then, with ``colour`` (C == 3), the
     inverse YCoCg-R with its decode-side clamps (image.h:41-43), and with
     ``to_bytes`` the clamp to [0, 255] and the uint8 cast; int32
-    otherwise.  The input is left as it was.  On the card
-    ``len(unlift_levels(chain))`` launches."""
+    otherwise.
+
+    ``coeff`` is read in place at any frame, row and column strides (the
+    decoder hands over the scatter's (H, W, N, C) output as an (N, H, W,
+    C) view); a channel stride other than 1 is read in place by the tail
+    alone, and copied where a larger level follows.  ``root``, an (N, h0,
+    w0, C) int32 view, (h0, w0) the ceil-halves of ``chain[0]``, takes the
+    place of that corner of ``coeff`` (the root band, read in place from
+    the parsed coefficients; copied likewise where no tail reads it).
+    ``bias``, an (N, C, 16) int32 table, adds ``sign(v) * bias[n, c, k]``
+    to each detail coefficient v of chain level k + 1 (the midpoint bias,
+    decode.c:50-58).  The inputs are left as they were.  On the card
+    ``len(plan_of(...))`` launches."""
     if coeff.dim() != 4 or coeff.dtype != torch.int32:
         raise ValueError(f"inverse_transform: expected (N, H, W, C) int32 "
                          f"coefficients, got {tuple(coeff.shape)} "
@@ -315,45 +446,65 @@ def inverse_transform(coeff: torch.Tensor, chain, colour: bool,
     if colour and C != 3:
         raise ValueError("inverse_transform: the colour transform needs 3 "
                          "channels")
-    if not on_card("inverse_transform", coeff):
-        return inverse_transform_plain(coeff, chain, colour, to_bytes)
+    h0, w0 = (chain[0][0] + 1) // 2, (chain[0][1] + 1) // 2
+    for name, t, shape in (("bias", bias, (N, C, 16)),
+                           ("root", root, (N, h0, w0, C))):
+        if t is not None and (t.dtype != torch.int32
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"inverse_transform: {name} must be {shape} "
+                             f"int32, not {tuple(t.shape)} {t.dtype}")
+    given = [t for t in (coeff, bias, root) if t is not None]
+    if not cuda_or_cpu("inverse_transform", given):
+        return inverse_transform_plain(coeff, chain, colour, to_bytes, bias,
+                                       root)
     if C not in (1, 3):
         raise ValueError(f"inverse_transform: the kernels take 1 or 3 "
                          f"channels, not {C}")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError("inverse_transform: the bias table must be "
+                         "contiguous")
     dev, L = coeff.device, len(chain)
     out = torch.empty((N, H, W, C), device=dev,
                       dtype=torch.uint8 if to_bytes else torch.int32)
-    groups = unlift_levels(chain)
+    plan = plan_of(coeff, chain, colour, to_bytes)
     # Ping-pong LL buffers for the outputs of every launch but the last:
     # level L - 1's into the first, L - 2's into the second, and so on in
     # turn (each later one smaller than its buffer).
     bufs = [torch.empty(N * chain[l - 1][0] * chain[l - 1][1] * C,
                         dtype=torch.int32, device=dev)
-            for l in (L - 1, L - 2)[:len(groups) - 1]]
+            for l in (L - 1, L - 2)[:len(plan) - 1]]
     lib, stream = build.library(), build.stream_of(coeff)
-    co_frame, co_row = H * W * C, W * C
-    # The first large level without a tail reads the root band in place.
-    src, s_frame, s_row = coeff, co_frame, co_row
-    for levels in groups:
-        top = levels[-1]
+    bp_ = bias.data_ptr() if bias is not None else None
+    # The large levels read whole pixels: the copies stay referenced here
+    # until the launches are made.
+    if coeff.stride(3) != 1 and not plan[-1].cb:
+        coeff = coeff.contiguous()
+    if root is None:
+        root = coeff
+    elif root.stride(3) != 1 and not plan[0].cb:
+        root = root.contiguous()  # level 1 reads it as its LL
+    det, ll = build.view(coeff), build.view(root)
+    for p in plan:
+        top = p.levels[-1]
         h, w = chain[top - 1]
         last = top == L
         if last:
-            dst, d_frame, d_row = out, co_frame, co_row
+            dst, d_frame, d_row = out, H * W * C, W * C
         else:
-            dst, d_frame, d_row = bufs[(L - 1 - top) % 2], h * w * C, w * C
+            dst = bufs[(L - 1 - top) % 2]
+            d_frame, d_row = h * w * C, w * C
         flags = (int(colour and last), int(to_bytes and last))
-        if h * w <= TAIL_SAMPLES:  # the tail's levels, coarsest first
+        if p.cb:  # the tail's levels, coarsest first
             build.check(lib.dwt_unlift_tail(
-                coeff.data_ptr(), co_frame, co_row, N, C,
-                build.chain(chain[:top]), dst.data_ptr(), d_frame, d_row,
-                *flags, stream), "inverse_transform")
+                det, ll, bp_, N, C, build.chain(chain[:top]), dst.data_ptr(),
+                d_frame, d_row, *flags, p.cb, p.K, p.R, p.pitch, p.Y,
+                stream), "inverse_transform")
         else:
             build.check(lib.dwt_unlift_level(
-                coeff.data_ptr(), co_frame, co_row, src.data_ptr(), s_frame,
-                s_row, dst.data_ptr(), d_frame, d_row, N, h, w, C,
-                band_pairs(N, h, w), *flags, stream), "inverse_transform")
-        src, s_frame, s_row = dst, d_frame, d_row
+                det, ll, bp_, top - 1, dst.data_ptr(), d_frame, d_row, N, h,
+                w, C, p.bp, p.F, *flags, stream),
+                "inverse_transform")
+        ll = build.View(dst.data_ptr(), d_frame, d_row, C, 1)
         inverse_transform.launches += 1
     return out
 

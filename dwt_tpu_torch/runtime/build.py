@@ -63,6 +63,20 @@ def chain(sizes) -> Chain:
     return c
 
 
+class View(ctypes.Structure):
+    """The C struct of a tensor view that a wrapper passes by value: its
+    data pointer and its (frame, row, column, channel) strides in
+    elements."""
+    _fields_ = [("p", ctypes.c_void_p), ("f", ctypes.c_int64),
+                ("r", ctypes.c_int64), ("c", ctypes.c_int64),
+                ("ch", ctypes.c_int64)]
+
+
+def view(t) -> View:
+    """A :class:`View` of a 4-D tensor ``t``."""
+    return View(t.data_ptr(), *t.stride())
+
+
 # C entry points -> argument types.  Every pointer and the CUDA stream go
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
@@ -99,13 +113,14 @@ ENTRY_POINTS = {
     #  h, w, C, nlev, stream)
     "dwt_lift_tail": (_P, _I, _I, _L, _L, _P, _L, _L, _I, _I, _I, _I, _I,
                       _P),
-    # (coeff, co_frame, co_row, ll, ll_frame, ll_row, dst, dst_frame,
-    #  dst_row, n, h, w, C, bp, colour, u8, stream)
-    "dwt_unlift_level": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I,
+    # (det, ll, bias, blev, dst, dst_frame, dst_row, n, h, w, C, bp, F,
+    #  colour, u8, stream): the views by value
+    "dwt_unlift_level": (View, View, _P, _I, _P, _L, _L, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P),
-    # (coeff, co_frame, co_row, n, C, chain, dst, dst_frame, dst_row,
-    #  colour, u8, stream): the tail's levels, by value
-    "dwt_unlift_tail": (_P, _L, _L, _I, _I, Chain, _P, _L, _L, _I, _I, _P),
+    # (det, root, bias, n, C, chain, dst, dst_frame, dst_row, colour, u8,
+    #  cb, K, R, pitch, Y, stream): the views and the tail's levels by value
+    "dwt_unlift_tail": (View, View, _P, _I, _I, Chain, _P, _L, _L, _I, _I,
+                        _I, _I, _I, _I, _I, _P),
     # (val, val_row, raw, raw_row, vli, vli_row, ord, ord_row, site, nref,
     #  S, off, widx, c0, c1, c2, chunks, nframes, T, nwords, bounds, grid,
     #  scratch, cap, stream)

@@ -1306,11 +1306,13 @@ INVERSE_SHAPES = [(8, 8, 3, 1), (17, 9, 1, 3), (70, 50, 3, 7),
 
 @pytest.mark.parametrize("w,h,c,n", INVERSE_SHAPES)
 def test_inverse_kernel_equals_plain(cuda, w, h, c, n):
-    """Kernel 16 (``unlift_levels``: one launch for the tail, one a larger
+    """Kernel 16 (``plan_of``: one launch for the tail, one a larger
     level) against its plain version on the same CUDA tensors: the uint8
     image with and without the colour, the int32 route with and without
     it, and ``dwt2d_inv``; coefficients beyond +-255 so that every clamp
-    acts; the input left as it was."""
+    acts; then as the decoder hands it over (the (H, W, N, C) view, the
+    root band in an (N, C, total) buffer, a bias table); the inputs left as
+    they were."""
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import lifting
 
@@ -1325,7 +1327,7 @@ def test_inverse_kernel_equals_plain(cuda, w, h, c, n):
         before = lifting.inverse_transform.launches
         got = lifting.inverse_transform(x, chain, colour, to_bytes)
         assert lifting.inverse_transform.launches == before + len(
-            lifting.unlift_levels(chain))
+            lifting.plan_of(x, chain, colour, to_bytes))
         want = lifting.inverse_transform_plain(x, chain, colour, to_bytes)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and got.shape == want.shape
@@ -1333,6 +1335,30 @@ def test_inverse_kernel_equals_plain(cuda, w, h, c, n):
     assert torch.equal(lifting.dwt2d_inv(x[0], pyr),
                        lifting.dwt2d_inv_plain(x[0], pyr))
     assert torch.equal(x, x0)
+    # As the decoder hands it over.
+    h0, w0 = pyr.heights[0], pyr.widths[0]
+    view = x.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+    lin = torch.as_tensor(rng.integers(-700, 700, (n, c, h0 * w0 + 5),
+                                       dtype=np.int32)).to(cuda)
+    root = lin[..., :h0 * w0].unflatten(2, (h0, w0)).permute(0, 2, 3, 1)
+    missing = rng.integers(0, 9, (n, c, 16))
+    bias = torch.as_tensor(np.where(missing >= 2, 1 << np.clip(
+        missing - 2, 0, 30), 0).astype(np.int32)).to(cuda)
+    lin0 = lin.clone()
+    for colour, to_bytes in {(c == 3, True), (False, False)}:
+        got = lifting.inverse_transform(view, chain, colour, to_bytes, bias,
+                                        root)
+        want = lifting.inverse_transform_plain(view, chain, colour, to_bytes,
+                                               bias, root)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (colour, to_bytes)
+    assert torch.equal(view, x0) and torch.equal(lin, lin0)
+    # Channels apart (a channel stride other than 1): the tail reads them
+    # in place, a larger level from a copy.
+    planar = x.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    assert torch.equal(
+        lifting.inverse_transform(planar, chain, c == 3, True, bias),
+        lifting.inverse_transform_plain(planar, chain, c == 3, True, bias))
 
 
 @pytest.mark.parametrize("w,h,c", [(313, 263, 3), (8192, 16, 1),
@@ -1379,38 +1405,59 @@ def test_dwt2d_inv_on_a_view(cuda):
     assert torch.equal(big, big0)
 
 
-@pytest.mark.parametrize("w,h,c,pixels", [(321, 239, 3, 0), (96, 80, 1, 0),
-                                          (321, 239, 3, 30),
-                                          (96, 80, 1, 40)])
-def test_decode_tail_is_kernel_16(cuda, monkeypatch, w, h, c, pixels):
-    """A decode tail on the card launches kernel 16
-    ``len(unlift_levels(...))`` times and calls no plain version, on the
-    pyramid route and on the root-only route (``pixels`` below level 1's
-    pixel count); its image equals the CPU decode's."""
+@pytest.mark.parametrize("w,h,c,pixels,cut", [(321, 239, 3, 0, 1),
+                                              (96, 80, 1, 0, 1),
+                                              (321, 239, 3, 30, 1),
+                                              (96, 80, 1, 40, 1),
+                                              (321, 239, 3, 0, 3),
+                                              (96, 80, 1, 0, 4)])
+def test_decode_tail_is_kernel_16(cuda, monkeypatch, w, h, c, pixels, cut):
+    """A decode tail on the card launches the scatter once and kernel 16
+    ``len(plan_of(...))`` times and runs no plain version, no eager
+    midpoint bias (``bias_plain``) and no copy of the scatter's output
+    (``_Tail.pyramid``), on the pyramid route, on the root-only route
+    (``pixels`` below level 1's pixel count) and on a stream cut to a
+    ``cut``-th of its bytes (planes missing: the bias inside kernel 16);
+    its image equals the CPU decode's."""
     from dwt_tpu_torch.codec import decoder
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import color, lifting
+    from dwt_tpu_torch.ops import color, hilbert_scatter, lifting
 
     img, stream = _port_stream(w, h, c, "mixed")
+    stream = stream[:len(stream) // cut]
     want, _ = decoder.decode(stream, pixels, device="cpu")
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a plain version ran on the card's path")
+        raise AssertionError("a plain version or an eager pass ran on the "
+                             "card's path")
 
     for mod, name in ((lifting, "inverse_transform_plain"),
                       (lifting, "_unlift_plain"), (lifting, "cdf53_inv"),
-                      (lifting, "ycocg_to_rgb"), (color, "ycocg_to_rgb")):
+                      (lifting, "ycocg_to_rgb"), (color, "ycocg_to_rgb"),
+                      (lifting, "bias_plain"), (decoder, "bias_plain"),
+                      (decoder._Tail, "pyramid")):
         monkeypatch.setattr(mod, name, refuse)
     before = lifting.inverse_transform.launches
+    scat = hilbert_scatter.hilbert_scatter.launches
+    calls = []
+    kernel = lifting.inverse_transform
+
+    def keep(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(decoder, "inverse_transform", keep)
     got, _ = decoder.decode(stream, pixels)
     oh, ow = want.shape[:2]
     pyr = compute_pyramid(w, h)
     root = (oh, ow) == (pyr.heights[0], pyr.widths[0])
-    chain = ((oh, ow),) if root else lifting.pyramid_chain(
-        compute_pyramid(ow, oh))
+    assert len(calls) == 1
     assert lifting.inverse_transform.launches == before + len(
-        lifting.unlift_levels(chain))
+        lifting.plan_of(*calls[0][:4]))
+    assert hilbert_scatter.hilbert_scatter.launches == scat + (not root)
     assert np.array_equal(got, want)
     assert root == (pixels > 0)  # the root-only route where asked
-    if pixels == 0:
+    if cut > 1:  # the bias table went to kernel 16
+        assert calls[0][4] is not None
+    if pixels == 0 and cut == 1:
         assert np.array_equal(got, img)

@@ -21,12 +21,20 @@ seed 0) that the tree encodes:
 Each pass is timed by the host clock between synchronised marks and by
 CUDA events:
 
-* bias: ``_Tail._bias``, the midpoint bias, where planes are missing;
 * scatter: ``hilbert_scatter`` (kernel 5);
-* root crop and permute: the rest of ``_Tail.pyramid``;
 * inverse transform: ``inverse_transform`` (kernel 16), where the tree
   has it; in a tree before it, the inverse lifting (``dwt2d_inv``) and
-  then the colour, clamp and cast (the rest of ``_Tail.batch``).
+  then the colour, clamp and cast (the rest of ``_Tail.batch``);
+* views: ``_Tail._views`` less the scatter inside it (the views of the
+  scatter's output and of the root band), and bias table:
+  ``_Tail.bias_table`` (the table made in pinned memory and its upload,
+  where planes are missing), where the tree has them;
+* rest: what else ``_Tail.batch`` spends (its own Python and the marks'
+  own cost);
+* in a tree whose tail still biases and permutes eagerly (before kernel
+  16 read the scatter's output in place): bias, ``_Tail._bias``, the
+  midpoint bias, where planes are missing, and root crop and permute, the
+  rest of ``_Tail.pyramid``; hooks a tree lacks are skipped.
 
 ``split`` measures the tree that ``decoder`` (a ``codec.decoder`` module)
 comes from on inputs that ``inputs`` made, so ``chip_smoke.py --parent``
@@ -123,7 +131,10 @@ def split_once(torch, decoder, tail, coeffs, missing) -> dict:
     saved = {n: getattr(decoder, n) for n in names}
     for n in names:
         setattr(decoder, n, timed(n, saved[n]))
-    for n in ("_bias", "pyramid"):  # on the instance, over the class's
+    # On the instance, over the class's; a tree without them skips them.
+    own = [n for n in ("_bias", "pyramid", "_views", "bias_table")
+           if hasattr(tail, n)]
+    for n in own:
         setattr(tail, n, timed(n, getattr(tail, n)))
     try:
         mark("tail+")
@@ -132,7 +143,8 @@ def split_once(torch, decoder, tail, coeffs, missing) -> dict:
     finally:
         for n in names:
             setattr(decoder, n, saved[n])
-        del tail._bias, tail.pyramid
+        for n in own:
+            delattr(tail, n)
     torch.cuda.synchronize()
 
     def total(name):
@@ -147,10 +159,16 @@ def split_once(torch, decoder, tail, coeffs, missing) -> dict:
     bias, scatter, pyramid = total("_bias"), total("hilbert_scatter"), \
         total("pyramid")
     whole = total("tail")
-    out = {"bias": bias, "scatter": scatter,
-           "root crop and permute": minus(pyramid, bias, scatter)}
+    out = {"scatter": scatter}
+    if "_bias" in own:
+        out = {"bias": bias, "scatter": scatter,
+               "root crop and permute": minus(pyramid, bias, scatter)}
+    elif "_views" in own:
+        out["views"] = minus(total("_views"), scatter)
+        out["bias table"] = total("bias_table")
     if "inverse_transform" in names:
         out["inverse transform"] = total("inverse_transform")
+        out["rest"] = minus(whole, *out.values())
     else:
         lift = total("dwt2d_inv")
         out["inverse lifting"] = lift
