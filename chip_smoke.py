@@ -54,7 +54,8 @@ seconds:
              in two sub-batches (counts reset and read), equal to the same
              container in sub-batches of 4,096, decodes back to the
              frame, and stage 1's kernels (kernel 14 too) and kernel 15
-             equal their plain versions on 256 of its tiles.
+             equal their plain versions on 256 of its tiles, and kernel
+             17 on its calls of both sub-batches.
 4. kernels — each kernel again on the 4K main paths' inputs, held against
              its plain PyTorch version on the same CUDA tensors (exact:
              integers), and timed beside the plain version and, where one
@@ -95,7 +96,13 @@ seconds:
              computes it), with its bound with and without the LL
              buffers, and on a seeded sweep of sizes from 2x2 up, 1 and 3
              channels, up to 40 frames, contiguous and as the decoder
-             hands it over (``inverse_sweep``); the tile engines' probe
+             hands it over (``inverse_sweep``); kernel 17, the emit
+             half's step tables (on the 4K encode's kernel 11 outputs,
+             stats and unit columns; no PyTorch call computes it), and on
+             a seeded sweep of channels, of levels up to its 2,048 steps a
+             frame and of frames up to a 16x16 sub-batch's 29,126
+             (``emit_sweep``), with its device time on 3 frames of 2,030
+             steps and on 29,126 frames; the tile engines' probe
              as its one
              host call, and one cold ``engine_supported`` by the host
              clock.
@@ -108,11 +115,15 @@ seconds:
              device-to-host and host-to-device copies of one, which must
              hold one host-to-device copy at most, the upload; the CUDA
              kernels of one ``_codeword_contribs``: kernel 11 and the
-             small ones of the step tables; the emit half by pass,
-             ``tools/emit_split.py``: the pieces, the zero fill and pack,
-             the bit partials, kernel B's meta, kernel B, the layer
-             boundaries, the host totals and the download, in turns with
-             the parent tree's where ``--parent DIR`` names one; the
+             small ones of its (N, S) inputs; the emit half by pass,
+             ``tools/emit_split.py``: the pieces, the step tables (kernel
+             17; a parent's bit partials, kernel B's meta and layer
+             boundaries), the zero fill and pack, kernel B, the host
+             totals and the download, in turns with the parent tree's
+             where ``--parent DIR`` names one; the emit half gated
+             (``emit_gate``: from kernel 11's end to the download only
+             the pack, kernel 17 and kernel B kernels and the host
+             totals' one copy, the plain step tables made to raise); the
              tokens half by pass, ``tools/tokens_split.py``: the unit
              tables (kernel 15; the parent's unit indexing and kernel A's
              meta and table), the histograms, the packed elements, kernel
@@ -140,13 +151,13 @@ seconds:
              decode's calls (there also at other channel groups), kernel
              6 on its seeded tensors (the int8 one also by the element
              kernel), the VLI order scan's kernel, stage 1's three
-             kernels, kernel 11, kernels 12-15 (the finisher's dense
-             pass and special tokens, the packed elements, the schedule,
-             the unit tables; kernels 14 and 15 also by CUDA events, in
-             turns with the parent's where ``--parent DIR`` names one),
-             and the
+             kernels, kernel 11, kernels 12-15 and 17 (the finisher's
+             dense pass and special tokens, the packed elements, the
+             schedule, the unit tables, the step tables' two kernels;
+             kernels 14 and 15 also by CUDA events, in turns with the
+             parent's where ``--parent DIR`` names one), and the
              forward transform launch by launch with the levels each
-             lifts (the scan, stage 1 and kernels 11-15 also at the
+             lifts (the scan, stage 1, kernels 11-15 and 17 also at the
              batch's 7-frame shape in phase 9); kernel 16 launch by
              launch with the levels each lifts, at 4K, at the preview's
              480x270 and at the 16K tiled decode's two tile groups
@@ -213,8 +224,8 @@ seconds:
              bound, stage 1's kernels, the VLI order scan's and kernel
              11's also by torch.profiler; the device-to-host copies of
              one 7-frame ``emit_frames``, whose stream download must be
-             one; its emit half and its tokens half by pass, in turns
-             with the parent's (also in the kernels' JSON:
+             one; its emit half gated and by pass, and its tokens half by
+             pass, in turns with the parent's (also in the kernels' JSON:
              ``batch_launches``, ``batch_ms``, ``batch_bound_ms``,
              ``batch_device_ms``).
 
@@ -363,7 +374,7 @@ BATCH_KERNELS = {"forward_transform": None, "plane_stats": 1,
                  "hilbert_gather": 1, "compact_tokens": 1, "pack_words": 1,
                  "scatter_refbits": 1, "vli_orders": 1, "codeword_pieces": 1,
                  "finish_tokens": 1, "packed_elems": 1, "schedule": 1,
-                 "unit_tables": 1}
+                 "unit_tables": 1, "emit_tables": 1}
 # Kernel 6, on no path: seeded tensors of the shapes the VLI order scan
 # gave it (the (nblk, 128) int32 parameters in, the int8 orders back) at
 # the 4K frame's token bucket and a 7-frame 1080p sub-batch's.
@@ -413,17 +424,19 @@ class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
     scan, the forward transform, the plane statistics, the codeword
     pieces, the token finisher, the packed elements, the schedule, kernel
-    A's unit tables, the inverse transform and the tile engines' probe),
-    their sources, the TPU kernels (or, for kernels 8-16, the JAX code)
+    A's unit tables, the inverse transform, the emit half's step tables
+    and the tile engines' probe), their sources, the TPU kernels (or, for
+    kernels 8-17, the JAX code)
     they replace and the paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose
     runs must launch them."""
 
     def __init__(self):
         from dwt_tpu_torch.codec import decoder, emit, stage1, tokens
-        from dwt_tpu_torch.ops import (codeword, compact, finish,
-                                       hilbert_gather, hilbert_scatter,
-                                       lifting, pack, plane_stats, schedule,
-                                       transpose, units, vli_scan)
+        from dwt_tpu_torch.ops import (codeword, compact, emit_tables,
+                                       finish, hilbert_gather,
+                                       hilbert_scatter, lifting, pack,
+                                       plane_stats, schedule, transpose,
+                                       units, vli_scan)
         from dwt_tpu_torch.parallel import encode as sharded
         from dwt_tpu_torch.parallel import tiled as halo
 
@@ -444,7 +457,8 @@ class Kernels:
                       (tokens, "finish_tokens"), (tokens, "packed_elems"),
                       (stage1, "schedule"), (tokens, "unit_tables"),
                       (sharded, "hilbert_gather"), (halo, "dwt2d_fwd"),
-                      (decoder, "inverse_transform"), (sharded, "dwt2d_inv")]
+                      (decoder, "inverse_transform"), (sharded, "dwt2d_inv"),
+                      (emit, "emit_tables")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "forward_transform": (lifting.forward_transform,
@@ -472,6 +486,8 @@ class Kernels:
             "inverse_transform": (lifting.inverse_transform,
                                   lifting.inverse_transform_plain),
             "dwt2d_inv": (lifting.dwt2d_inv, lifting.dwt2d_inv_plain),
+            "emit_tables": (emit_tables.emit_tables,
+                            emit_tables.emit_tables_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -552,6 +568,15 @@ class Kernels:
              "dwt_tpu_torch/csrc/lifting_inv.cu",
              "dwt_tpu/ops/lifting.py:112, dwt_tpu/ops/color.py:26",
              DECODE_PATHS),
+            # Kernel 17, the emit half's step tables (a block a frame,
+            # then a thread a unit): one call a sub-batch.  No TPU kernel:
+            # it replaces the JAX package's XLA tail of
+            # _codeword_contribs, _bit_partials, _kernel_b_meta and
+            # _layer_boundaries.
+            ("emit_tables", emit_tables.emit_tables,
+             "dwt_tpu_torch/csrc/emit_tables.cu",
+             "dwt_tpu/codec/encoder.py:916, :1000, :1018, :844",
+             ENCODE_PATHS),
         ]
 
     def reset(self) -> None:
@@ -919,31 +944,35 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
     return "; ".join(parts)
 
 
-# Kernels 12-15 by wrapper, as the profiler names them.
+# Kernel 17's two kernels, as the profiler names them.
+EMIT_NAMES = ("emit_steps_kernel", "emit_meta_kernel")
+# Kernels 12-15 and 17 by wrapper, as the profiler names them.
 TOKENS_NAMES = {"finish_tokens": ("finish_dense_kernel",
                                   "finish_special_kernel"),
                 "packed_elems": ("packed_elems_kernel",),
                 "schedule": ("schedule_kernel",),
-                "unit_tables": ("units_kernel",)}
+                "unit_tables": ("units_kernel",),
+                "emit_tables": EMIT_NAMES}
 
 
 def tokens_kept(store: dict) -> dict:
-    """The first kept call of each of kernels 12-15 (kernel 12's pairs
-    laid out again in a pair buffer's rows)."""
+    """The first kept call of each of kernels 12-15 and 17 (kernel 12's
+    pairs laid out again in a pair buffer's rows)."""
     return {"finish_tokens": as_pair_buffer(store["finish_tokens"][0]),
             **{k: store[k][0] for k in ("packed_elems", "schedule",
-                                        "unit_tables")}}
+                                        "unit_tables", "emit_tables")}}
 
 
 def tokens_device(torch, kept: dict, rows: list, key: str) -> str:
-    """Kernels 12-15's device time (torch.profiler) on their kept calls
-    ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's kernels
-    summed); returns a line of them beside their bounds."""
-    from dwt_tpu_torch.ops import finish, schedule, units
+    """Kernels 12-15 and 17's device time (torch.profiler) on their kept
+    calls ``kept[wrapper]``, into ``rows[...][key]`` (the wrapper's
+    kernels summed); returns a line of them beside their bounds."""
+    from dwt_tpu_torch.ops import emit_tables, finish, schedule, units
 
     fns = {"finish_tokens": finish.finish_tokens,
            "packed_elems": finish.packed_elems,
-           "schedule": schedule.schedule, "unit_tables": units.unit_tables}
+           "schedule": schedule.schedule, "unit_tables": units.unit_tables,
+           "emit_tables": emit_tables.emit_tables}
     parts = []
     for name, kernels in TOKENS_NAMES.items():
         args = kept[name]
@@ -966,7 +995,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
     at the tiled decode's calls, there also at each channel group of
     ``SCATTER_GROUPS``; kernel 6 on its seeded 4K tensors, the int8 one
     also by the element kernel; the VLI order scan's kernel, stage 1's
-    kernels and kernels 12-15 at 4K (into ``rows``), kernel 11 in
+    kernels and kernels 12-15 and 17 at 4K (into ``rows``), kernel 11 in
     turns with the ``parent`` checkout's where one is given.  Run last, so that no
     profiler session comes before the timing phase that a parent's script
     would not run either."""
@@ -1010,7 +1039,7 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                                                       rows, "device_ms"))
     progress("device: " + codeword_device(torch, codeword_args, rows,
                                           "device_ms", parent))
-    progress("device: kernels 12-15 at 4K: " + tokens_device(
+    progress("device: kernels 12-15 and 17 at 4K: " + tokens_device(
         torch, tokens_kept, rows, "device_ms"))
     progress("device: kernels 14 and 15 at 4K, in turns: "
              + schedule_turns(torch, tokens_kept, parent))
@@ -1315,6 +1344,8 @@ def kernel_work(torch, name: str, args) -> tuple:
         return schedule_work(torch, args)
     if name == "unit_tables":
         return units_work(torch, args)
+    if name == "emit_tables":
+        return emit_tables_work(torch, args)
     return encode_kernel_bytes(torch, name, args), 0
 
 
@@ -1351,6 +1382,27 @@ def units_work(torch, args) -> tuple:
     small = sum(t.numel() * 4 for t in args[7:10])
     return (N * S * 13 + 3 * 4 * N * U + small
             + N * U * (5 * 4 + 1 + 32 + 4)), 0
+
+
+def emit_tables_work(torch, args) -> tuple:
+    """(bytes, integer operations) kernel 17 must spend: the two words of
+    ``off`` a step reads (at its end and at its base), kernel 11's chunk
+    sums, the five (N, S) step tables, the planes, the chunk tables nS_ck
+    and nZ_ck, the six unit columns and the level and chunk tables, each
+    read once; refstart, the 32-byte meta rows and the head written once.
+    Its operations, a bitonic sort of S keys a frame (S/2 exchanges a stage,
+    log2(S) (log2(S) + 1) / 2 stages) and a few a step and a unit, take
+    less time at the INT32 rate than those bytes, and are not counted."""
+    from dwt_tpu_torch.ops import emit_tables
+
+    chunks, nref = args[1], args[2]
+    N, S = nref.shape
+    U = args[11].shape[1]
+    K = emit_tables.parts_count(chunks.shape[1], S)
+    nin = (7 * N * S + chunks.numel()) * 4 + sum(
+        t.numel() * t.element_size() for t in args[7:20])
+    nout = 4 * N * S + 32 * N * U + 4 * (1 + N * (K + emit_tables.LMAX))
+    return nin + nout, 0
 
 
 def finish_work(torch, args) -> tuple:
@@ -1420,10 +1472,10 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
     from dwt_tpu_torch.codec.stage1 import ALIGN
     from dwt_tpu_torch.hilbert import padded_layout, reconstruction_perm
     from dwt_tpu_torch.geometry import compute_pyramid
-    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
-                                   hilbert_scatter, lifting, pack,
-                                   plane_stats, schedule, transpose, units,
-                                   vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, emit_tables, finish,
+                                   hilbert_gather, hilbert_scatter, lifting,
+                                   pack, plane_stats, schedule, transpose,
+                                   units, vli_scan)
 
     out = []
 
@@ -1741,6 +1793,21 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
                  f"{ops} pair terms of the sort")
     progress("kernels: " + schedule_sweep(torch))
     progress("kernels: " + inverse_sweep(torch))
+
+    # 11. kernel 17, the emit half's step tables: on the 4K encode's kernel
+    # 11 outputs, stats and unit columns, held to its plain version (the
+    # eager passes the encoder ran before).  No PyTorch call computes this
+    # function.
+    args = got["emit_tables"][0]
+    nbytes, ops = kernel_work(torch, "emit_tables", args)
+    row("emit_tables", emit_tables.emit_tables(*args),
+        emit_tables.emit_tables_plain(*args),
+        time_ms(torch, lambda: emit_tables.emit_tables(*args)),
+        time_ms(torch, lambda: emit_tables.emit_tables_plain(*args), reps=3),
+        nbytes, None, ops)
+    progress(f"kernels: emit_tables {tuple(args[2].shape)} steps, "
+             f"{args[11].shape[1]} units: {nbytes} bytes")
+    progress("kernels: " + emit_sweep(torch))
     return out
 
 
@@ -1881,6 +1948,102 @@ def inverse_sweep(torch) -> str:
             f"{sorted({p[2] for q in plans for p in q if p[1]})} blocks, "
             f"{sorted({p[3] for q in plans for p in q if not p[1]})} frames "
             f"a warp; {time.perf_counter() - t0:.1f} s")
+
+
+# The sweep of kernel 17: channels a frame, each at every level count up to
+# the kernel's 2,048 steps a frame, 3 frames a call; then frames a call at
+# the 16x16 tiles' shape (3 channels, 2 levels), up to the larger
+# sub-batch of them that small_tiles encodes.
+EMIT_SWEEP_CHANNELS = (1, 2, 3, 32)
+EMIT_SWEEP_FRAMES = (1, 2, 7, 64, 1024, 29_126)
+
+
+def emit_seeded(torch, rng, N: int, C: int, L: int, T: int,
+                nwords: int) -> tuple:
+    """Seeded kernel-17 arguments on the card: N frames of C channels and
+    L levels of 1-4 chunks, T token slots; tied sites, sites at 0 and T,
+    step ends past both edges, refinement counts whose sums wrap int32,
+    any in-range unit columns, word windows clamped; a channel's elements
+    and a frame's words cut to what N frames hold in int32 indices."""
+    from dwt_tpu_torch.ops.plane_stats import PMAX
+
+    S = C * L * PMAX
+    lnc = rng.integers(1, 5, L)
+    nchunk = int(lnc.sum())
+    # a channel's elements and a frame's words within the int32 indices
+    U, n = C * nchunk * PMAX, min(1 << 16, (2**31 - 1) // (N * C))
+    nwords = min(nwords, (2**31 - 1) // N)
+    site = np.where(rng.random((N, S)) < 0.5, rng.integers(0, T + 1, (N, S)),
+                    rng.choice([0, 1, T // 2, T - 1, T], size=(N, S)))
+    host = [rng.integers(-2**31, 2**31, (N, T)),
+            rng.integers(0, 2**17, (N, -(-T // 2048))),
+            np.where(rng.random((N, S)) < 0.3, 0,
+                     rng.integers(0, 2**30, (N, S))), site,
+            rng.integers(-3, T + 3, (N, C, L, PMAX)),
+            rng.integers(-2**31, 2**31, (N, C, L, PMAX)),
+            rng.integers(-3, T + 3, (N, C, L, PMAX)),
+            rng.integers(0, PMAX + 1, (N, C)), rng.integers(0, PMAX + 1, N),
+            rng.integers(0, 5000, (N, C, nchunk, PMAX)),
+            rng.integers(0, 70000, (N, C, nchunk, PMAX)),
+            rng.integers(0, C * n, (N, U)), rng.integers(1, 65537, (N, U)),
+            rng.integers(0, PMAX, (N, U)), rng.integers(0, S, (N, U)),
+            rng.integers(0, U, (N, U))]
+    args = [torch.as_tensor(h, dtype=torch.int32, device="cuda")
+            for h in host]
+    args.append(torch.as_tensor(rng.random((N, U)) < 0.7, device="cuda"))
+    args += [torch.as_tensor(h, dtype=torch.int32, device="cuda") for h in (
+        rng.integers(0, 65537, nchunk),
+        np.concatenate([[0], np.cumsum(lnc)[:-1]]), lnc)]
+    return tuple(args) + (n, nwords)
+
+
+def emit_sweep(torch) -> str:
+    """Kernel 17 against its plain version (max abs err 0) on seeded tables
+    (``emit_seeded``): each C of ``EMIT_SWEEP_CHANNELS`` at every level
+    count L from 1 to the kernel's limit (S = C * L * 29 <= 2,048), 3
+    frames a call, then the 16x16 tiles' shape at each frame count of
+    ``EMIT_SWEEP_FRAMES`` (29,126: the larger sub-batch of
+    ``small_tiles``); and its time on 3 frames of 2,030 steps and on
+    29,126 16x16 frames, by CUDA events around the wrapper and by device
+    time (torch.profiler).  Returns a line of what ran; raises on a
+    difference."""
+    from dwt_tpu_torch.ops import emit_tables
+    from dwt_tpu_torch.ops.plane_stats import PMAX
+
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    calls, steps, err = 0, 0, 0
+    shapes = [(3, C, L) for C in EMIT_SWEEP_CHANNELS
+              for L in range(1, emit_tables.MAX_STEPS // (C * PMAX) + 1)]
+    shapes += [(N, 3, 2) for N in EMIT_SWEEP_FRAMES]
+    timed = {}
+    for N, C, L in shapes:
+        T = int(rng.integers(2048, 20000)) if N < 1024 else 8192
+        nwords = int(rng.integers(1000, 60000))
+        args = emit_seeded(torch, rng, N, C, L, T, nwords)
+        err = max(err, max_abs_err("emit_tables",
+                                   emit_tables.emit_tables(*args),
+                                   emit_tables.emit_tables_plain(*args)))
+        calls += 1
+        steps = max(steps, C * L * PMAX)
+        if (N, C * L * PMAX) in ((3, 2030), (29_126, 174)):
+            timed[(N, C * L * PMAX)] = (
+                time_ms(torch, lambda: emit_tables.emit_tables(*args)),
+                *(kernel_ms(torch, lambda: emit_tables.emit_tables(*args), k,
+                            per_call=1) for k in EMIT_NAMES))
+        del args
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"the sweep of kernel 17 differs from its plain "
+                             f"version (max abs err {err})")
+    return (f"kernel 17 equal to its plain version (max abs err 0) on a "
+            f"seeded sweep of {calls} calls: C in {EMIT_SWEEP_CHANNELS} at "
+            f"every L up to {steps} steps a frame (3 frames), and 16x16 "
+            f"tiles' tables at {EMIT_SWEEP_FRAMES} frames; " + "; ".join(
+                f"{n} frames of {s} steps: {e:.4f} ms events, device "
+                f"{d1:.4f} + {d2:.4f} ms" for (n, s), (e, d1, d2)
+                in timed.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
 
 
 # Kernels 14 and 15 by tree, as the profiler names them (the parent's
@@ -2112,6 +2275,7 @@ def profile(torch, enc, img, parent: str | None) -> None:
              + stage1_split(torch, enc, img[None], parent))
     progress("profile: emit half at 4K by pass (tools/emit_split.py): "
              + emit_splits(torch, enc, img[None], parent))
+    emit_gate(torch, enc, img[None], "4K")
     progress("profile: tokens half at 4K by pass (tools/tokens_split.py): "
              + emit_splits(torch, enc, img[None], parent, "tokens_split"))
 
@@ -2163,10 +2327,11 @@ def tool(name: str):
 
 def contribs_kernels(torch, fn) -> str:
     """The CUDA kernels of one warm ``fn()``, an ``emit._codeword_contribs``
-    call, by torch.profiler: kernel 11 once, and the small kernels of the
-    (N, S) step tables, by name and count, their device time beside
-    kernel 11's; "not measured" where the profiler recorded no kernel 11
-    or more than one (it drops events in some sessions)."""
+    call, by torch.profiler: kernel 11 once, and the small kernels of its
+    (N, S) inputs (the refinement counts and injection sites), by name and
+    count, their device time beside kernel 11's; "not measured" where the
+    profiler recorded no kernel 11 or more than one (it drops events in
+    some sessions)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2189,9 +2354,96 @@ def contribs_kernels(torch, fn) -> str:
             others[name] = others.get(name, 0) + 1
     rest = sum(e.time_range.elapsed_us() for e in ev if e is not mine[0])
     return (f"{len(ev)} CUDA kernels: {CODEWORD_NAME} x1 "
-            f"{mine[0].time_range.elapsed_us() / 1e3:.4f} ms; the step "
-            f"tables' {len(ev) - 1} {rest / 1e3:.4f} ms ("
+            f"{mine[0].time_range.elapsed_us() / 1e3:.4f} ms; its (N, S) "
+            f"inputs' {len(ev) - 1} {rest / 1e3:.4f} ms ("
             + ", ".join(f"{k} x{n}" for k, n in others.items()) + ")")
+
+
+# The kernels the emit half may launch after kernel 11, by the names the
+# profiler gives them: the pack wrapper's zero fill and kernel, kernel 17's
+# two and kernel B's; each of the four named kernels once.
+EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_steps_kernel",
+             "emit_meta_kernel", "refbits_scatter_kernel")
+
+
+def emit_gate(torch, enc, imgs: np.ndarray, label: str) -> None:
+    """The emit half after kernel 11 is the pack, kernel 17 and kernel B:
+    one ``enc.emit_frames`` of ``imgs`` with the plain versions of the
+    step tables made to raise (``emit``'s parts and ``ops/emit_tables.py``'s
+    functions), under torch.profiler.  From kernel 11's end to the
+    download (its gather of the frames' words where it has more than one
+    frame, and its copy: the last events) only the kernels of
+    ``EMIT_GATE``, the four named ones once each, and one device-to-host
+    copy, ``_host_totals``'; its payloads equal the unrefused call's.  A
+    session in which the profiler recorded no kernel 11 is tried again,
+    twice, and then reads "not recorded".  Raises otherwise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from dwt_tpu_torch.codec import emit, encoder
+    from dwt_tpu_torch.ops import emit_tables
+
+    lin, stats = enc.stage1_frames(imgs)
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    want = enc.emit_frames(lin, stats, padded_T)[0]
+
+    def refuse(fn):
+        def run(*args, **kwargs):
+            raise AssertionError(f"emit gate {label}: an eager pass ran")
+        return run
+
+    eager = [(emit, n) for n in ("_bit_partials", "_kernel_b_meta",
+                                 "_layer_boundaries")] + [
+        (emit_tables, n) for n in ("emit_tables_plain", "refstart_plain",
+                                   "bit_partials_plain",
+                                   "kernel_b_meta_plain",
+                                   "layer_ends_plain")]
+    after = None
+    with contextlib.ExitStack() as stack:
+        for obj, name in eager:
+            stack.enter_context(wrapped(obj, name, refuse))
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                got = enc.emit_frames(lin, stats, padded_T)[0]
+                torch.cuda.synchronize()
+            if got != want:
+                raise AssertionError(f"emit gate {label}: the payloads "
+                                     f"differ from the unrefused call's")
+            ev = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+            k11 = [i for i, e in enumerate(ev) if CODEWORD_NAME in e.name]
+            if k11:
+                after = [e.name for e in ev[k11[-1] + 1:]]
+                break
+    if after is None:
+        progress(f"timing: emit gate {label}: not recorded (no "
+                 f"{CODEWORD_NAME} event in three profiler sessions); eager "
+                 f"passes refused: {[n for _, n in eager]}")
+        return
+    tail = 2 if len(imgs) > 1 else 1
+    gated, download = after[:-tail], after[-tail:]
+    kernels = [n for n in gated if "emcpy" not in n and "emset" not in n]
+    copies = [n for n in gated if n not in kernels]
+    names = {}
+    for n in kernels:
+        key = next((k for k in EMIT_GATE if k in n), n)
+        names[key] = names.get(key, 0) + 1
+    ok = (sum("DtoH" in n for n in download) == 1
+          and len(copies) == 1 and "DtoH" in copies[0]
+          and set(names) <= set(EMIT_GATE)
+          and all(names.get(k) == 1 for k in EMIT_GATE if k != "FillFunctor"))
+    progress(f"timing: emit gate {label} ({len(imgs)} frames): after kernel "
+             f"11, CUDA kernels {names}; copies {copies}; then the download "
+             f"{[n[:40] for n in download]}; eager passes refused: "
+             f"{[n for _, n in eager]}")
+    if not ok:
+        raise AssertionError(f"emit gate {label}: the emit half after kernel "
+                             f"11 is not the pack, kernel 17 and kernel B "
+                             f"alone: {after}")
 
 
 def emit_splits(torch, enc, imgs: np.ndarray, parent: str | None,
@@ -2477,7 +2729,7 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
     kernels and kernel 15 equal their plain versions on the first 256
     tiles.  Where ``parent`` names a checkout, its ``encode_tiled`` of the
     frame must give the same container, and both are timed in turns."""
-    from dwt_tpu_torch.codec import encoder, stage1
+    from dwt_tpu_torch.codec import emit, encoder, stage1
     from dwt_tpu_torch.ops import lifting, plane_stats, schedule, units
 
     t0 = time.perf_counter()
@@ -2496,8 +2748,12 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
     sub = min(old, enc.max_frames)
     nsub = -(-n_tiles // sub)
     K.reset()
+    kept = []  # kernel 17's calls, one a sub-batch
     t1 = time.perf_counter()
-    full = tiled.encode_tiled(img, tile=SMALL_TILE)
+    with wrapped(emit, "emit_tables", lambda fn: lambda *a: (kept.append(
+            tuple(x.clone() if hasattr(x, "clone") else x for x in a)),
+            fn(*a))[1]):
+        full = tiled.encode_tiled(img, tile=SMALL_TILE)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
     counts = K.counts()
@@ -2546,6 +2802,9 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
     if err:
         raise AssertionError(f"small tiles: a stage-1 kernel differs from "
                              f"its plain version (max abs err {err})")
+    held = K.hold({"emit_tables": kept})
+    frames17 = [a[0].shape[0] for a in kept]
+    del kept
     progress(f"e2e: small tiles: {SMALL_SIDE}x{SMALL_SIDE}x{C} in {tw}x{th} "
              f"tiles, {n_tiles} of one geometry; one sub-batch of them is "
              f"refused ({refused}); encode_tiled in {nsub} sub-batches of "
@@ -2553,7 +2812,8 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
              f"{counts}; equal to the container of {SMALL_SUB} tiles a "
              f"sub-batch; decode_tiled gives the frame back; the transform, "
              f"the plane statistics, the schedule and the unit tables equal "
-             f"their plain versions on 256 tiles; "
+             f"their plain versions on 256 tiles, kernel 17 on its "
+             f"{held['emit_tables']} calls of {frames17} frames; "
              f"{time.perf_counter() - t0:.1f} s")
     if parent:
         progress("timing: small tiles, encode_tiled in turns with the "
@@ -3426,9 +3686,9 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     # kept call; kernel 12's pairs laid out again in a pair buffer's rows,
     # as kernel A leaves them: a kept call is a contiguous copy), beside
     # its bound.
-    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
-                                   lifting, pack, plane_stats, schedule,
-                                   units, vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, emit_tables, finish,
+                                   hilbert_gather, lifting, pack, plane_stats,
+                                   schedule, units, vli_scan)
 
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
     calls = {
@@ -3443,6 +3703,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
         "packed_elems": lambda a: finish.packed_elems(*a),
         "schedule": lambda a: schedule.schedule(*a),
         "unit_tables": lambda a: units.unit_tables(*a),
+        "emit_tables": lambda a: emit_tables.emit_tables(*a),
     }
     parts = []
     for row in rows:
@@ -3470,7 +3731,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
                   "finish_tokens": finish.finish_tokens_plain,
                   "packed_elems": finish.packed_elems_plain,
                   "schedule": schedule.schedule_plain,
-                  "unit_tables": units.unit_tables_plain}
+                  "unit_tables": units.unit_tables_plain,
+                  "emit_tables": emit_tables.emit_tables_plain}
         if name in plains:
             plain = ", plain " + format(time_ms(torch, lambda: (
                 plains[name](*kept[0])), reps=3), ".3f") + " ms"
@@ -3481,7 +3743,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"device: stage 1 at the batch of {sub} frames: "
              + stage1_device(torch, {k: store[k][0] for k in STAGE1_NAMES},
                              rows, "batch_device_ms"))
-    progress(f"device: kernels 12-15 at the batch of {sub} frames: "
+    progress(f"device: kernels 12-15 and 17 at the batch of {sub} frames: "
              + tokens_device(torch, tokens_kept(store), rows,
                              "batch_device_ms"))
     progress(f"device: kernels 14 and 15 at the batch of {sub} frames, in "
@@ -3499,6 +3761,7 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
     progress(f"profile: emit half of a {sub}-frame sub-batch by pass "
              f"(tools/emit_split.py): "
              + emit_splits(torch, enc.enc, seven, parent))
+    emit_gate(torch, enc.enc, seven, f"{sub} frames")
     progress(f"profile: tokens half of a {sub}-frame sub-batch by pass "
              f"(tools/tokens_split.py): "
              + emit_splits(torch, enc.enc, seven, parent, "tokens_split"))

@@ -7,8 +7,8 @@ JAX package and the reference C encoder.  CUDA kernels run on the
 path: the forward transform and the plane statistics, the linearization
 gather (and its one-time probe when an encoder is built), the packed
 elements, compaction kernels A and B, the token finisher, the VLI order
-scan, the codeword pieces and the codeword packer.  The stages take a
-leading frame axis:
+scan, the codeword pieces, the emit half's step tables and the codeword
+packer.  The stages take a leading frame axis:
 ``Encoder.stage1_frames`` and ``Encoder.emit_frames`` run N frames of the
 geometry through one pipeline (``codec/tiled.py``'s batch mode), and one
 stream is the case N = 1 (``Encoder.stage1``, ``Encoder.emit``).
@@ -30,6 +30,7 @@ import torch
 
 from ..geometry import compute_pyramid
 from ..ops import compact, pack
+from ..ops.emit_tables import head_views
 from ..ops.hilbert_gather import engine_supported
 from .emit import _stage2_emit, _stream_words
 # _check_planes is the encoder's too (its callers and tests reach it here).
@@ -98,19 +99,17 @@ def _check_batch(n: int, nlin: int, pyr, channels: int,
             "indices (2^31); encode fewer frames a sub-batch")
 
 
-def _host_totals(bits_parts, order_flag, layer_ends) -> tuple:
-    """Exact stream bit count of each frame from the (N, K) int32 partial
-    sums, totaled in Python ints so nothing can wrap, after the pack
-    kernel's order check (:func:`pack.check_order`), and the (N, LMAX)
-    layer-end bit offsets as int64: one device-to-host copy for the
-    sub-batch.  Returns (list of totals, layer ends)."""
-    n, k = bits_parts.shape
-    host = torch.cat([order_flag, bits_parts.reshape(-1),
-                      layer_ends.reshape(-1)]).cpu().numpy()
-    pack.check_order(host[:1])
-    parts = host[1:1 + n * k].reshape(n, k).astype(np.int64)
-    return ([int(t) for t in parts.sum(axis=1)],
-            host[1 + n * k:].reshape(n, -1).astype(np.int64))
+def _host_totals(head, n: int) -> tuple:
+    """Exact stream bit count of each of the ``n`` frames from the step
+    tables' ``head`` (``emit._stage2_emit``: the pack kernel's order flag,
+    the (n, K) int32 partial sums and the (n, LMAX) layer-end bit offsets,
+    end to end), in one device-to-host copy: the order checked
+    (:func:`pack.check_order`), the partial sums totaled in Python ints so
+    nothing can wrap.  Returns (list of totals, layer ends as int64)."""
+    flag, parts, ends = head_views(head.cpu(), n)
+    pack.check_order(flag)
+    return ([int(t) for t in parts.numpy().astype(np.int64).sum(axis=1)],
+            ends.numpy().astype(np.int64))
 
 
 def _check_stream_bits(total_bits: int) -> int:
@@ -426,11 +425,9 @@ class Encoder:
         _check_batch(lin.shape[0], lin.shape[-1], pyr, C, padded_T)
         tv, tr, tf, orders, vmag, com = _stage2_tokens(lin, stats, pyr, C,
                                                        padded_T)
-        order_flag = torch.zeros(1, dtype=torch.int32, device=self.device)
-        words, bits_parts, _, layer_ends = _stage2_emit(
-            lin, stats, tv, tr, tf, orders, vmag, com, pyr, C, padded_T,
-            order_flag)
-        totals, ends = _host_totals(bits_parts, order_flag, layer_ends)
+        words, *_, head = _stage2_emit(lin, stats, tv, tr, tf, orders, vmag,
+                                       com, pyr, C, padded_T)
+        totals, ends = _host_totals(head, lin.shape[0])
         totals = [_check_stream_bits(t) for t in totals]
         return self._download(words, totals), totals, ends
 

@@ -36,8 +36,10 @@
 // into the other stage, one lane a row, so they are in flight while the
 // current tile scans, looks back and stores.  A row is copied as the
 // 16-byte window that covers it, [start rounded down, end rounded up),
-// kept inside the storage: the batch's rows at stride T + 1 start
-// anywhere; bytes of the row outside the storage's whole 16-byte words
+// kept inside the storage: the token finisher's rows lie at stride
+// padded_T and start on 16-byte words, but the kernel takes rows at any
+// row stride (a view's rows, at stride T + 1 in the tests, start
+// anywhere); bytes of the row outside the storage's whole 16-byte words
 // come by plain loads.  The frame's (S) step table is staged the same
 // way, into one buffer, only when the next tile is in another frame and
 // only once the current tile's injections are in (warps 1 and up add them

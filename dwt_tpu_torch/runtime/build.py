@@ -153,6 +153,12 @@ ENTRY_POINTS = {
     #  stream): the offsets of csrc/units.cu's 8 outputs, by value
     "dwt_unit_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                         _L, _L, _L, _P, offsets(8), _P),
+    # (off, chunks, nref, site, step_end, refpfx, step_base, planes,
+    #  planes_max, nS_ck, nZ_ck, elem, elen, p, flat_step, flat_ck, valid,
+    #  ch_valid, lcb, nframes, T, NC, C, L, nchunk, n, nwords, wsmax, arena,
+    #  offsets, stream): the offsets of csrc/emit_tables.cu's 3 outputs, by
+    #  value
+    "dwt_emit_tables": (_P,) * 19 + (_L,) * 9 + (_P, offsets(3), _P),
 }
 
 

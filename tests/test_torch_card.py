@@ -725,7 +725,9 @@ def test_codeword_plan_on_the_card(cuda):
 def test_codeword_contribs_is_one_kernel(cuda):
     """One ``emit._codeword_contribs`` of a 320x240 RGB frame on the card:
     one launch of kernel 11, and beside it only the small kernels of the
-    (N, S) step tables; its outputs equal the CPU's."""
+    (N, S) refinement counts and injection sites it reads (a fill, a where
+    and a clamp; the step tables after it are kernel 17's); its outputs
+    equal the CPU's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,7 +762,7 @@ def test_codeword_contribs_is_one_kernel(cuda):
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
         assert sum("codeword_kernel" in k for k in names) == 1, names
-        assert len(names) <= 24, names
+        assert len(names) <= 4, names
     for a, b in zip(outs["cpu"], outs[cuda]):
         assert torch.equal(a, b.cpu())
 
@@ -834,8 +836,8 @@ def _batch_pairs():
     """Each batched kernel's wrapper and plain version, and the codec
     module that calls it."""
     from dwt_tpu_torch.codec import emit, stage1, tokens
-    from dwt_tpu_torch.ops import (codeword, compact, finish, hilbert_gather,
-                                   pack, transpose, vli_scan)
+    from dwt_tpu_torch.ops import (codeword, compact, emit_tables, finish,
+                                   hilbert_gather, pack, transpose, vli_scan)
 
     return {
         "hilbert_gather": (stage1, hilbert_gather.hilbert_gather,
@@ -855,14 +857,16 @@ def _batch_pairs():
                           finish.finish_tokens_plain),
         "packed_elems": (tokens, finish.packed_elems,
                          finish.packed_elems_plain),
+        "emit_tables": (emit, emit_tables.emit_tables,
+                        emit_tables.emit_tables_plain),
     }
 
 
 @pytest.mark.parametrize("w,h,c", [(64, 48, 3), (33, 17, 1), (9, 9, 3)])
 def test_batched_kernels_equal_plain(cuda, monkeypatch, w, h, c):
-    """Kernels 1-4, the VLI scan, kernel 11 (the codeword pieces) and
-    kernels 12 and 13 (the token finisher, the packed elements) as a
-    3-frame sub-batch calls them (a flat, a noise and a mixed frame: three
+    """Kernels 1-4, the VLI scan, kernel 11 (the codeword pieces),
+    kernels 12 and 13 (the token finisher, the packed elements) and kernel
+    17 (the emit half's step tables) as a 3-frame sub-batch calls them (a flat, a noise and a mixed frame: three
     token counts, one with no detail plane), each launched once for the
     sub-batch (kernel 6 not at all) and each call held to its plain
     version on the same CUDA tensors; the payloads and layer ends equal
@@ -1461,3 +1465,169 @@ def test_decode_tail_is_kernel_16(cuda, monkeypatch, w, h, c, pixels, cut):
         assert calls[0][4] is not None
     if pixels == 0 and cut == 1:
         assert np.array_equal(got, img)
+
+
+# Kernel 17's seeded tables: (N, C, L, T, nwords), as
+# tests/test_torch_emit_tables.py's replay takes them; up to 2,030 steps a
+# frame, blocks of 64 to 1,024 threads, clamped word windows.
+EMIT_SEEDED = [(1, 1, 1, 4096, 9000), (3, 1, 2, 5000, 1000),
+               (2, 3, 4, 8192, 2**20), (1, 3, 23, 9000, 50_000),
+               (1, 1, 70, 2048, 3000), (4, 2, 1, 3, 5000),
+               (700, 3, 2, 8192, 40_000)]
+
+
+@pytest.mark.parametrize("N,C,L,T,nwords", EMIT_SEEDED)
+def test_emit_tables_kernel_equals_plain_seeded(cuda, N, C, L, T, nwords):
+    """Kernel 17 against its plain version on seeded tables on the card
+    (tied and clamped sites, wrapping sums, any in-range unit columns):
+    every output exact; one call (two launches) a call, its outputs in a
+    new allocation each call."""
+    from test_torch_emit_tables import _seeded
+
+    from dwt_tpu_torch.ops import emit_tables
+
+    rng = np.random.default_rng(N * 1000 + C * 100 + L)
+    lnc = rng.integers(1, 5, L)
+    args = [a.to(cuda) if torch.is_tensor(a) else a
+            for a in _seeded(rng, N, C, L, lnc, T, nwords)]
+    want = emit_tables.emit_tables_plain(*args)
+    heads = []
+    for _ in range(2):
+        before = emit_tables.emit_tables.launches
+        got = emit_tables.emit_tables(*args)
+        torch.cuda.synchronize()
+        assert emit_tables.emit_tables.launches == before + 1
+        for g, w_ in zip(got, want):
+            assert g.dtype == w_.dtype and g.shape == w_.shape
+            assert torch.equal(g, w_)
+        heads.append(got[4])
+    assert heads[0].data_ptr() != heads[1].data_ptr()
+
+
+@pytest.mark.parametrize("w,h,c,n,cut", [(3840, 2160, 3, 1, None),
+                                         (1920, 1080, 3, 7, None),
+                                         (16, 16, 3, 5, None),
+                                         (96, 80, 1, 3, "layer"),
+                                         (64, 48, 3, 3, "capacity")])
+def test_emit_tables_kernel_equals_plain(cuda, w, h, c, n, cut):
+    """Kernel 17 on the encoder's own inputs on the card (stage 1, the
+    tokens half and kernel 11 there), lossless and with schedules cut as
+    a byte budget and a tiled layer cap cut them: every output equal to
+    its plain version's on the same CUDA tensors, and its two kernels,
+    and no other, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dwt_tpu_torch.codec import emit, encoder, tokens
+    from dwt_tpu_torch.codec.stage1 import frame
+    from dwt_tpu_torch.ops import emit_tables
+
+    enc = encoder.Encoder(w, h, c, device=cuda)
+    lin, stats = enc.stage1_frames(_frames(w, h, c, n))
+    if cut:
+        host, upds = encoder.host_stats(stats), {}
+        for i in range(n):
+            sh = frame(host, i)
+            upd = (encoder._truncate_schedule(sh, int(sh["T"]) // 24,
+                                              enc.pyr, c)
+                   if cut == "capacity" else
+                   encoder._truncate_schedule_to_layer(sh, 2, enc.pyr, c))
+            if upd is not None:
+                upds[i] = upd
+        assert upds
+        stats = encoder.patch_frames(stats, upds)
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    tv, tr, tf, orders, _, com = tokens._stage2_tokens(lin, stats, enc.pyr,
+                                                       c, padded_T)
+    nwords = emit._stream_words(enc.pyr, c, padded_T)
+    chunks, nref, inj, off, *_ = emit._codeword_contribs(
+        stats, tv, tr, tf, orders, padded_T, nwords)
+    kept = []
+    real = emit.emit_tables
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(emit, "emit_tables",
+                   lambda *a: (kept.append(a), real(*a))[1])
+        got = emit._step_tables(stats, com, enc.pyr, off, chunks, nref, inj,
+                                nwords)
+    want = emit_tables.emit_tables_plain(*kept[0])
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert torch.equal(g, w_)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        emit_tables.emit_tables(*kept[0])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if names:  # the profiler drops every event in some sessions
+        assert sorted(n.split("(")[0].split()[-1] for n in names) == [
+            "emit_meta_kernel", "emit_steps_kernel"], names
+
+
+# The kernels the emit half may launch after kernel 11, by the names the
+# profiler gives them: the pack wrapper's zero fill and kernel, kernel 17's
+# two, kernel B's.
+EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_steps_kernel",
+             "emit_meta_kernel", "refbits_scatter_kernel")
+
+
+@pytest.mark.parametrize("w,h,c,n", [(320, 240, 3, 1), (64, 48, 3, 3)])
+def test_emit_gate(cuda, monkeypatch, w, h, c, n):
+    """From kernel 11's end to the download, ``emit_frames`` launches only
+    the pack, kernel 17 and kernel B kernels and makes one device-to-host
+    copy (``_host_totals``'), with the plain versions of the step tables
+    made to raise; its payloads equal the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dwt_tpu_torch.codec import emit, encoder
+    from dwt_tpu_torch.ops import emit_tables
+
+    imgs = _frames(w, h, c, n)
+
+    def run(enc):
+        lin, stats = enc.stage1_frames(imgs)
+        return enc.emit_frames(lin, stats, encoder._bucket(
+            int(stats["T"].max()))), (lin, stats)
+
+    want, _ = run(encoder.Encoder(w, h, c, device="cpu"))
+    enc = encoder.Encoder(w, h, c, device=cuda)
+    got, (lin, stats) = run(enc)
+    assert got[0] == want[0] and np.array_equal(got[2], want[2])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an eager pass of the step tables ran")
+
+    for mod, name in ((emit, "_bit_partials"), (emit, "_kernel_b_meta"),
+                      (emit, "_layer_boundaries"),
+                      (emit_tables, "emit_tables_plain"),
+                      (emit_tables, "refstart_plain"),
+                      (emit_tables, "bit_partials_plain"),
+                      (emit_tables, "kernel_b_meta_plain"),
+                      (emit_tables, "layer_ends_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    padded_T = encoder._bucket(int(stats["T"].max()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = enc.emit_frames(lin, stats, padded_T)
+        torch.cuda.synchronize()
+    assert again[0] == want[0]
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    k11 = [i for i, e in enumerate(ev) if "codeword_kernel" in e.name]
+    if not k11:  # the profiler drops every event in some sessions
+        return
+    after = [e.name for e in ev[k11[0] + 1:]]
+    # the download's own events come last: its gather and its copy
+    tail = 1 + (n > 1)
+    gated, download = after[:-tail], after[-tail:]
+    assert sum("Memcpy DtoH" in x for x in download) == 1, after
+    assert sum("Memcpy DtoH" in x for x in gated) == 1, after
+    kernels = [x for x in gated if "Memcpy" not in x]
+    assert all(any(k in x for k in EMIT_GATE) for x in kernels), kernels
+    for k in ("pack_words_kernel", "emit_steps_kernel", "emit_meta_kernel",
+              "refbits_scatter_kernel"):
+        assert sum(k in x for x in kernels) == 1, (k, kernels)

@@ -30,7 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from dwt_tpu.codec import encoder as je
 from dwt_tpu_torch.codec import emit
-from dwt_tpu_torch.ops import codeword
+from dwt_tpu_torch.ops import codeword, emit_tables
 
 C, L, PMAX = 3, 2, 29
 S = C * L * PMAX
@@ -102,10 +102,14 @@ def _port(stats_list, val, raw, vli, orders, T, nwords):
           for k in stats_list[0]}
     tv, tr, tf, to = (torch.as_tensor(a) for a in (val, raw, vli, orders))
     tv, tr, tf, to = (t[:, :T] for t in (tv, tr, tf, to))
-    chunks, nref, off, refstart, widx, c0, c1, c2 = emit._codeword_contribs(
+    chunks, nref, inj, off, widx, c0, c1, c2 = emit._codeword_contribs(
         st, tv, tr, tf, to, T, nwords)
-    inj = st["inj_pos"].reshape(len(stats_list), -1).clamp(0, T)
+    assert torch.equal(
+        inj, st["inj_pos"].reshape(len(stats_list), -1).clamp(0, T))
     plain = codeword.codeword_pieces_plain(tv, tr, tf, to, inj, nref, nwords)
+    # the first refinement bits: the plain version of kernel 17's
+    refstart = emit_tables.refstart_plain(off, nref, inj, st["step_end"],
+                                          st["refpfx"])
     for a, b in zip(plain, (off, widx, c0, c1, c2, chunks)):
         assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
     u32 = [c.numpy().view(np.uint32) for c in (c0, c1, c2)]

@@ -50,19 +50,20 @@ def _port_pipeline(img):
     tv, tr, tf, orders, vmag2, com2 = tokens._stage2_tokens(lin, stats, pyr,
                                                             c, padded_T)
     nwords = emit._stream_words(pyr, c, padded_T)
-    words_tok, parts, wild, off, refstart = emit._pack_bits(
-        lin, stats, tv, tr, tf, orders, pyr, c, padded_T, nwords)
-    # kernel 11's outputs (its plain version here) and the step positions
-    _, _, cw_off, cw_refstart, *pieces = emit._codeword_contribs(
+    words_tok, (refstart, *_) = emit._pack_bits(
+        stats, tv, tr, tf, orders, com2, pyr, padded_T, nwords)
+    # kernel 11's outputs (its plain version here)
+    *_, cw_off, cw_widx, cw_c0, cw_c1, cw_c2 = emit._codeword_contribs(
         stats, tv, tr, tf, orders, padded_T, nwords)
+    # kernel B's meta from the step positions (the plain version's part)
     meta_b = emit._kernel_b_meta(stats, segs, com, refstart, pyr, padded_T,
                                  nwords)
-    words, bits_parts, wild, ends = emit._stage2_emit(
+    words, bits_parts, wild, ends, _ = emit._stage2_emit(
         lin, stats, tv, tr, tf, orders, vmag2, com2, pyr, c, padded_T)
     out = dict(lin=lin, zp=zp, sgn=sgn, tv=tv, tr=tr, tf=tf, orders=orders,
                words_tok=words_tok, words=words, bits_parts=bits_parts,
-               layer_ends=ends, cw_off=cw_off, cw_refstart=cw_refstart,
-               **dict(zip(("cw_widx", "cw_c0", "cw_c1", "cw_c2"), pieces)),
+               layer_ends=ends, cw_off=cw_off, cw_refstart=refstart,
+               cw_widx=cw_widx, cw_c0=cw_c0, cw_c1=cw_c1, cw_c2=cw_c2,
                **{f"com_{k}": v for k, v in com.items()
                   if k not in ("table", "hist")})
     out = {k: to_np(v[0]) for k, v in out.items()}

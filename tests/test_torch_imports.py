@@ -132,13 +132,15 @@ def test_plain_path_counts_no_launch():
     from conftest import random_image
     from dwt_tpu import specmodel
     from dwt_tpu_torch.codec import decoder, encoder
-    from dwt_tpu_torch.ops import (codeword, compact, hilbert_gather,
-                                   hilbert_scatter, lifting, pack, transpose)
+    from dwt_tpu_torch.ops import (codeword, compact, emit_tables,
+                                   hilbert_gather, hilbert_scatter, lifting,
+                                   pack, transpose)
 
     fns = (hilbert_gather.hilbert_gather, hilbert_gather.engine_supported,
            compact.compact_tokens, compact.scatter_refbits, pack.pack_words,
            hilbert_scatter.hilbert_scatter, transpose.transpose2d,
-           codeword.codeword_pieces, lifting.inverse_transform)
+           codeword.codeword_pieces, lifting.inverse_transform,
+           emit_tables.emit_tables)
     before = [f.launches for f in fns]
     img = random_image(np.random.default_rng(1), 40, 24, 3, "mixed")
     stream = encoder.encode(img, device="cpu")
@@ -221,7 +223,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
-        "codeword.cu", "compact.cu", "finish.cu", "hilbert_gather.cu",
-        "hilbert_scatter.cu", "lifting.cu", "lifting_inv.cu", "pack.cu",
-        "plane_stats.cu", "probe.cu", "runtime.cu", "schedule.cu",
-        "transpose.cu", "units.cu", "vli_scan.cu"]
+        "codeword.cu", "compact.cu", "emit_tables.cu", "finish.cu",
+        "hilbert_gather.cu", "hilbert_scatter.cu", "lifting.cu",
+        "lifting_inv.cu", "pack.cu", "plane_stats.cu", "probe.cu",
+        "runtime.cu", "schedule.cu", "transpose.cu", "units.cu",
+        "vli_scan.cu"]

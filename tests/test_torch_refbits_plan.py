@@ -264,8 +264,8 @@ def _encoder_drive(img):
     tv, tr, tf, orders, vmag, com = tokens._stage2_tokens(lin, stats, enc.pyr,
                                                           c, padded_T)
     nwords = emit._stream_words(enc.pyr, c, padded_T)
-    words, *_, refstart = emit._pack_bits(lin, stats, tv, tr, tf, orders,
-                                          enc.pyr, c, padded_T, nwords)
+    words, (refstart, *_) = emit._pack_bits(stats, tv, tr, tf, orders, com,
+                                            enc.pyr, padded_T, nwords)
     meta_b = emit._kernel_b_meta(stats, segs, com, refstart, enc.pyr,
                                  padded_T, nwords)
     _, meta_a, _ = tokens._unit_tables(stats, segs, padded_T)

@@ -13,25 +13,28 @@ runs with these passes marked, each by the host clock between
 synchronised marks and by CUDA events:
 
 * pieces: ``emit._codeword_contribs`` (the codeword lengths, offsets,
-  word indices and pieces, and each step's first refinement bit);
+  word indices and pieces; in a tree before kernel 17, also each step's
+  first refinement bit);
+* step tables: ``emit.emit_tables`` (kernel 17: each step's first
+  refinement bit, the bit partials, kernel B's meta and the layer ends);
 * zero fill and pack: ``emit.pack_words`` (the zeroed word buffer and the
   pack kernel);
-* bit partials: ``emit._bit_partials``;
-* kernel B's meta: ``emit._kernel_b_meta``;
+* bit partials: ``emit._bit_partials`` (a tree before kernel 17);
+* kernel B's meta: ``emit._kernel_b_meta`` (likewise);
 * kernel B: ``emit.scatter_refbits``;
-* layer boundaries: ``emit._layer_boundaries``;
+* layer boundaries: ``emit._layer_boundaries`` (likewise);
 * host totals: ``encoder._host_totals`` (its one device-to-host copy);
 * download: from the end of ``_host_totals`` to the end of
   ``emit_frames``, the stream bytes to the host;
 * rest: the emit half less the passes above (the glue between them).
 
 The tokens half (``encoder._stage2_tokens``), which ``emit_frames`` runs
-first, is marked and left out.  The split wraps these names only, so it
-measures any tree that keeps them.  The marks synchronise the card, so
-the passes add up to more than an unmarked emit half, which is timed
-beside them: ``emit_frames`` with only the tokens half marked, from its
-end to the call's end.  A pass's event time is the card's clock between
-its marks, idle gaps included, not its busy time.  The means of
+first, is marked and left out.  The split wraps these names only, those
+a tree has, so it measures any tree that keeps them.  The marks
+synchronise the card, so the passes add up to more than an unmarked emit
+half, which is timed beside them: ``emit_frames`` with only the tokens
+half marked, from its end to the call's end.  A pass's event time is the
+card's clock between its marks, idle gaps included, not its busy time.  The means of
 ``--reps`` runs after one warm run are printed as one JSON line a shape,
 with the card's name and power limit.  Needs a card; exits 1 without
 one.
@@ -50,6 +53,7 @@ import time
 
 # (module, name) of each marked call -> its pass.
 PASSES = {("emit", "_codeword_contribs"): "pieces",
+          ("emit", "emit_tables"): "step tables",
           ("emit", "pack_words"): "zero fill and pack",
           ("emit", "_bit_partials"): "bit partials",
           ("emit", "_kernel_b_meta"): "kernel B's meta",
@@ -99,7 +103,9 @@ def split_once(torch, enc, lin, stats, padded_T: int,
             return out
         return run
 
-    sites = {**passes, ("encoder", "_stage2_tokens"): "tokens"}
+    sites = {k: v for k, v in {**passes, ("encoder", "_stage2_tokens"):
+                               "tokens"}.items()
+             if hasattr(mods[k[0]], k[1])}
     saved = {k: getattr(mods[k[0]], k[1]) for k in sites}
     for k, name in sites.items():
         setattr(mods[k[0]], k[1], timed(name, saved[k]))
