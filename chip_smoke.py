@@ -100,9 +100,11 @@ seconds:
              half's step tables (on the 4K encode's kernel 11 outputs,
              stats and unit columns; no PyTorch call computes it), and on
              a seeded sweep of channels, of levels up to its 2,048 steps a
-             frame and of frames up to a 16x16 sub-batch's 29,126
-             (``emit_sweep``), with its device time on 3 frames of 2,030
-             steps and on 29,126 frames; the tile engines' probe
+             frame and of frames up to a 16x16 sub-batch's 29,126, on
+             random orders (its sort) and on tables in schedule order
+             from kernel 14's plain version (no sort) (``emit_sweep``),
+             with its device time on 3 frames of 2,030 steps and on
+             29,126 frames; the tile engines' probe
              as its one
              host call, and one cold ``engine_supported`` by the host
              clock.
@@ -254,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -568,9 +571,10 @@ class Kernels:
              "dwt_tpu_torch/csrc/lifting_inv.cu",
              "dwt_tpu/ops/lifting.py:112, dwt_tpu/ops/color.py:26",
              DECODE_PATHS),
-            # Kernel 17, the emit half's step tables (a block a frame,
-            # then a thread a unit): one call a sub-batch.  No TPU kernel:
-            # it replaces the JAX package's XLA tail of
+            # Kernel 17, the emit half's step tables (one launch: a
+            # group of threads a frame, several a block for small frames,
+            # several blocks for large ones): one call a sub-batch.  No
+            # TPU kernel: it replaces the JAX package's XLA tail of
             # _codeword_contribs, _bit_partials, _kernel_b_meta and
             # _layer_boundaries.
             ("emit_tables", emit_tables.emit_tables,
@@ -633,11 +637,15 @@ class Kernels:
         plain version (fresh copies of the arguments: kernel B works in
         place) and raise unless they are equal.  Returns {kernel: calls
         held}."""
+        import torch
+
         def fresh(args):
             return [a.clone() if hasattr(a, "clone") else a for a in args]
 
         for name, calls in store.items():
             kernel, plain = self.pairs[name]
+            if name == "emit_tables":
+                emit_in_order(torch, calls)
             for args in calls:
                 err = max_abs_err(name, kernel(*fresh(args)),
                                   plain(*fresh(args)))
@@ -944,8 +952,8 @@ def stage1_device(torch, kept: dict, rows: list, key: str) -> str:
     return "; ".join(parts)
 
 
-# Kernel 17's two kernels, as the profiler names them.
-EMIT_NAMES = ("emit_steps_kernel", "emit_meta_kernel")
+# Kernel 17's kernel, as the profiler names it.
+EMIT_NAMES = ("emit_tables_kernel",)
 # Kernels 12-15 and 17 by wrapper, as the profiler names them.
 TOKENS_NAMES = {"finish_tokens": ("finish_dense_kernel",
                                   "finish_special_kernel"),
@@ -1384,23 +1392,34 @@ def units_work(torch, args) -> tuple:
             + N * U * (5 * 4 + 1 + 32 + 4)), 0
 
 
+# Kernel 17's inputs that its function needs besides the (N, S) step
+# tables: not kernel 14's schedule order and level scans, nor the
+# pyramid's vcar, which stand in for a sort and a level scan.
+EMIT_READS = ("planes", "planes_max", "nS_ck", "nZ_ck", "elem", "elen", "p",
+              "flat_step", "flat_ck", "valid", "ch_valid",
+              "level_chunk_base", "level_nchunk")
+
+
 def emit_tables_work(torch, args) -> tuple:
-    """(bytes, integer operations) kernel 17 must spend: the two words of
-    ``off`` a step reads (at its end and at its base), kernel 11's chunk
-    sums, the five (N, S) step tables, the planes, the chunk tables nS_ck
-    and nZ_ck, the six unit columns and the level and chunk tables, each
-    read once; refstart, the 32-byte meta rows and the head written once.
-    Its operations, a bitonic sort of S keys a frame (S/2 exchanges a stage,
-    log2(S) (log2(S) + 1) / 2 stages) and a few a step and a unit, take
-    less time at the INT32 rate than those bytes, and are not counted."""
+    """(bytes, integer operations) the function of kernel 17 must spend:
+    the two words of ``off`` a step reads (at its end and at its base),
+    kernel 11's chunk sums, the five (N, S) step tables, the planes, the
+    chunk tables, the six unit columns and the pyramid's chunk and level
+    tables, each read once (``order``, ``scar_ck``, ``zcar_ck`` and
+    ``vcar`` are the kernel's short cuts, which its plain version does
+    without, and are not counted); refstart, the 32-byte meta rows and the
+    head written once.  Its operations, a scan and a binary search a step
+    and a few a unit, take less time at the INT32 rate than those bytes,
+    and are not counted."""
     from dwt_tpu_torch.ops import emit_tables
 
     chunks, nref = args[1], args[2]
     N, S = nref.shape
-    U = args[11].shape[1]
+    U = args[14].shape[1]
     K = emit_tables.parts_count(chunks.shape[1], S)
+    named = dict(zip(emit_tables._IN_NAMES, args))
     nin = (7 * N * S + chunks.numel()) * 4 + sum(
-        t.numel() * t.element_size() for t in args[7:20])
+        named[k].numel() * named[k].element_size() for k in EMIT_READS)
     nout = 4 * N * S + 32 * N * U + 4 * (1 + N * (K + emit_tables.LMAX))
     return nin + nout, 0
 
@@ -1806,7 +1825,10 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         time_ms(torch, lambda: emit_tables.emit_tables_plain(*args), reps=3),
         nbytes, None, ops)
     progress(f"kernels: emit_tables {tuple(args[2].shape)} steps, "
-             f"{args[11].shape[1]} units: {nbytes} bytes")
+             f"{args[14].shape[1]} units: {nbytes} bytes; "
+             + emit_in_order(torch, [args]))
+    progress("kernels: kernel 17 at 4K, in turns: "
+             + emit_turns(torch, args, parent))
     progress("kernels: " + emit_sweep(torch))
     return out
 
@@ -1950,41 +1972,119 @@ def inverse_sweep(torch) -> str:
             f"a warp; {time.perf_counter() - t0:.1f} s")
 
 
+# The arguments of this tree's kernel 17 that a tree from before its
+# schedule order and level scans does not take: order, scar_ck, zcar_ck
+# and vcar.
+EMIT_NEW_ARGS = (4, 12, 13, 21)
+
+
+def emit_turns(torch, args, parent: str | None) -> str:
+    """Kernel 17 on the kept call ``args`` by CUDA events around the
+    wrapper, this tree's and, where ``parent`` names a checkout, the
+    parent's in turns (this tree, the parent, the parent, this tree),
+    every call's outputs held equal to this tree's; beside the bound of
+    this tree's call.  (No profiler session here, before the timing
+    phase; ``tools/wrapper_split.py`` gives both trees' device times.)"""
+    from dwt_tpu_torch.ops import emit_tables
+
+    trees = {"this tree": (emit_tables.emit_tables, args)}
+    order = ["this tree", "this tree"]
+    if parent:
+        fn = parent_module(parent, "ops.emit_tables").emit_tables
+        old = "order" not in inspect.signature(fn).parameters
+        trees["parent"] = (fn, tuple(a for i, a in enumerate(args)
+                                     if not (old and i in EMIT_NEW_ARGS)))
+        order = ["this tree", "parent", "parent", "this tree"]
+    want = emit_tables.emit_tables(*args)
+    out = []
+    for name in order:
+        fn, a = trees[name]
+        err = max_abs_err("emit_tables", fn(*a), want)
+        if err:
+            raise AssertionError(f"kernel 17 of {name} differs from this "
+                                 f"tree's (max abs err {err})")
+        out.append(f"{name} {time_ms(torch, lambda: fn(*a), reps=20):.4f} "
+                   f"ms")
+    bound, by = bound_of(*emit_tables_work(torch, args))
+    return (f"{args[0].shape[0]} frames of {args[2].shape[1]} steps, CUDA "
+            f"events: " + "; ".join(out) + f"; bound {bound:.4f} ms by {by}"
+            + ("" if parent else " (no --parent given)"))
+
+
+def emit_in_order(torch, calls) -> str:
+    """Raise unless every kept kernel-17 call of ``calls`` has an ``order``
+    that is a permutation of each frame's steps whose injection sites never
+    decrease (so the kernel took no sort: the encode paths make no other
+    tables); returns a line saying so."""
+    frames = 0
+    for args in calls:
+        site, order = args[3], args[4].long()
+        N, S = order.shape
+        perm = torch.equal(order.sort(dim=1).values, torch.arange(
+            S, device=order.device).expand(N, S))
+        if not perm or not bool((torch.diff(site.gather(1, order), dim=1)
+                                 >= 0).all()):
+            raise AssertionError(f"kernel 17's tables of {N} frames are not "
+                                 f"in schedule order")
+        frames += N
+    return (f"{len(calls)} calls of kernel 17, {frames} frames, every "
+            f"frame's sites in schedule order (no sort)")
+
+
 # The sweep of kernel 17: channels a frame, each at every level count up to
 # the kernel's 2,048 steps a frame, 3 frames a call; then frames a call at
-# the 16x16 tiles' shape (3 channels, 2 levels), up to the larger
-# sub-batch of them that small_tiles encodes.
+# the 16x16 tiles' shape (3 channels, 2 levels of a chunk), up to the
+# larger sub-batch of them that small_tiles encodes; each on random tables
+# (its sort) and on tables in schedule order (no sort).
 EMIT_SWEEP_CHANNELS = (1, 2, 3, 32)
-EMIT_SWEEP_FRAMES = (1, 2, 7, 64, 1024, 29_126)
+EMIT_SWEEP_FRAMES = (1, 2, 3, 4, 5, 7, 8, 9, 64, 1024, 29_126)
+
+
+def level_scans(x: np.ndarray, lcb, lnc) -> np.ndarray:
+    """(..., nchunk, PMAX) chunk table -> its level-exclusive scan over the
+    chunks in wrapping int32, as kernel 14 writes ``scar_ck`` and
+    ``zcar_ck``."""
+    x = np.asarray(x, np.int64)
+    out = np.zeros_like(x)
+    for b, c in zip(lcb, lnc):
+        seg = x[..., b:b + c, :]
+        out[..., b:b + c, :] = np.cumsum(seg, axis=-2) - seg
+    return ((out + 2**31) % 2**32 - 2**31).astype(np.int32)
 
 
 def emit_seeded(torch, rng, N: int, C: int, L: int, T: int,
-                nwords: int) -> tuple:
+                nwords: int, lnc=None) -> tuple:
     """Seeded kernel-17 arguments on the card: N frames of C channels and
-    L levels of 1-4 chunks, T token slots; tied sites, sites at 0 and T,
-    step ends past both edges, refinement counts whose sums wrap int32,
-    any in-range unit columns, word windows clamped; a channel's elements
-    and a frame's words cut to what N frames hold in int32 indices."""
+    L levels of 1-4 chunks (or ``lnc``), T token slots; tied sites, sites
+    at 0 and T, step ends past both edges, refinement counts whose sums
+    wrap int32, any in-range unit columns, word windows clamped; a random
+    permutation for the schedule order (the kernel's sort), the chunk
+    tables' level scans as kernel 14 makes them; a channel's elements and
+    a frame's words cut to what N frames hold in int32 indices."""
     from dwt_tpu_torch.ops.plane_stats import PMAX
 
     S = C * L * PMAX
-    lnc = rng.integers(1, 5, L)
+    lnc = rng.integers(1, 5, L) if lnc is None else np.asarray(lnc)
     nchunk = int(lnc.sum())
+    lcb = np.concatenate([[0], np.cumsum(lnc)[:-1]])
     # a channel's elements and a frame's words within the int32 indices
     U, n = C * nchunk * PMAX, min(1 << 16, (2**31 - 1) // (N * C))
     nwords = min(nwords, (2**31 - 1) // N)
     site = np.where(rng.random((N, S)) < 0.5, rng.integers(0, T + 1, (N, S)),
                     rng.choice([0, 1, T // 2, T - 1, T], size=(N, S)))
+    nS = rng.integers(0, 5000, (N, C, nchunk, PMAX))
+    nZ = rng.integers(0, 70000, (N, C, nchunk, PMAX))
+    ch_valid = rng.integers(0, 65537, nchunk)
     host = [rng.integers(-2**31, 2**31, (N, T)),
             rng.integers(0, 2**17, (N, -(-T // 2048))),
             np.where(rng.random((N, S)) < 0.3, 0,
                      rng.integers(0, 2**30, (N, S))), site,
+            np.argsort(rng.random((N, S)), axis=1),
             rng.integers(-3, T + 3, (N, C, L, PMAX)),
             rng.integers(-2**31, 2**31, (N, C, L, PMAX)),
             rng.integers(-3, T + 3, (N, C, L, PMAX)),
             rng.integers(0, PMAX + 1, (N, C)), rng.integers(0, PMAX + 1, N),
-            rng.integers(0, 5000, (N, C, nchunk, PMAX)),
-            rng.integers(0, 70000, (N, C, nchunk, PMAX)),
+            nS, nZ, level_scans(nS, lcb, lnc), level_scans(nZ, lcb, lnc),
             rng.integers(0, C * n, (N, U)), rng.integers(1, 65537, (N, U)),
             rng.integers(0, PMAX, (N, U)), rng.integers(0, S, (N, U)),
             rng.integers(0, U, (N, U))]
@@ -1992,22 +2092,69 @@ def emit_seeded(torch, rng, N: int, C: int, L: int, T: int,
             for h in host]
     args.append(torch.as_tensor(rng.random((N, U)) < 0.7, device="cuda"))
     args += [torch.as_tensor(h, dtype=torch.int32, device="cuda") for h in (
-        rng.integers(0, 65537, nchunk),
-        np.concatenate([[0], np.cumsum(lnc)[:-1]]), lnc)]
+        ch_valid, level_scans(ch_valid[:, None], lcb, lnc)[:, 0], lcb, lnc)]
     return tuple(args) + (n, nwords)
+
+
+def emit_scheduled(torch, rng, N: int, C: int, L: int, lnc) -> tuple:
+    """Kernel-17 arguments in schedule order on the card: kernel 14's and
+    15's plain versions on seeded planes and chunk tables (frame 0 without
+    planes, frame 2's channel 0 with every plane), the injection sites and
+    refinement counts as ``emit._codeword_contribs`` makes them, seeded
+    token offsets and chunk sums at a bucket above every T."""
+    from dwt_tpu_torch.ops import schedule, units
+    from dwt_tpu_torch.ops.plane_stats import PMAX
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                               device="cuda")
+
+    lnc = np.asarray(lnc)
+    nchunk, S = int(lnc.sum()), C * L * PMAX
+    ck = (N, C, nchunk, PMAX)
+    lcb = np.concatenate([[0], np.cumsum(lnc)[:-1]])
+    planes = rng.integers(0, PMAX + 1, (N, C))
+    planes[0] = 0
+    if N > 2:
+        planes[2, 0] = PMAX
+    args = tuple(map(i32, (
+        planes, np.where(rng.random(ck) < 0.5, 0, rng.integers(0, 40, ck)),
+        rng.integers(-1, 6, ck), rng.integers(0, 300, (N, C, nchunk)),
+        rng.integers(0, 50, ck), rng.integers(-70, 70, (N, C, 7)),
+        rng.integers(100, 900, L), lcb, lnc)))
+    st = dict(zip(schedule.OUT_KEYS, schedule.schedule_plain(*args)))
+    T = 1 << max(11, int(st["T"].max()).bit_length())
+    ch_len = rng.integers(1, 65537, nchunk)
+    n = min(1 << 16, (2**31 - 1) // (N * C))
+    com = units.unit_tables_plain(
+        st["order"], st["ubase_sched"], st["valid_sched"], st["step_base"],
+        st["nS_ck"], st["scar_ck"], st["zcar_ck"], args[7],
+        i32(np.cumsum(ch_len) - ch_len), i32(ch_len), n, T)[:6]
+    ch_valid = rng.integers(0, 65537, nchunk)
+    return (i32(rng.integers(-2**31, 2**31, (N, T))),
+            i32(rng.integers(0, 2**17, (N, -(-T // 2048)))),
+            torch.where(st["valid"], st["nRef"], 0).reshape(N, S),
+            st["inj_pos"].reshape(N, S).clamp(0, T), st["order"],
+            st["step_end"], st["refpfx"], st["step_base"], st["planes"],
+            st["planes_max"], st["nS_ck"], st["nZ_ck"], st["scar_ck"],
+            st["zcar_ck"], *com, i32(ch_valid),
+            i32(level_scans(ch_valid[:, None], lcb, lnc)[:, 0]), args[7],
+            args[8], n, min(40_000, (2**31 - 1) // N))
 
 
 def emit_sweep(torch) -> str:
     """Kernel 17 against its plain version (max abs err 0) on seeded tables
-    (``emit_seeded``): each C of ``EMIT_SWEEP_CHANNELS`` at every level
-    count L from 1 to the kernel's limit (S = C * L * 29 <= 2,048), 3
-    frames a call, then the 16x16 tiles' shape at each frame count of
-    ``EMIT_SWEEP_FRAMES`` (29,126: the larger sub-batch of
-    ``small_tiles``); and its time on 3 frames of 2,030 steps and on
-    29,126 16x16 frames, by CUDA events around the wrapper and by device
-    time (torch.profiler).  Returns a line of what ran; raises on a
-    difference."""
-    from dwt_tpu_torch.ops import emit_tables
+    (``emit_seeded``: random orders, the kernel's sort) and on tables in
+    schedule order (``emit_scheduled``: no sort): each C of
+    ``EMIT_SWEEP_CHANNELS`` at every level count L from 1 to the kernel's
+    limit (S = C * L * 29 <= 2,048; kernel 14's 64 levels in schedule
+    order), 3 frames a call, then the 16x16
+    tiles' shape at each frame count of ``EMIT_SWEEP_FRAMES`` (29,126: the
+    larger sub-batch of ``small_tiles``); and its time on 3 frames of
+    2,030 steps and on 29,126 16x16 frames, both orders, by CUDA events
+    around the wrapper and by device time (torch.profiler).  Returns a
+    line of what ran; raises on a difference."""
+    from dwt_tpu_torch.ops import emit_tables, schedule
     from dwt_tpu_torch.ops.plane_stats import PMAX
 
     rng = np.random.default_rng(17)
@@ -2018,31 +2165,38 @@ def emit_sweep(torch) -> str:
     shapes += [(N, 3, 2) for N in EMIT_SWEEP_FRAMES]
     timed = {}
     for N, C, L in shapes:
-        T = int(rng.integers(2048, 20000)) if N < 1024 else 8192
-        nwords = int(rng.integers(1000, 60000))
-        args = emit_seeded(torch, rng, N, C, L, T, nwords)
-        err = max(err, max_abs_err("emit_tables",
-                                   emit_tables.emit_tables(*args),
-                                   emit_tables.emit_tables_plain(*args)))
-        calls += 1
-        steps = max(steps, C * L * PMAX)
-        if (N, C * L * PMAX) in ((3, 2030), (29_126, 174)):
-            timed[(N, C * L * PMAX)] = (
-                time_ms(torch, lambda: emit_tables.emit_tables(*args)),
-                *(kernel_ms(torch, lambda: emit_tables.emit_tables(*args), k,
-                            per_call=1) for k in EMIT_NAMES))
-        del args
+        lnc = np.ones(L, int) if (C, L) == (3, 2) else rng.integers(1, 5, L)
+        # kernel 14 takes at most 64 levels
+        for kind in ("random", "scheduled")[:1 + (L <= schedule.MAX_LEVELS)]:
+            if kind == "random":
+                T = int(rng.integers(2048, 20000)) if N < 1024 else 8192
+                args = emit_seeded(torch, rng, N, C, L, T,
+                                   int(rng.integers(1000, 60000)), lnc)
+            else:
+                args = emit_scheduled(torch, rng, N, C, L, lnc)
+                emit_in_order(torch, [args])
+            err = max(err, max_abs_err(
+                "emit_tables", emit_tables.emit_tables(*args),
+                emit_tables.emit_tables_plain(*args)))
+            calls += 1
+            steps = max(steps, C * L * PMAX)
+            if (N, C * L * PMAX) in ((3, 2030), (29_126, 174)):
+                timed[(N, C * L * PMAX, kind)] = (
+                    time_ms(torch, lambda: emit_tables.emit_tables(*args)),
+                    kernel_ms(torch, lambda: emit_tables.emit_tables(*args),
+                              EMIT_NAMES[0], per_call=1))
+            del args
     torch.cuda.synchronize()
     if err:
         raise AssertionError(f"the sweep of kernel 17 differs from its plain "
                              f"version (max abs err {err})")
     return (f"kernel 17 equal to its plain version (max abs err 0) on a "
-            f"seeded sweep of {calls} calls: C in {EMIT_SWEEP_CHANNELS} at "
-            f"every L up to {steps} steps a frame (3 frames), and 16x16 "
-            f"tiles' tables at {EMIT_SWEEP_FRAMES} frames; " + "; ".join(
-                f"{n} frames of {s} steps: {e:.4f} ms events, device "
-                f"{d1:.4f} + {d2:.4f} ms" for (n, s), (e, d1, d2)
-                in timed.items())
+            f"seeded sweep of {calls} calls, random orders and schedule "
+            f"orders: C in {EMIT_SWEEP_CHANNELS} at every L up to {steps} "
+            f"steps a frame (3 frames), and 16x16 tiles' tables at "
+            f"{EMIT_SWEEP_FRAMES} frames; " + "; ".join(
+                f"{n} frames of {s} steps, {k} order: {e:.4f} ms events, "
+                f"device {d:.4f} ms" for (n, s, k), (e, d) in timed.items())
             + f"; {time.perf_counter() - t0:.1f} s")
 
 
@@ -2361,9 +2515,9 @@ def contribs_kernels(torch, fn) -> str:
 
 # The kernels the emit half may launch after kernel 11, by the names the
 # profiler gives them: the pack wrapper's zero fill and kernel, kernel 17's
-# two and kernel B's; each of the four named kernels once.
-EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_steps_kernel",
-             "emit_meta_kernel", "refbits_scatter_kernel")
+# and kernel B's; each of the three named kernels once.
+EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_tables_kernel",
+             "refbits_scatter_kernel")
 
 
 def emit_gate(torch, enc, imgs: np.ndarray, label: str) -> None:
@@ -2373,7 +2527,7 @@ def emit_gate(torch, enc, imgs: np.ndarray, label: str) -> None:
     functions), under torch.profiler.  From kernel 11's end to the
     download (its gather of the frames' words where it has more than one
     frame, and its copy: the last events) only the kernels of
-    ``EMIT_GATE``, the four named ones once each, and one device-to-host
+    ``EMIT_GATE``, the three named ones once each, and one device-to-host
     copy, ``_host_totals``'; its payloads equal the unrefused call's.  A
     session in which the profiler recorded no kernel 11 is tried again,
     twice, and then reads "not recorded".  Raises otherwise."""
@@ -2804,7 +2958,10 @@ def small_tiles(torch, K: Kernels, tiled, parent: str | None) -> None:
                              f"its plain version (max abs err {err})")
     held = K.hold({"emit_tables": kept})
     frames17 = [a[0].shape[0] for a in kept]
-    del kept
+    big = max(kept, key=lambda a: a[0].shape[0])
+    progress("timing: small tiles, kernel 17 on the larger sub-batch, in "
+             "turns: " + emit_turns(torch, big, parent))
+    del kept, big
     progress(f"e2e: small tiles: {SMALL_SIDE}x{SMALL_SIDE}x{C} in {tw}x{th} "
              f"tiles, {n_tiles} of one geometry; one sub-batch of them is "
              f"refused ({refused}); encode_tiled in {nsub} sub-batches of "
@@ -3638,6 +3795,8 @@ def batch_phase(torch, K: Kernels, rows: list, card: str,
              f"make {BATCH_N} and {2 * BATCH_N}")
     progress(f"batch: kernels equal to their plain versions: "
              f"{held_line(K.hold(store))}")
+    progress(f"timing: batch, kernel 17 on a {sub}-frame sub-batch, in "
+             f"turns: " + emit_turns(torch, store["emit_tables"][0], parent))
 
     single = encoder.get_encoder(BATCH_W, BATCH_H, C)
     mp = BATCH_N * BATCH_W * BATCH_H / 1e6

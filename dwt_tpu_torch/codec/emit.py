@@ -57,17 +57,19 @@ def _codeword_contribs(stats, tok_val, tok_raw, tok_vli, orders,
 def _step_tables(stats, com, pyr: Pyramid, off, chunks, nref_step,
                  inj_site, nwords: int):
     """One call of :func:`emit_tables` (kernel 17) on kernel 11's outputs,
-    stage 1's stats and kernel A's unit columns ``com``: (refstart (N, C,
+    stage 1's stats (the schedule order and the chunk tables' level scans
+    among them) and kernel A's unit columns ``com``: (refstart (N, C,
     L, PMAX), bits_parts (N, K), kernel B's (N * U, 8) meta, layer_ends
     (N, LMAX), head), head holding the pack kernel's order flag (0) and
     then bits_parts and layer_ends."""
     segs = segs_for(pyr, off.device)
     return emit_tables(
-        off, chunks, nref_step, inj_site, stats["step_end"],
+        off, chunks, nref_step, inj_site, stats["order"], stats["step_end"],
         stats["refpfx"], stats["step_base"], stats["planes"],
         stats["planes_max"], stats["nS_ck"], stats["nZ_ck"],
-        *(com[k] for k in COM_KEYS), segs.ch_valid_t,
-        segs.level_chunk_base_t, segs.level_nchunk_t, segs.n, nwords)
+        stats["scar_ck"], stats["zcar_ck"], *(com[k] for k in COM_KEYS),
+        segs.ch_valid_t, segs.vcar_t, segs.level_chunk_base_t,
+        segs.level_nchunk_t, segs.n, nwords)
 
 
 def _pack_bits(stats, tok_val, tok_raw, tok_vli, orders, com, pyr: Pyramid,

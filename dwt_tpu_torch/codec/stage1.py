@@ -94,6 +94,12 @@ class _Segs:
         self.ch_valid = tuple(
             int(self.valid_np[s : s + ln].sum())
             for s, ln in zip(ch_start, ch_len))
+        # The level-exclusive scan of ch_valid over each level's chunks,
+        # in wrapping int32 (kernel 17's closed-form refinement carry).
+        self.vcar = tuple(
+            (int(v) + 2**31) % 2**32 - 2**31
+            for b, c in zip(lv_base, lv_cnt)
+            for v in np.cumsum((0,) + self.ch_valid[b:b + c])[:-1])
         # 512-element block -> chunk id (stage-1 hierarchical chunk sums).
         self.block_chunk = torch.as_tensor(
             np.repeat(np.arange(self.nchunk), [ln // 512 for ln in ch_len]),
@@ -116,6 +122,7 @@ class _Segs:
         self.ch_start_t = t(self.ch_start)
         self.ch_len_t = t(self.ch_len)
         self.ch_valid_t = t(self.ch_valid)
+        self.vcar_t = t(self.vcar)
 
     def bcast(self, small: torch.Tensor) -> torch.Tensor:
         """(C, L) per-segment values -> (C, n) per-element."""

@@ -63,6 +63,12 @@ def chain(sizes) -> Chain:
     return c
 
 
+class EmitPlan(ctypes.Structure):
+    """The C struct of kernel 17's launch plan, by value
+    (``ops/emit_tables.py:launch_plan``)."""
+    _fields_ = [(k, ctypes.c_int) for k in ("np", "tf", "fpb", "bpf", "ub")]
+
+
 class View(ctypes.Structure):
     """The C struct of a tensor view that a wrapper passes by value: its
     data pointer and its (frame, row, column, channel) strides in
@@ -153,12 +159,13 @@ ENTRY_POINTS = {
     #  stream): the offsets of csrc/units.cu's 8 outputs, by value
     "dwt_unit_tables": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                         _L, _L, _L, _P, offsets(8), _P),
-    # (off, chunks, nref, site, step_end, refpfx, step_base, planes,
-    #  planes_max, nS_ck, nZ_ck, elem, elen, p, flat_step, flat_ck, valid,
-    #  ch_valid, lcb, nframes, T, NC, C, L, nchunk, n, nwords, wsmax, arena,
-    #  offsets, stream): the offsets of csrc/emit_tables.cu's 3 outputs, by
-    #  value
-    "dwt_emit_tables": (_P,) * 19 + (_L,) * 9 + (_P, offsets(3), _P),
+    # (off, chunks, nref, site, order, step_end, refpfx, step_base,
+    #  planes, planes_max, nS_ck, nZ_ck, scar_ck, zcar_ck, elem, elen, p,
+    #  flat_step, flat_ck, valid, ch_valid, vcar, nframes, T, NC, C, L,
+    #  nchunk, n, nwords, wsmax, arena, offsets, plan, stream): the offsets
+    #  of csrc/emit_tables.cu's 3 outputs and its launch plan, by value
+    "dwt_emit_tables": (_P,) * 22 + (_L,) * 9 + (_P, offsets(3), EmitPlan,
+                                                 _P),
 }
 
 

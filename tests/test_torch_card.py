@@ -1467,29 +1467,51 @@ def test_decode_tail_is_kernel_16(cuda, monkeypatch, w, h, c, pixels, cut):
         assert np.array_equal(got, img)
 
 
-# Kernel 17's seeded tables: (N, C, L, T, nwords), as
+# Kernel 17's seeded tables: (N, C, L, T, nwords, order), as
 # tests/test_torch_emit_tables.py's replay takes them; up to 2,030 steps a
-# frame, blocks of 64 to 1,024 threads, clamped word windows.
-EMIT_SEEDED = [(1, 1, 1, 4096, 9000), (3, 1, 2, 5000, 1000),
-               (2, 3, 4, 8192, 2**20), (1, 3, 23, 9000, 50_000),
-               (1, 1, 70, 2048, 3000), (4, 2, 1, 3, 5000),
-               (700, 3, 2, 8192, 40_000)]
+# frame, groups of 32 to 256 threads, clamped word windows; orders that
+# are random permutations or no permutation (the sort), and sites already
+# in order (no sort); frame counts about 4 and 8 frames a block (16x16
+# tiles' 174 steps), and 16x16 sub-batches past 1,024 frames.
+EMIT_SEEDED = [(1, 1, 1, 4096, 9000, "random"), (3, 1, 2, 5000, 1000, "none"),
+               (2, 3, 4, 8192, 2**20, "random"),
+               (1, 3, 23, 9000, 50_000, "random"),
+               (1, 1, 70, 2048, 3000, "sorted"), (4, 2, 1, 3, 5000, "random"),
+               (700, 3, 2, 8192, 40_000, "random"),
+               (3, 3, 2, 4096, 9000, "sorted"), (4, 3, 2, 4096, 9000, "none"),
+               (5, 3, 2, 4096, 9000, "random"),
+               (7, 3, 2, 4096, 9000, "sorted"), (8, 3, 2, 4096, 9000, "none"),
+               (9, 3, 2, 4096, 9000, "sorted"),
+               (1500, 3, 2, 8192, 40_000, "sorted"),
+               (2, 3, 23, 9000, 50_000, "sorted"),
+               (2, 1, 4, 4096, 9000, "sorted"),
+               (3, 1, 4, 5000, 9000, "random")]
 
 
-@pytest.mark.parametrize("N,C,L,T,nwords", EMIT_SEEDED)
-def test_emit_tables_kernel_equals_plain_seeded(cuda, N, C, L, T, nwords):
+@pytest.mark.parametrize("N,C,L,T,nwords,order", EMIT_SEEDED)
+def test_emit_tables_kernel_equals_plain_seeded(cuda, N, C, L, T, nwords,
+                                                order):
     """Kernel 17 against its plain version on seeded tables on the card
-    (tied and clamped sites, wrapping sums, any in-range unit columns):
-    every output exact; one call (two launches) a call, its outputs in a
-    new allocation each call."""
+    (tied and clamped sites, wrapping sums, any in-range unit columns),
+    through its sort (random orders, orders that are no permutation) and
+    without it (sites in order): every output exact; one launch a call,
+    its outputs in a new allocation each call."""
     from test_torch_emit_tables import _seeded
 
     from dwt_tpu_torch.ops import emit_tables
 
     rng = np.random.default_rng(N * 1000 + C * 100 + L)
-    lnc = rng.integers(1, 5, L)
+    # 116 steps of 464 units: blocks of more threads than keys
+    lnc = (np.ones(L, int) if (C, L) == (3, 2) else np.full(L, 4)
+           if (C, L) == (1, 4) else rng.integers(1, 5, L))
     args = [a.to(cuda) if torch.is_tensor(a) else a
-            for a in _seeded(rng, N, C, L, lnc, T, nwords)]
+            for a in _seeded(rng, N, C, L, lnc, T, nwords, order=order)]
+    _kernel_twice_equals_plain(args)
+
+
+def _kernel_twice_equals_plain(args):
+    from dwt_tpu_torch.ops import emit_tables
+
     want = emit_tables.emit_tables_plain(*args)
     heads = []
     for _ in range(2):
@@ -1504,6 +1526,27 @@ def test_emit_tables_kernel_equals_plain_seeded(cuda, N, C, L, T, nwords):
     assert heads[0].data_ptr() != heads[1].data_ptr()
 
 
+@pytest.mark.parametrize("N,C,L", [(1, 1, 1), (3, 3, 2), (4, 3, 2),
+                                   (5, 3, 2), (9, 3, 2), (17, 3, 2),
+                                   (1100, 3, 2), (3, 3, 7), (3, 1, 24),
+                                   (2, 3, 9), (2, 1, 4)])
+def test_emit_tables_kernel_equals_plain_scheduled(cuda, N, C, L):
+    """Kernel 17 against its plain version on tables in schedule order
+    (kernel 14's and 15's plain versions on seeded planes: no sort), at
+    frame counts either side of 4 frames a block, a 16x16 sub-batch past
+    1,024 frames, and many blocks a frame."""
+    from test_torch_emit_tables import _scheduled
+
+    rng = np.random.default_rng(N * 100 + C * 10 + L)
+    lnc = (np.ones(L, int) if (C, L) == (3, 2) else np.full(L, 4)
+           if (C, L) == (1, 4) else rng.integers(1, 7, L))
+    args = [a.to(cuda) if torch.is_tensor(a) else a
+            for a in _scheduled(rng, N, C, L, lnc)]
+    site, order = args[3], args[4].long()
+    assert (torch.diff(site.gather(1, order), dim=1) >= 0).all()
+    _kernel_twice_equals_plain(args)
+
+
 @pytest.mark.parametrize("w,h,c,n,cut", [(3840, 2160, 3, 1, None),
                                          (1920, 1080, 3, 7, None),
                                          (16, 16, 3, 5, None),
@@ -1513,8 +1556,8 @@ def test_emit_tables_kernel_equals_plain(cuda, w, h, c, n, cut):
     """Kernel 17 on the encoder's own inputs on the card (stage 1, the
     tokens half and kernel 11 there), lossless and with schedules cut as
     a byte budget and a tiled layer cap cut them: every output equal to
-    its plain version's on the same CUDA tensors, and its two kernels,
-    and no other, under torch.profiler."""
+    its plain version's on the same CUDA tensors, and its one kernel, and
+    no other, under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1561,15 +1604,14 @@ def test_emit_tables_kernel_equals_plain(cuda, w, h, c, n, cut):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     if names:  # the profiler drops every event in some sessions
-        assert sorted(n.split("(")[0].split()[-1] for n in names) == [
-            "emit_meta_kernel", "emit_steps_kernel"], names
+        assert len(names) == 1 and "emit_tables_kernel" in names[0], names
 
 
 # The kernels the emit half may launch after kernel 11, by the names the
-# profiler gives them: the pack wrapper's zero fill and kernel, kernel 17's
-# two, kernel B's.
-EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_steps_kernel",
-             "emit_meta_kernel", "refbits_scatter_kernel")
+# profiler gives them: the pack wrapper's zero fill and kernel, kernel
+# 17's, kernel B's.
+EMIT_GATE = ("pack_words_kernel", "FillFunctor", "emit_tables_kernel",
+             "refbits_scatter_kernel")
 
 
 @pytest.mark.parametrize("w,h,c,n", [(320, 240, 3, 1), (64, 48, 3, 3)])
@@ -1628,6 +1670,6 @@ def test_emit_gate(cuda, monkeypatch, w, h, c, n):
     assert sum("Memcpy DtoH" in x for x in gated) == 1, after
     kernels = [x for x in gated if "Memcpy" not in x]
     assert all(any(k in x for k in EMIT_GATE) for x in kernels), kernels
-    for k in ("pack_words_kernel", "emit_steps_kernel", "emit_meta_kernel",
+    for k in ("pack_words_kernel", "emit_tables_kernel",
               "refbits_scatter_kernel"):
         assert sum(k in x for x in kernels) == 1, (k, kernels)

@@ -9,13 +9,19 @@ emit_tables.py``, ``csrc/emit_tables.cu``), on the CPU.
   batch of three unlike frames at one bucket above every T (frame by
   frame after the f * nwords offsets) and on schedules cut as the
   budgeted tiled path cuts them (``_truncate_schedule_to_layer``).
-* The kernel's plan replayed in numpy: the bitonic network at the block
-  size :func:`steps_threads` gives, the warp-structured scan, the binary
-  searches, the layer buckets, and the meta rows with each unit's level
-  prefix summed as its thread sums it (its level found from the levels'
-  first chunks alone), against the plain version on the frames above and on
-  seeded tables at the edges (tied and clamped sites, wrapping sums, up
-  to 2,048 steps, clamped word windows).
+* The kernel's plan replayed in numpy block by block (frames a block,
+  blocks a frame, :func:`launch_plan`): the pairs gathered in schedule
+  order where ``order`` is a permutation whose sites never decrease,
+  else the bitonic network; the runs-a-thread scan, the binary searches,
+  the layer buckets, and the meta rows with each unit's level prefix in
+  closed form from the chunk tables' level scans, every frame's tables
+  written by one block and every row by one thread, against the plain
+  version on the frames above, on seeded tables at the edges (tied and
+  clamped sites, wrapping sums, up to 2,048 steps, clamped word windows,
+  orders that are no permutation) and on tables in schedule order from
+  kernel 14's plain version; the plan at the main path's geometries.
+* The closed form of that prefix against the plain version's level scan,
+  and the sites in schedule order on every encode path.
 * ``emit._stage2_emit`` makes no eager pass over the step tables outside
   the wrapper, and the wrapper's checks.
 
@@ -96,6 +102,17 @@ def _jax_frame(img, padded_T=None, layer=None) -> dict:
     return out
 
 
+def _level_scans(x, lcb, lnc) -> np.ndarray:
+    """(..., nchunk, PMAX) chunk table -> its level-exclusive scan over the
+    chunks, in wrapping int32 (kernel 14's ``scar_ck`` and ``zcar_ck``)."""
+    x = np.asarray(x, np.int64)
+    out = np.zeros_like(x)
+    for b, c in zip(lcb, lnc):
+        seg = x[..., b:b + c, :]
+        out[..., b:b + c, :] = np.cumsum(seg, axis=-2) - seg
+    return _wrap(out)
+
+
 def _inputs(runs: list) -> tuple:
     """Kernel 17's arguments over the frames of ``runs`` (one geometry, one
     bucket), stacked on a leading axis, on the CPU."""
@@ -108,18 +125,24 @@ def _inputs(runs: list) -> tuple:
     def stack(get, dtype=torch.int32):
         return torch.as_tensor(np.stack([get(r) for r in runs])).to(dtype)
 
-    st = [(k, lambda r, k=k: r["stats"][k]) for k in (
-        "step_end", "refpfx", "step_base", "planes", "planes_max", "nS_ck",
-        "nZ_ck")]
+    def scan(k):
+        return lambda r: _level_scans(r["stats"][k], segs.level_chunk_base,
+                                      segs.level_nchunk)
+
     args = [stack(lambda r: r["off"]), stack(lambda r: r["chunks"]),
             stack(lambda r: r["nref"]),
             stack(lambda r: np.clip(r["stats"]["inj_pos"].reshape(-1), 0,
-                                    r["padded_T"]))]
-    args += [stack(get) for _, get in st]
+                                    r["padded_T"])),
+            stack(lambda r: r["stats"]["order"])]
+    args += [stack(lambda r, k=k: r["stats"][k]) for k in (
+        "step_end", "refpfx", "step_base", "planes", "planes_max", "nS_ck",
+        "nZ_ck")]
+    args += [stack(scan("nS_ck")), stack(scan("nZ_ck"))]
     args += [stack(lambda r, k=k: r["com"][k],
                    torch.bool if k == "valid" else torch.int32)
              for k in COM_KEYS]
-    args += [segs.ch_valid_t, segs.level_chunk_base_t, segs.level_nchunk_t]
+    args += [segs.ch_valid_t, segs.vcar_t, segs.level_chunk_base_t,
+             segs.level_nchunk_t]
     return tuple(args) + (segs.n, r0["nwords"])
 
 
@@ -202,12 +225,12 @@ def test_plain_equals_jax(runs, case):
     got = emit_tables.emit_tables(*args)
     _same_as_jax(rs, got)
     # the plain version's parts, by the encoder's names
-    st = {k: args[4 + i] for i, k in enumerate(
+    st = {k: args[5 + i] for i, k in enumerate(
         ("step_end", "refpfx", "step_base", "planes", "planes_max", "nS_ck",
          "nZ_ck"))}
     from dwt_tpu_torch.ops.units import COM_KEYS
 
-    com = dict(zip(COM_KEYS, args[11:17]))
+    com = dict(zip(COM_KEYS, args[14:20]))
     segs = segs_for(rs[0]["pyr"], "cpu")
     assert torch.equal(emit._bit_partials(args[1], args[2]), got[1])
     assert torch.equal(emit._kernel_b_meta(st, segs, com, got[0], None, 0,
@@ -225,50 +248,78 @@ def _wrap(x) -> np.ndarray:
         np.int32)
 
 
-def _replay_steps(off, chunks, nref, site, step_end, refpfx, step_base,
-                  planes, pm, C, L):
-    """One block of ``emit_steps_kernel`` on one frame's tables (numpy):
-    (refstart (S,), parts (K,), ends (LMAX,))."""
-    from dwt_tpu_torch.ops import emit_tables
+def _flip(site) -> np.ndarray:
+    """Sites as the kernel's keys hold them: the sign bit flipped, so that
+    an unsigned compare orders them as signed ints."""
+    return (np.asarray(site, np.int64) & 0xFFFFFFFF) ^ 0x80000000
 
-    S, T = C * L * PMAX, off.size
-    nt = emit_tables.steps_threads(S)
-    NP = 2 * nt
-    assert 64 <= nt <= 1024 and nt & (nt - 1) == 0 and NP >= S
-    key = np.full(NP, np.iinfo(np.uint64).max, np.uint64)
-    key[:S] = ((site.astype(np.uint32).astype(np.uint64) << np.uint64(32))
-               | nref.astype(np.uint32).astype(np.uint64))
-    t = np.arange(nt)
+
+def _bitonic(key: np.ndarray, tf: int) -> np.ndarray:
+    """The bitonic network of ``emit_tables_kernel`` on ``np`` keys (a
+    power of two) by a group of ``tf`` threads: thread q of a stage takes
+    pairs q, q + tf, ..., each pair (i, i + j) once."""
+    key, n = key.copy(), key.size
     k = 2
-    while k <= NP:  # the bitonic network, a pair a thread a stage
+    while k <= n:
         j = k >> 1
         while j:
-            i = 2 * t - (t & (j - 1))
-            assert len(set(i) | set(i + j)) == NP  # every key, once
+            q = np.arange(n // 2)  # thread q % tf, its turn q // tf
+            i = 2 * q - (q & (j - 1))
+            assert len(set(i) | set(i + j)) == n  # every key, once
             a, b = key[i].copy(), key[i + j].copy()
             swap = (a > b) == ((i & k) == 0)
             key[i], key[i + j] = np.where(swap, b, a), np.where(swap, a, b)
             j >>= 1
         k <<= 1
     assert np.all(key[1:] >= key[:-1])
-    # the scan, two keys a thread, warp by warp
-    low = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-    v = np.where(np.arange(NP) < S, low.astype(np.int64), 0).reshape(nt, 2)
-    x = v.sum(axis=1)
-    x = np.cumsum(x.reshape(-1, 32), axis=1)
-    prev = np.repeat(np.concatenate([[0], np.cumsum(x[:, -1])[:-1]]), 32)
-    x = x.reshape(-1)
-    before = x + prev - v.sum(axis=1)
-    scan = _wrap(np.stack([before + v[:, 0], before + v[:, 0] + v[:, 1]],
-                          axis=1).reshape(-1))
-    sites = (key[:S] >> np.uint64(32)).astype(np.int64)
-    end = np.clip(step_end, 0, T - 1)
-    cnt = np.array([np.searchsorted(sites, e, side="right") for e in end])
-    inj = np.where(cnt > 0, scan[np.maximum(cnt - 1, 0)], 0)
-    refstart = _wrap(off[end].astype(np.int64) - inj + refpfx)
+    return key
 
-    s = np.arange(S)
-    c_s, l_s, p_s = s // (L * PMAX), (s // PMAX) % L, s % PMAX
+
+def _group_steps(f, b, a, plan):
+    """One group of ``emit_tables_kernel`` (frame f, its block b) on the
+    numpy arguments ``a``: (sorted, its keys' sites, the scan, refstart
+    (S,), parts (K,) and ends (LMAX,) where b is 0, else None)."""
+    np_, tf = plan[:2]
+    off, chunks, nref, site, order = (a[k][f] for k in (
+        "off", "chunks", "nref", "site", "order"))
+    S, T = nref.size, off.size
+    end = np.clip(a["step_end"][f].reshape(-1), 0, T - 1)
+    # 2. the pairs through order, checked to be a permutation whose sites
+    # never decrease; else the frame's pairs sorted
+    perm = bool(np.all((order >= 0) & (order < S))
+                and np.unique(order).size == S)
+    sites = _flip(site[order]) if perm else None
+    srt = not perm or bool(np.any(np.diff(sites) < 0))
+    if srt:
+        key = np.full(np_, np.iinfo(np.uint64).max, np.uint64)
+        key[:S] = ((_flip(site).astype(np.uint64) << np.uint64(32))
+                   | nref.astype(np.uint32).astype(np.uint64))
+        key = _bitonic(key, tf)[:S]
+        sites = (key >> np.uint64(32)).astype(np.int64)
+        vals = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    else:
+        vals = nref[order]
+    # 3. the scan: thread t's run of R keys (a key a thread where the
+    # group has more threads than keys), warps' inclusive scans, the
+    # earlier warps' totals
+    R = max(np_ // tf, 1)
+    v = np.zeros(tf * R, np.int64)
+    v[:S] = vals
+    runs = v.reshape(tf, R)
+    x = runs.sum(axis=1).reshape(-1, 32)
+    incl = np.cumsum(x, axis=1)
+    prev = np.concatenate([[0], np.cumsum(incl[:, -1])[:-1]])
+    before = (incl - x + prev[:, None]).reshape(-1)
+    scan = _wrap(before[:, None] + np.cumsum(runs, axis=1)).reshape(-1)[
+        :np_]
+    cnt = np.searchsorted(sites, _flip(end), side="right")
+    inj = np.where(cnt > 0, scan[np.maximum(cnt - 1, 0)], 0)
+    refstart = _wrap(off[end].astype(np.int64) - inj
+                     + a["refpfx"][f].reshape(-1))
+    if b:
+        return srt, sites, scan, refstart, None, None
+    C, L = a["step_end"].shape[1:3]
+    pm, planes = int(a["planes_max"][f]), a["planes"][f]
     parts = [_wrap(chunks[j:j + 512].astype(np.int64).sum())
              for j in range(0, chunks.size, 512)]
     parts += [_wrap(nref[j:j + 8].astype(np.int64).sum())
@@ -276,98 +327,134 @@ def _replay_steps(off, chunks, nref, site, step_end, refpfx, step_base,
     parts = np.asarray(parts, np.int32)
     tot = _wrap(parts.astype(np.int64).sum())
     smin = np.full(LMAX + 1, 2**31 - 1, np.int64)
-    for cc, ll, pp, b in zip(c_s, l_s, p_s, np.clip(step_base, 0, T - 1)):
-        if pp < planes[cc]:
-            layer = (pm - 2 if cc == 0 else pm - 1) - pp + ll
+    base = np.clip(a["step_base"][f].reshape(-1), 0, T - 1)
+    for s in range(S):
+        c, l, p = s // (L * PMAX), (s // PMAX) % L, s % PMAX
+        if p < planes[c]:
+            layer = (pm - 2 if c == 0 else pm - 1) - p + l
             bucket = min(max(layer, -1) + 1, LMAX)
-            smin[bucket] = min(smin[bucket], off[b])
+            smin[bucket] = min(smin[bucket], off[base[s]])
     ends = np.array([min(smin[k + 1:].min(), tot) for k in range(LMAX)],
                     np.int32)
-    return refstart, parts, ends
+    return srt, sites, scan, refstart, parts, ends
 
 
-def _replay_rcar(fck, pm, nS, nZ, ch_valid, lcb):
-    """Each unit's level prefix of refinement bits, as a thread of
-    ``emit_meta_kernel`` sums it: its chunk's level by a binary search of
-    the levels' first chunks, then nR_ck over the level's chunks before
-    its own, in its (c, p) column."""
-    nchunk = ch_valid.size
-    out = []
-    for u in fck:
-        p, k, c = u % PMAX, (u // PMAX) % nchunk, u // (PMAX * nchunk)
-        lo, hi = 0, lcb.size
-        while hi - lo > 1:
-            mid = (lo + hi) >> 1
-            lo, hi = (mid, hi) if lcb[mid] <= k else (lo, mid)
-        acc = 0
-        if p < pm:
-            for kk in range(lcb[lo], k):
-                acc += int(ch_valid[kk]) - int(nS[c, kk, p]) - int(nZ[c, kk, p])
-        out.append(acc)
-    return _wrap(out)
+def _closed_rcar(a, f, fck) -> np.ndarray:
+    """The closed-form level prefix of refinement bits of units at chunk
+    slots ``fck`` of frame f: [p < planes_max] (vcar - scar_ck - zcar_ck)
+    at the slot, in wrapping int32."""
+    nchunk = a["ch_valid"].size
+    p, k = fck % PMAX, (fck // PMAX) % nchunk
+    r = (a["vcar"][k].astype(np.int64) - a["scar_ck"][f].reshape(-1)[fck]
+         - a["zcar_ck"][f].reshape(-1)[fck])
+    return np.where(p < a["planes_max"][f], _wrap(r), 0).astype(np.int32)
+
+
+def _args_np(args) -> dict:
+    from dwt_tpu_torch.ops import emit_tables
+
+    a = {k: t.numpy() for k, t in zip(emit_tables._IN_NAMES, args[:24])}
+    a["nref"], a["site"] = a.pop("nref_step"), a.pop("inj_site")
+    a["n"], a["nwords"] = args[24:]
+    return a
 
 
 def _replay(args) -> tuple:
-    """``emit_steps_kernel`` a block a frame, then ``emit_meta_kernel`` a
-    unit a thread, on the wrapper's arguments (numpy); the levels' chunk
-    counts are not the kernel's input."""
-    from dwt_tpu_torch.ops import compact
+    """``emit_tables_kernel`` block by block (numpy) on the wrapper's
+    arguments, at the plan the kernel launches (:func:`launch_plan`):
+    (refstart, bits_parts, meta,
+    layer_ends, each frame's branch: True where it sorted).  Every frame's
+    step tables are written by its first block alone and every meta row by
+    one thread of one block."""
+    from dwt_tpu_torch.ops import compact, emit_tables
 
-    (off, chunks, nref, site, step_end, refpfx, step_base, planes, pm, nS,
-     nZ, elem, elen, p, fst, fck, valid, ch_valid, lcb) = (
-         a.numpy() for a in args[:19])
-    n, nwords = args[20:]
-    N, C, L = step_end.shape[:3]
-    nchunk, U = nS.shape[2], elem.shape[1]
-    outs = [_replay_steps(off[f], chunks[f], nref[f], site[f],
-                          step_end[f].reshape(-1), refpfx[f].reshape(-1),
-                          step_base[f].reshape(-1), planes[f], int(pm[f]),
-                          C, L)
-           for f in range(N)]
-    wsmax = (nwords - compact.WREF) // 128 * 128
-    rows = []
-    for f, (rs, _, _) in enumerate(outs):
-        rcar = _replay_rcar(fck[f], pm[f], nS[f], nZ[f], ch_valid, lcb)
-        bit0 = _wrap(rs[fst[f]].astype(np.int64) + rcar)
-        pp, kk = fck[f] % PMAX, (fck[f] // PMAX) % nchunk
-        nR = np.where(pp < pm[f], _wrap(ch_valid[kk].astype(np.int64)
-                                        - nS[f].reshape(-1)[fck[f]]
-                                        - nZ[f].reshape(-1)[fck[f]]), 0)
-        ws = np.minimum(np.maximum((bit0 >> 5) & ~127, 0), wsmax)
-        row = _wrap(elem[f].astype(np.int64) + f * C * n) >> 10
-        z = np.zeros(U, np.int64)
-        rows.append(np.stack([row, elen[f], p[f],
-                              _wrap(ws.astype(np.int64) + f * nwords),
-                              _wrap(bit0.astype(np.int64) - 32 * ws.astype(
-                                  np.int64)), z,
-                              np.where(valid[f], nR, 0), z], axis=1))
-    refstart = np.stack([o[0] for o in outs]).reshape(step_end.shape)
-    return (refstart, np.stack([o[1] for o in outs]),
-            _wrap(np.concatenate(rows)), np.stack([o[2] for o in outs]))
+    a = _args_np(args)
+    N, C, L = a["step_end"].shape[:3]
+    S, U = C * L * PMAX, a["elem"].shape[1]
+    plan = emit_tables.launch_plan(S, U)
+    np_, tf, fpb, bpf, ub = plan
+    assert fpb * tf <= emit_tables.BLOCK and np_ <= emit_tables.MAX_RUN * tf
+    assert ub <= emit_tables.MAX_UPT * tf and ub * (bpf - (bpf > 1)) >= U
+    # the kernel's instances: 8 keys a thread only with 4 units
+    assert np_ <= 4 * tf or ub <= emit_tables.UPT * tf
+    K = emit_tables.parts_count(a["chunks"].shape[1], S)
+    refstart = np.zeros((N, S), np.int32)
+    parts = np.zeros((N, K), np.int32)
+    ends = np.zeros((N, LMAX), np.int32)
+    meta = np.zeros((N * U, 8), np.int64)
+    wrote = np.zeros(N * U, int)
+    firsts = np.zeros(N, int)
+    branch = [None] * N
+    wsmax = (a["nwords"] - compact.WREF) // 128 * 128
+    nchunk = a["ch_valid"].size
+    for blk in range(-(-N // fpb) * bpf):
+        for g in range(fpb):
+            f, b = blk // bpf * fpb + g, blk % bpf
+            if f >= N:
+                continue
+            srt, _, _, ref, pf, en = _group_steps(f, b, a, plan)
+            assert branch[f] in (None, srt)
+            branch[f] = srt
+            if b == 0:
+                firsts[f] += 1
+                refstart[f], parts[f], ends[f] = ref, pf, en
+            # the units: the one block's, or blocks 1 to bpf - 1's
+            u0 = 0 if bpf == 1 else max(b - 1, 0) * ub
+            u = np.arange(u0, U if bpf == 1 else u0 if b == 0
+                          else min(U, u0 + ub))
+            assert u.size <= emit_tables.MAX_UPT * tf
+            i = f * U + u
+            fck, fst = a["flat_ck"][f][u], a["flat_step"][f][u]
+            bit0 = _wrap(ref[fst].astype(np.int64) + _closed_rcar(a, f, fck))
+            k = (fck // PMAX) % nchunk
+            live = fck % PMAX < a["planes_max"][f]
+            nR = np.where(live & a["valid"][f][u], _wrap(
+                a["ch_valid"][k].astype(np.int64)
+                - a["nS_ck"][f].reshape(-1)[fck]
+                - a["nZ_ck"][f].reshape(-1)[fck]), 0)
+            ws = np.minimum(np.maximum((bit0 >> 5) & ~127, 0), wsmax)
+            row = _wrap(a["elem"][f][u].astype(np.int64) + f * C * a["n"])
+            z = np.zeros(u.size, np.int64)
+            meta[i] = np.stack([row >> 10, a["elen"][f][u], a["p"][f][u],
+                                _wrap(ws.astype(np.int64)
+                                      + f * a["nwords"]),
+                                _wrap(bit0.astype(np.int64)
+                                      - 32 * ws.astype(np.int64)),
+                                z, nR, z], axis=1)
+            wrote[i] += 1
+    assert np.all(wrote == 1) and np.all(firsts == 1)
+    return (refstart.reshape(N, C, L, PMAX), parts, _wrap(meta), ends,
+            branch)
 
 
-def _same_as_replay(args) -> None:
+def _same_as_replay(args) -> list:
+    """The replay equals the plain version; returns its branches."""
     from dwt_tpu_torch.ops import emit_tables
 
     got = emit_tables.emit_tables_plain(*args)
+    want = _replay(args)
     for name, g, w in zip(("refstart", "bits_parts", "meta", "layer_ends"),
-                          got, _replay(args)):
+                          got, want):
         assert g.numpy().shape == w.shape, name
         assert np.array_equal(g.numpy(), w), name
+    return want[4]
 
 
 @pytest.mark.parametrize("case", ["frame2", "frame6", "batch", "cut 1"])
 def test_plan_replayed_on_frames(runs, case):
-    """The replayed kernels equal the plain version on the JAX pipeline's
-    inputs."""
-    _same_as_replay(_inputs(runs(case)))
+    """The replayed kernel equals the plain version on the JAX pipeline's
+    inputs, every frame in schedule order (no sort)."""
+    assert not any(_same_as_replay(_inputs(runs(case))))
 
 
-def _seeded(rng, N, C, L, lnc, T, nwords, n=1 << 16):
+def _seeded(rng, N, C, L, lnc, T, nwords, n=1 << 16, order="random"):
     """Seeded kernel-17 arguments: N frames of C channels and L levels of
     ``lnc`` chunks each, T token slots; tied sites, sites at 0 and T,
     step ends past both edges, refinement counts that wrap int32 sums,
-    random unit columns (any in-range steps and chunks)."""
+    random unit columns (any in-range steps and chunks), the chunk
+    tables' level scans as kernel 14 makes them.  ``order``: a random
+    permutation ("random"), a sequence that is not one ("none"), or the
+    permutation that puts the sites in order ("sorted")."""
     S, nchunk = C * L * PMAX, int(sum(lnc))
     U = C * nchunk * PMAX
 
@@ -381,45 +468,200 @@ def _seeded(rng, N, C, L, lnc, T, nwords, n=1 << 16):
                     rng.integers(0, 2**30, (N, S)))
     planes = rng.integers(0, PMAX + 1, (N, C))
     lcb = np.concatenate([[0], np.cumsum(lnc)[:-1]])
-    return (i32(N, T), i32(N, -(-T // 2048), lo=0, hi=2**17),
-            torch.as_tensor(nref, dtype=torch.int32),
-            torch.as_tensor(site, dtype=torch.int32),
-            i32(N, C, L, PMAX, lo=-3, hi=T + 3), i32(N, C, L, PMAX),
-            i32(N, C, L, PMAX, lo=-3, hi=T + 3),
-            torch.as_tensor(planes, dtype=torch.int32),
-            torch.as_tensor(rng.integers(0, PMAX + 1, N), dtype=torch.int32),
-            i32(N, C, nchunk, PMAX, lo=0, hi=5000),
-            i32(N, C, nchunk, PMAX, lo=0, hi=70000),
+    if order == "sorted":
+        perm = np.argsort(site, axis=1, kind="stable")
+    elif order == "random":
+        perm = np.argsort(rng.random((N, S)), axis=1)
+    else:
+        perm = rng.integers(0, S, (N, S))
+        perm[:, 0] = perm[:, -1]
+    nS = rng.integers(0, 5000, (N, C, nchunk, PMAX))
+    nZ = rng.integers(0, 70000, (N, C, nchunk, PMAX))
+    ch_valid = rng.integers(0, 65537, nchunk)
+
+    def t32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32)
+
+    return (i32(N, T), i32(N, -(-T // 2048), lo=0, hi=2**17), t32(nref),
+            t32(site), t32(perm), i32(N, C, L, PMAX, lo=-3, hi=T + 3),
+            i32(N, C, L, PMAX), i32(N, C, L, PMAX, lo=-3, hi=T + 3),
+            t32(planes), i32(N, lo=0, hi=PMAX + 1), t32(nS), t32(nZ),
+            t32(_level_scans(nS, lcb, lnc)), t32(_level_scans(nZ, lcb, lnc)),
             i32(N, U, lo=0, hi=C * n), i32(N, U, lo=1, hi=65537),
             i32(N, U, lo=0, hi=PMAX), i32(N, U, lo=0, hi=S),
             i32(N, U, lo=0, hi=U),
-            torch.as_tensor(rng.random((N, U)) < 0.7),
-            i32(nchunk, lo=0, hi=65537), torch.as_tensor(lcb, dtype=torch.int32),
-            torch.as_tensor(lnc, dtype=torch.int32), n, nwords)
+            torch.as_tensor(rng.random((N, U)) < 0.7), t32(ch_valid),
+            t32(_level_scans(ch_valid[:, None], lcb, lnc)[:, 0]), t32(lcb),
+            t32(lnc), n, nwords)
 
 
-@pytest.mark.parametrize("N,C,L,T,nwords", [
-    (1, 1, 1, 4096, 9000), (3, 1, 2, 5000, 1000), (2, 3, 4, 8192, 2**20),
-    (1, 3, 23, 9000, 50_000), (1, 1, 70, 2048, 3000), (4, 2, 1, 3, 5000)])
-def test_plan_replayed_on_seeded_tables(N, C, L, T, nwords):
-    """The replayed kernels equal the plain version on seeded tables at the
-    edges: up to 2,001 and 2,030 steps a frame, blocks of 64 to 1,024
-    threads, word windows clamped below and above (and a frame's words
-    fewer than a window)."""
+def _scheduled(rng, N, C, L, lnc, nwords=40_000, n=1 << 16):
+    """Kernel-17 arguments in schedule order: kernel 14's plain version on
+    seeded planes and chunk tables (frame 0 without planes, frame 2's
+    channel 0 with every plane), kernel 15's plain unit columns from it,
+    the injection sites and refinement counts as ``emit._codeword_contribs``
+    makes them, seeded token offsets and chunk sums at a bucket above
+    every T; on the CPU."""
+    from dwt_tpu_torch.ops import schedule, units
+
+    def t32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32)
+
+    nchunk = int(sum(lnc))
+    ck = (N, C, nchunk, PMAX)
+    planes = rng.integers(0, PMAX + 1, (N, C))
+    planes[0] = 0
+    if N > 2:
+        planes[2, 0] = PMAX
+    lcb = np.concatenate([[0], np.cumsum(lnc)[:-1]])
+    ch_len = rng.integers(1, 65537, nchunk)
+    args = tuple(map(t32, (
+        planes, np.where(rng.random(ck) < 0.5, 0, rng.integers(0, 40, ck)),
+        rng.integers(-1, 6, ck), rng.integers(0, 300, (N, C, nchunk)),
+        rng.integers(0, 50, ck), rng.integers(-70, 70, (N, C, 7)),
+        rng.integers(100, 900, L), lcb, lnc)))
+    st = dict(zip(schedule.OUT_KEYS, schedule.schedule_plain(*args)))
+    T = 1 << max(11, int(st["T"].max()).bit_length())
+    com = units.unit_tables_plain(
+        st["order"], st["ubase_sched"], st["valid_sched"], st["step_base"],
+        st["nS_ck"], st["scar_ck"], st["zcar_ck"], args[7],
+        t32(np.cumsum(ch_len) - ch_len), t32(ch_len), n, T)[:6]
+    ch_valid = rng.integers(0, 65537, nchunk)
+    S = C * L * PMAX
+    return (t32(rng.integers(-2**31, 2**31, (N, T))),
+            t32(rng.integers(0, 2**17, (N, -(-T // 2048)))),
+            torch.where(st["valid"], st["nRef"], 0).reshape(N, S),
+            st["inj_pos"].reshape(N, S).clamp(0, T), st["order"],
+            st["step_end"], st["refpfx"], st["step_base"], st["planes"],
+            st["planes_max"], st["nS_ck"], st["nZ_ck"], st["scar_ck"],
+            st["zcar_ck"], *com, t32(ch_valid),
+            t32(_level_scans(ch_valid[:, None], lcb, lnc)[:, 0]), args[7],
+            args[8], n, nwords)
+
+
+@pytest.mark.parametrize("N,C,L,T,nwords,order", [
+    (1, 1, 1, 4096, 9000, "random"), (3, 1, 2, 5000, 1000, "none"),
+    (2, 3, 4, 8192, 2**20, "random"), (1, 3, 23, 9000, 50_000, "random"),
+    (1, 1, 70, 2048, 3000, "sorted"), (4, 2, 1, 3, 5000, "random"),
+    (9, 3, 2, 3000, 4000, "sorted"), (2, 3, 23, 9000, 50_000, "none"),
+    (2, 1, 4, 4096, 9000, "sorted"), (3, 1, 4, 5000, 9000, "random")])
+def test_plan_replayed_on_seeded_tables(N, C, L, T, nwords, order):
+    """The replayed kernel equals the plain version on seeded tables at the
+    edges: up to 2,001 and 2,030 steps a frame, groups of 32 to 256
+    threads (more threads than keys: 116 steps of 464 units), word
+    windows clamped below and above (and a frame's words fewer than a
+    window); an order that is no permutation, or a random one, takes the
+    sort, sites already in order do not."""
     rng = np.random.default_rng(N * 1000 + C * 100 + L)
-    lnc = rng.integers(1, 5, L)
-    _same_as_replay(_seeded(rng, N, C, L, lnc, T, nwords))
+    lnc = np.full(L, 4) if (C, L) == (1, 4) else rng.integers(1, 5, L)
+    branch = _same_as_replay(_seeded(rng, N, C, L, lnc, T, nwords,
+                                     order=order))
+    assert all(branch) if order != "sorted" else not any(branch)
+
+
+@pytest.mark.parametrize("N,C,L", [(1, 1, 1), (3, 3, 2), (4, 3, 2),
+                                   (5, 3, 2), (9, 3, 2), (17, 3, 2),
+                                   (3, 3, 7), (3, 1, 24), (2, 3, 9),
+                                   (2, 1, 4), (3, 1, 2)])
+def test_plan_replayed_on_scheduled_tables(N, C, L):
+    """On tables in schedule order (kernel 14's and 15's plain versions on
+    seeded planes) the replayed kernel takes no sort and equals the plain
+    version, at frame counts either side of 4 frames a block (16x16 RGB
+    tiles' 2 levels), at many blocks a frame, at blocks of more threads
+    than keys, and at 6 units a thread of a small frame's group."""
+    rng = np.random.default_rng(N * 100 + C * 10 + L)
+    # 16x16 tiles: a chunk a level; (1, 4): more units than 8 a thread of
+    # np / 4 threads, so a larger frame's blocks of more threads than keys;
+    # (1, 2): 174 units a group of 32 threads
+    lnc = (np.ones(L, int) if (C, L) == (3, 2) else np.full(L, 4)
+           if (C, L) == (1, 4) else np.full(L, 3) if (C, L) == (1, 2)
+           else rng.integers(1, 7, L))
+    args = _scheduled(rng, N, C, L, lnc)
+    from dwt_tpu_torch.ops import emit_tables
+
+    plan = emit_tables.launch_plan(C * L * PMAX, args[14].shape[1])
+    assert (C, L) != (3, 2) or plan[2:4] == (4, 1)
+    assert (C, L) != (1, 2) or plan == (64, 32, 8, 1, 174)
+    assert not any(_same_as_replay(args))
+
+
+def test_closed_form_rcar_equals_the_level_scan():
+    """The unit's level prefix of refinement bits in closed form, [p <
+    planes_max] (vcar - scar_ck - zcar_ck), equals the level scan of
+    ``kernel_b_meta_plain`` at every (frame, channel, chunk, plane) slot,
+    planes at and above planes_max among them, wrapping sums too."""
+    from dwt_tpu_torch.ops import emit_tables
+
+    rng = np.random.default_rng(27)
+    N, C, L = 5, 3, 6
+    lnc = rng.integers(1, 9, L)
+    args = list(_seeded(rng, N, C, L, lnc, 4096, 2**20))
+    U = C * int(lnc.sum()) * PMAX
+    nZ = rng.integers(-2**31, 2**31, args[11].shape)
+    args[11] = torch.as_tensor(nZ, dtype=torch.int32)
+    args[13] = torch.as_tensor(_level_scans(nZ, args[22].numpy(), lnc))
+    args[9] = torch.tensor([0, 1, 14, PMAX - 1, PMAX], dtype=torch.int32)
+    fck = np.arange(U, dtype=np.int32)
+    args[18] = torch.as_tensor(np.tile(fck, (N, 1)))
+    a = _args_np(args)
+    refstart, _, meta, _, _ = emit_tables.emit_tables_plain(*args)
+    meta = meta.numpy().astype(np.int64).reshape(N, U, 8)
+    ws = meta[..., 3] - np.arange(N)[:, None] * a["nwords"]
+    rcar = _wrap(meta[..., 4] + 32 * ws - refstart.numpy().reshape(N, -1)[
+        np.arange(N)[:, None], a["flat_step"]])
+    for f in range(N):
+        assert np.array_equal(rcar[f], _closed_rcar(a, f, fck)), f
+    assert (rcar == 0).any() and (np.abs(rcar) > 2**30).any()
+
+
+@pytest.mark.parametrize("w,h,frames", [(16, 16, 29_126), (512, 512, 61),
+                                        (1920, 1080, 7), (3840, 2160, 1)])
+def test_launch_plan_at_the_main_geometries(w, h, frames):
+    """The launch at the main path's sub-batches: 16x16 RGB tiles 4 frames
+    a block of 8 warps, 2 warps a frame; 512x512 tiles, 1080p and 4K
+    frames a block of 8 warps for the step tables and 1, 4 and 12 more for
+    the units; each group within its keys, units and shared memory, every
+    frame's step tables and every unit covered once by the block indices
+    the kernel reads."""
+    from dwt_tpu_torch.codec.stage1 import segs_for
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import emit_tables
+
+    segs = segs_for(compute_pyramid(w, h), "cpu")
+    S, U = 3 * segs.L * PMAX, 3 * segs.nchunk * PMAX
+    np_, tf, fpb, bpf, ub = emit_tables.launch_plan(S, U)
+    want = {16: (256, 64, 4, 1), 512: (1024, 256, 1, 2),
+            1920: (1024, 256, 1, 5), 3840: (1024, 256, 1, 13)}[w]
+    assert (np_, tf, fpb, bpf) == want
+    group = 16 * np_ + 4 * (LMAX + 4) + np_ // 8 + 48
+    assert fpb * group <= 48 * 1024 and fpb * tf <= 256
+    assert np_ >= S and np_ <= 8 * tf and ub <= 8 * tf
+    tables = np.zeros(frames, int)
+    units = np.zeros((frames, U), int)
+    for blk in range(-(-frames // fpb) * bpf):
+        for g in range(fpb):
+            f, b = blk // bpf * fpb + g, blk % bpf
+            if f < frames:
+                tables[f] += b == 0
+                u0 = 0 if bpf == 1 else max(b - 1, 0) * ub
+                u1 = U if bpf == 1 else u0 if b == 0 else min(U, u0 + ub)
+                units[f, u0:u1] += 1
+    assert np.all(tables == 1) and np.all(units == 1)
 
 
 def test_steps_threads():
-    """The step tables' block: a power of two from 64 to 1,024 threads,
-    two keys a thread holding every step; past 2,048 steps it raises."""
+    """The threads of a frame's group: np / 4 and at least a warp where
+    frames of at most 256 keys share a block, else a block of 256; eight
+    keys a thread at most, holding every step; past 2,048 steps a frame
+    the plan raises."""
     from dwt_tpu_torch.ops import emit_tables
 
-    assert [emit_tables.steps_threads(s) for s in (1, 128, 129, 783, 2048)] \
-        == [64, 64, 128, 512, 1024]
+    assert [emit_tables.launch_plan(s, 1)[:3]
+            for s in (1, 64, 65, 256, 257, 783, 2048)] == [
+        (64, 32, 8), (64, 32, 8), (128, 32, 8), (256, 64, 4), (512, 256, 1),
+        (1024, 256, 1), (2048, 256, 1)]
     with pytest.raises(ValueError, match="2048"):
-        emit_tables.steps_threads(2049)
+        emit_tables.launch_plan(2049, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +758,8 @@ def test_host_totals_read_the_head():
 
 @pytest.mark.parametrize("case", ["off dtype", "valid dtype", "unit shape",
                                   "step grid", "chunk tables", "levels",
-                                  "device", "steps", "words"])
+                                  "device", "steps", "words", "order shape",
+                                  "scan tables", "vcar"])
 def test_emit_tables_checks(monkeypatch, case):
     """The wrapper raises on what kernel 17 does not take: wrong dtypes
     and shapes, tensors on several devices, more steps a frame than the
@@ -529,15 +772,15 @@ def test_emit_tables_checks(monkeypatch, case):
     if case == "off dtype":
         args[0] = args[0].long()
     elif case == "valid dtype":
-        args[16] = args[16].to(torch.int32)
+        args[19] = args[19].to(torch.int32)
     elif case == "unit shape":
-        args[12] = args[12][:, :-1]
+        args[15] = args[15][:, :-1]
     elif case == "step grid":
-        args[5] = args[5][:, :, :1]
+        args[6] = args[6][:, :, :1]
     elif case == "chunk tables":
-        args[10] = args[10][:, :, :1]
+        args[11] = args[11][:, :, :1]
     elif case == "levels":
-        args[19] = args[19][:1]
+        args[23] = args[23][:1]
     elif case == "device":
         args[3] = torch.empty(args[3].shape, dtype=torch.int32,
                               device="meta")
@@ -548,10 +791,69 @@ def test_emit_tables_checks(monkeypatch, case):
         with pytest.raises(ValueError, match="2048"):
             emit_tables.emit_tables(*args)
         return
+    elif case == "order shape":
+        args[4] = args[4][:, :-1]
+    elif case == "scan tables":
+        args[13] = args[13][:1]
+    elif case == "vcar":
+        args[21] = args[21][:-1]
     else:
-        args[21] = 2**30
+        args[25] = 2**30
     with pytest.raises(ValueError):
         emit_tables.emit_tables(*args)
+
+
+@pytest.mark.parametrize("path", ["single", "sub-batch", "tiled",
+                                  "budgeted tiled", "capacity"])
+def test_sites_in_schedule_order_on_every_path(monkeypatch, path):
+    """Every ``emit_tables`` call of the encode paths gets an ``order``
+    that is a permutation of each frame's steps and injection sites that
+    never decrease in that order, the budget's cuts
+    (``_mask_schedule_suffix``) included: kernel 17 takes no sort there.
+    The replayed kernel agrees on each call."""
+    from dwt_tpu_torch.codec import emit, encoder, tiled
+
+    seen = []
+    real = emit.emit_tables
+
+    def spy(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args))
+        return real(*args)
+
+    cut = []
+    mask = encoder._mask_schedule_suffix
+    monkeypatch.setattr(emit, "emit_tables", spy)
+    monkeypatch.setattr(encoder, "_mask_schedule_suffix", lambda *a: (
+        lambda r: (cut.append(r is not None), r)[1])(mask(*a)))
+    rng = np.random.default_rng(len(path))
+    img = random_image(rng, 96, 80, 3, "mixed")
+    if path == "single":
+        encoder.encode(img, device="cpu")
+    elif path == "sub-batch":
+        imgs = np.stack([random_image(rng, 64, 48, 3, k)
+                         for k in ("flat", "noise", "mixed")])
+        tiled.BatchEncoder(64, 48, 3, device="cpu").encode_batch(imgs)
+    elif path == "capacity":
+        encoder.encode(img, capacity=300, device="cpu")
+    else:
+        full = tiled.encode_tiled(img, tile=(32, 32), device="cpu")
+        if path == "budgeted tiled":
+            seen.clear()
+            tiled.encode_tiled(img, tile=(32, 32), budget=len(full) // 4,
+                               device="cpu")
+    assert seen
+    if path in ("capacity", "budgeted tiled"):
+        assert any(cut)
+    if path == "sub-batch":
+        assert seen[0][0].shape[0] == 3
+    for args in seen:
+        site, order = args[3], args[4].long()
+        N, S = order.shape
+        assert torch.equal(order.sort(dim=1).values,
+                           torch.arange(S).expand(N, S))
+        assert (torch.diff(site.gather(1, order), dim=1) >= 0).all()
+        assert not any(_same_as_replay(args))
 
 
 @pytest.mark.parametrize("N,C,L,nchunk,K", [(1, 3, 9, 136, 38),
@@ -560,19 +862,24 @@ def test_emit_tables_checks(monkeypatch, case):
 def test_emit_tables_arena_layout(N, C, L, nchunk, K):
     """Kernel 17's one allocation a call: refstart, the meta rows and the
     head as disjoint views at 256-byte offsets, the head holding the order
-    flag, bits_parts and layer_ends end to end."""
-    from dwt_tpu_torch.ops import _launch, emit_tables
+    flag, bits_parts and layer_ends end to end (as ``head_views`` finds
+    them), and the launch plan beside them."""
+    from dwt_tpu_torch.ops import emit_tables
 
-    nbytes, views, offsets = emit_tables._layout(N, C, L, nchunk, K)
-    outs = _launch.carve(nbytes, views, "cpu")
+    words, views, offsets, plan = emit_tables._layout(N, C, L, nchunk, K)
+    assert (plan.np, plan.tf, plan.fpb, plan.bpf, plan.ub) == \
+        emit_tables.launch_plan(C * L * PMAX, C * nchunk * PMAX)
+    outs = emit_tables._carve(words, views, "cpu")
     U = C * nchunk * PMAX
     assert [tuple(o.shape) for o in outs] == [
-        (N, C, L, PMAX), (N * U, 8), (1 + N * (K + LMAX),)]
-    at = [o.data_ptr() - outs[0].data_ptr() for o in outs]
+        (N, C, L, PMAX), (N * U, 8), (1 + N * (K + LMAX),), (N, K),
+        (N, LMAX)]
+    assert all(o.is_contiguous() and o.dtype == torch.int32 for o in outs)
+    at = [o.data_ptr() - outs[0].data_ptr() for o in outs[:3]]
     assert list(offsets.at) == at and all(a % 256 == 0 for a in at)
     ends = [a + o.numel() * 4 for a, o in zip(at, outs)]
-    assert all(e <= a for e, a in zip(ends, at[1:])) and ends[-1] <= nbytes
+    assert all(e <= a for e, a in zip(ends, at[1:])) and ends[-1] <= 4 * words
     flag, parts, lend = emit_tables.head_views(outs[2], N)
-    assert parts.shape == (N, K) and lend.shape == (N, LMAX)
-    assert parts.data_ptr() == outs[2].data_ptr() + 4
-    assert lend.data_ptr() == parts.data_ptr() + 4 * N * K
+    assert parts.data_ptr() == outs[3].data_ptr() == outs[2].data_ptr() + 4
+    assert lend.data_ptr() == outs[4].data_ptr() == \
+        parts.data_ptr() + 4 * N * K
