@@ -186,16 +186,37 @@ seconds:
              root band alone, which has no coarse tail to lift), and
              ``encode_tiled_sharded`` lossless and at a third of its size
              to the two container digests ("sharded tiled encode",
-             "budgeted sharded tiled encode").  The sharded encode
+             "budgeted sharded tiled encode").  The sharded encode's
+             halo levels are kernel 18's launches and the decode's
+             kernel 19's (one a halo level at world size 1; their JSON
+             rows from these calls: held to their plain versions, timed
+             by CUDA events and torch.profiler beside the plain versions
+             and their byte bounds); the two routes are run again with
+             the halo levels' plain versions, the eager colour
+             transforms and the eager row pad made to raise
+             (``halo_gate``); both kernels are held to their plain
+             versions on ``HALO_SWEEP`` (odd geometries up to 4K, 1-3
+             ranks played on the card by ``tiled.play_ranks``, uint8 RGB
+             with the colour to uint8 pixels, uint8 and int32 rows to
+             int32); ``tools/halo_kernels.py``, in a process of its own
+             on an NCCL group of one rank, times each launch of one warm
+             4K ``halo_dwt2d_fwd`` and ``halo_dwt2d_inv`` by
+             torch.profiler, counts the call's device launches (a halo
+             level) and times it by the host clock.  The sharded encode
              reaches stage 1's transform kernel only through the halo
              DWT's coarse tail (``dwt2d_fwd`` on the
              levels below the halo levels) and its plane statistics
              through ``_stats_from_lin``; the tiled routes reach both
              through the batch mode's stage 1.  Then warm
              rates of the three, each beside its single-device twin's in
-             turns.  With two cards or more, two ranks (``cuda:0``,
-             ``cuda:1``) in spawned processes run the same routes and
-             gates; with one card a line says that this did not run.
+             turns, and where one warm sharded encode and decode spend
+             their time by pass (``profile:`` lines; with ``--parent
+             DIR`` in turns with that tree's).  With two cards or more,
+             two ranks (``cuda:0``, ``cuda:1``) in spawned processes run
+             the same routes and gates, and hold each rank's halo
+             exchanges (``hosts.comm_log``) and results through the
+             kernels to the plain route's (``halo_exchanges``); with one
+             card a line says that this did not run.
 8. entry points — ``python -m dwt_tpu_torch.cli`` in processes of its
              own: ``encode`` of the frame (written as PNM), whose stream
              must have the JAX package's digest; ``decode`` of it, which
@@ -427,9 +448,9 @@ class Kernels:
     """The kernel wrappers of the paths (the six kernels, the VLI order
     scan, the forward transform, the plane statistics, the codeword
     pieces, the token finisher, the packed elements, the schedule, kernel
-    A's unit tables, the inverse transform, the emit half's step tables
-    and the tile engines' probe), their sources, the TPU kernels (or, for
-    kernels 8-17, the JAX code)
+    A's unit tables, the inverse transform, the emit half's step tables,
+    the tile engines' probe and the halo levels), their sources, the TPU
+    kernels (or, for kernels 8-19, the JAX code)
     they replace and the paths (``ENCODE_PATHS``, ``DECODE_PATHS``) whose
     runs must launch them."""
 
@@ -440,6 +461,7 @@ class Kernels:
                                        hilbert_scatter, lifting, pack,
                                        plane_stats, schedule, transpose,
                                        units, vli_scan)
+        from dwt_tpu_torch.ops import halo as halo_ops
         from dwt_tpu_torch.parallel import encode as sharded
         from dwt_tpu_torch.parallel import tiled as halo
 
@@ -450,7 +472,8 @@ class Kernels:
         # plane statistics and the schedule through stage 1's
         # ``_stats_from_lin``; the decoders call the inverse transform by
         # ``inverse_transform``, the sharded decoder its coarse tail by
-        # ``dwt2d_inv``, whose launches count on ``inverse_transform``).
+        # ``dwt2d_inv``, whose launches count on ``inverse_transform``; the
+        # halo DWT its levels by ``halo_forward`` and ``halo_inverse``).
         self.sites = [(stage1, "forward_transform"),
                       (stage1, "hilbert_gather"), (stage1, "plane_stats"),
                       (tokens, "compact_tokens"),
@@ -461,7 +484,8 @@ class Kernels:
                       (stage1, "schedule"), (tokens, "unit_tables"),
                       (sharded, "hilbert_gather"), (halo, "dwt2d_fwd"),
                       (decoder, "inverse_transform"), (sharded, "dwt2d_inv"),
-                      (emit, "emit_tables")]
+                      (emit, "emit_tables"), (halo, "halo_forward"),
+                      (halo, "halo_inverse")]
         # Each site's kernel wrapper and its plain version.
         self.pairs = {
             "forward_transform": (lifting.forward_transform,
@@ -491,6 +515,10 @@ class Kernels:
             "dwt2d_inv": (lifting.dwt2d_inv, lifting.dwt2d_inv_plain),
             "emit_tables": (emit_tables.emit_tables,
                             emit_tables.emit_tables_plain),
+            "halo_forward": (halo_ops.halo_forward,
+                             halo_ops.halo_forward_plain),
+            "halo_inverse": (halo_ops.halo_inverse,
+                             halo_ops.halo_inverse_plain),
         }
         self.rows = [
             # Stage 1's transform, a launch a level, and its plane
@@ -581,6 +609,19 @@ class Kernels:
              "dwt_tpu_torch/csrc/emit_tables.cu",
              "dwt_tpu/codec/encoder.py:916, :1000, :1018, :844",
              ENCODE_PATHS),
+            # Kernels 18 and 19, the halo levels of the row-sharded
+            # transform (up to three launches a level, one at world size
+            # 1).  No TPU kernel: they replace the JAX package's XLA
+            # halo_dwt2d_fwd and halo_dwt2d_inv inside shard_map, with the
+            # colour of sharded_lin and the ShardedDecoder's inverse.
+            ("halo_forward", halo_ops.halo_forward,
+             "dwt_tpu_torch/csrc/halo_lifting.cu",
+             "dwt_tpu/parallel/tiled.py:168, :62, "
+             "dwt_tpu/parallel/encode.py:60-76", ("sharded encode",)),
+            ("halo_inverse", halo_ops.halo_inverse,
+             "dwt_tpu_torch/csrc/halo_lifting.cu",
+             "dwt_tpu/parallel/tiled.py:297, :86, "
+             "dwt_tpu/parallel/encode.py:172-200", ("sharded decode",)),
         ]
 
     def reset(self) -> None:
@@ -603,8 +644,8 @@ class Kernels:
     def capture(self, store: dict):
         """Keep a copy of each kernel's inputs while a path runs: under the
         kernel's name, one tuple of arguments for each distinct set of
-        tensor shapes and dtypes the path gives it, in call order (the
-        first call of each)."""
+        tensor shapes and dtypes (and modes, for the halo levels) the path
+        gives it, in call order (the first call of each)."""
         sites = self.sites
         saved = [getattr(mod, name) for mod, name in sites]
         seen = set()
@@ -614,8 +655,10 @@ class Kernels:
             # pack kernel's order flag by keyword, and a held call checks
             # the order itself.
             def run(*args, **kwargs):
-                key = (name,) + tuple((tuple(a.shape), a.dtype)
-                                      for a in args if hasattr(a, "shape"))
+                key = (name,) + tuple(
+                    (tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
+                    for a in args if hasattr(a, "shape")
+                    or isinstance(a, str))
                 if key not in seen:
                     seen.add(key)
                     store.setdefault(name, []).append(tuple(
@@ -1026,6 +1069,18 @@ def device_times(torch, scatter_4k, tiled_scatter, transposes,
                  f"(group {hs.GROUP}), bound {bound:.4f} ms, share "
                  f"{bound / dev:.2f}"
                  + (f"; by channel group, ms: {groups}" if groups else ""))
+    # Kernel 5 at the shape of the 16K tiled decode's 480-tile group: the
+    # 4K tiled decode's 512x512 call with its rows (tiles x channels)
+    # scaled to 480 tiles (``scatter_bytes`` is linear in them).
+    lin, src, sq_ptr, runs = next(c for c in tiled_scatter
+                                  if tuple(c[1].shape) == (512, 512))
+    valid = int(((src >= 0) & (src < lin.shape[1])).sum())
+    group = 4 * (src.numel() + sq_ptr.numel() + runs.numel()
+                 + 480 * 3 * (valid + src.numel()))
+    progress(f"device: hilbert_scatter at the 16K decode's 480 512x512 tile "
+             f"group ({480 * 3} rows, scaled from the 4K tiled decode's "
+             f"{lin.shape[0]}): {group} bytes, bound "
+             f"{bound_of(group)[0]:.4f} ms")
     wrapper_ms = 0.0
     for x in transposes:
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
@@ -1455,7 +1510,10 @@ def encode_kernel_bytes(torch, name: str, args) -> int:
     table, and its whole pair buffer; pack: 16 B a token and the whole word
     buffer; kernel B: the elements its live units cover, its meta, and each
     word that holds one of their refinement bits read and written;
-    transpose: its tensor read and written."""
+    transpose: its tensor read and written.  The pack kernel: 16 B a token
+    and each word that receives a nonzero piece (the wrapper's zero fill of
+    the whole word buffer is no work of the kernel's: ``pack_fill_bytes``
+    counts it), as ``bench_torch/kernels.py:pack_bytes`` does."""
     from dwt_tpu_torch.ops.compact import E
 
     if name == "hilbert_gather":
@@ -1467,8 +1525,12 @@ def encode_kernel_bytes(torch, name: str, args) -> int:
         return 4 * (unit_elements(torch, vmag, meta, E) + meta.numel()
                     + table.numel() + npairs)
     if name == "pack_words":
-        widx, nwords = args[0], args[4]
-        return 4 * (4 * widx.numel() + nwords)
+        widx, nwords = args[0], int(args[4])
+        hit = torch.zeros(nwords + 3, dtype=torch.bool, device=widx.device)
+        w = widx.long()
+        for k, c in enumerate(args[1:4]):
+            hit[(w[(c != 0) & (w >= 0)] + k).clamp(max=nwords + 2)] = True
+        return 16 * widx.numel() + 4 * int(hit[:nwords].sum())
     if name == "scatter_refbits":
         vmag, meta, words = args[:3]
         live = meta[meta[:, 6] > 0].long()
@@ -1596,9 +1658,10 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         None)
     split_a = wrapper_split_a(torch, vmag, meta, npairs, table)
 
-    # 3. pack: 16 B read a token, and the whole returned buffer written;
-    # timed as the encoder calls it (the order flag left to the caller);
-    # three index_add_ on int64 words are the library yardstick
+    # 3. pack: 16 B read a token, and each word that receives a piece
+    # written (the wrapper's zero fill of the whole buffer apart); timed as
+    # the encoder calls it (the order flag left to the caller); three
+    # index_add_ on int64 words are the library yardstick
     widx, c0, c1, c2, nwords = got["pack_words"][0]
     k = pack.pack_words(widx, c0, c1, c2, nwords)
     p = pack.pack_words_plain(widx, c0, c1, c2, nwords)
@@ -1620,6 +1683,12 @@ def check_kernels(torch, K: Kernels, got: dict, launches: dict,
         encode_kernel_bytes(torch, "pack_words", got["pack_words"][0]),
         lib_ms)
     split_pack = wrapper_split_pack(torch, widx, c0, c1, c2, nwords)
+    need = encode_kernel_bytes(torch, "pack_words", got["pack_words"][0])
+    fill = 4 * (4 * widx.numel() + nwords)
+    progress(f"kernels: pack_words {need} B (16 B a token and the words "
+             f"that receive a piece), bound {bound_of(need)[0]:.4f} ms; "
+             f"with the wrapper's zero fill of all {nwords} words {fill} B, "
+             f"{bound_of(fill)[0]:.4f} ms")
 
     # 4. kernel B (in place on the packed words: a fresh copy each run):
     # reads the elements its live units cover and reads and writes each
@@ -3358,10 +3427,12 @@ def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
     """Phase 7's routes on ``mesh``, each in ``Kernels.path`` (its kernels
     held against their plain versions) and held to the gates of its
     single-device twin; raises on any difference.  Returns the sharded
-    encoder and decoder."""
+    encoder and decoder, the halo levels' kept calls of the first encode
+    and decode ({kernel: [args, ...]}) and their launches there."""
     from dwt_tpu_torch.parallel import encode as sharded
 
     tag = f"rank {mesh.rank}/{mesh.size} on {mesh.device}"
+    halo_kept, halo_launches = {}, {}
 
     def run(name, fn, exempt=()):
         store, counts = {}, {}
@@ -3369,6 +3440,9 @@ def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
         with K.path(name, store, counts, exempt):
             result = fn()
         secs = time.perf_counter() - t0
+        for k in ("halo_forward", "halo_inverse"):
+            if k in store and k not in halo_kept:
+                halo_kept[k], halo_launches[k] = store[k], counts[k]
         progress(f"sharded: {tag}: {name} {secs:.2f} s; launches {counts}; "
                  f"collectives {traffic()}; kernels equal to their plain "
                  f"versions: {held_line(K.hold(store))}")
@@ -3410,7 +3484,7 @@ def sharded_routes(torch, K: Kernels, mesh, img: np.ndarray,
                                  f"package's container: {got}")
     progress(f"sharded: {tag}: every route equal to its gate (stream, frame, "
              f"prefix pixels, both containers)")
-    return enc, dec
+    return enc, dec, halo_kept, halo_launches
 
 
 def sharded_timing(torch, mesh, enc, dec, img: np.ndarray, stream: bytes,
@@ -3469,13 +3543,20 @@ def timed_calls(torch, targets, spent: dict):
         yield
 
 
-def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes) -> None:
+def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes,
+                    tree: str = "this tree") -> None:
     """Where one warm sharded encode and one warm sharded decode spend
     their time, by timers around their own calls (host clock,
-    synchronised); the rest is what the timers do not cover."""
-    from dwt_tpu_torch.codec import decoder
-    from dwt_tpu_torch.parallel import encode as sharded
+    synchronised); the rest is what the timers do not cover.  ``enc`` and
+    ``dec`` may be a parent tree's (``tree`` names it): the calls timed are
+    those its modules have (before kernels 18 and 19 the encode's
+    ``rgb_to_ycocg`` ran apart, and the decode's colour and clamps in the
+    rest)."""
+    import importlib
 
+    sharded = sys.modules[type(enc).__module__]
+    decoder = importlib.import_module(
+        sharded.__name__.rsplit(".parallel", 1)[0] + ".codec.decoder")
     for what, fn, targets, rest in (
             ("encode", lambda: enc.encode(img),
              [(sharded, "rank_rows"), (sharded, "rgb_to_ycocg"),
@@ -3485,8 +3566,10 @@ def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes) -> None:
             ("decode", lambda: dec.decode(stream),
              [(decoder, "_parse"), (decoder._Tail, "pyramid"),
               (sharded, "dwt2d_inv"), (sharded, "halo_dwt2d_inv")],
-             "upload, scatter into the halo layout, all-gather, colour, "
-             "download")):
+             "upload, scatter into the halo layout, all-gather, download"
+             + ("" if "ycocg_to_rgb" not in vars(sharded) else
+                ", colour and clamps"))):
+        targets = [(o, n) for o, n in targets if hasattr(o, n)]
         spent: dict = {}
         with timed_calls(torch, targets, spent):
             torch.cuda.synchronize()
@@ -3494,7 +3577,8 @@ def sharded_profile(torch, enc, dec, img: np.ndarray, stream: bytes) -> None:
             fn()
             torch.cuda.synchronize()
             total = 1e3 * (time.perf_counter() - t0)
-        progress(f"profile: one warm 4K sharded {what}, {total:.1f} ms: "
+        progress(f"profile: {tree}: one warm 4K sharded {what}, "
+                 f"{total:.1f} ms: "
                  + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
                  + f", rest ({rest}) {total - sum(spent.values()):.1f} ms "
                  f"(host clock, synchronised)")
@@ -3515,6 +3599,8 @@ def two_rank_worker(rank: int, port: int) -> None:
         img = random_image(W, H, C, seed=0)
         stream = get_encoder(W, H, C, mesh.device).encode(img)
         sharded_routes(torch, Kernels(), mesh, img, stream)
+        progress(f"sharded: rank {rank}/2: " + halo_exchanges(torch, mesh,
+                                                              img))
     finally:
         dist.destroy_process_group()
 
@@ -3526,13 +3612,261 @@ def two_ranks(torch) -> None:
 
     mp.spawn(two_rank_worker, args=(free_port(),), nprocs=2, join=True)
     progress("sharded: two ranks on NCCL (cuda:0, cuda:1): every route "
-             "equal to its gate on both")
+             "equal to its gate on both, the halo kernels' exchanges equal "
+             "to the plain route's")
+
+
+# Kernels 18 and 19 on seeded images (w, h, C): odd and even sides, strips
+# of 28 columns cut anywhere, pad rows, plans of one level and of the
+# deepest, the 4K frame; each at 1-3 ranks played on the card
+# (``tiled.play_ranks``), as uint8 RGB (or gray) rows with the colour and
+# uint8 pixels out, as uint8 rows with int32 out, and as signed int32 rows.
+HALO_SWEEP = ((64, 64, 3), (63, 64, 1), (64, 63, 3), (17, 1024, 1),
+              (200, 37, 3), (31, 270, 3), (8, 8, 1), (513, 8, 3),
+              (1001, 777, 3), (3840, 2160, 3))
+HALO_FWD_NAME, HALO_INV_NAME = "halo_fwd_kernel", "halo_inv_kernel"
+
+
+def halo_sweep(torch) -> str:
+    """Kernels 18 and 19 against their plain versions on ``HALO_SWEEP``
+    (exact), every mode of both, every rank of 1-3 played on the card
+    (``tiled.play_forward``, ``play_inverse``; both inverses of the
+    kernels' fine buffer); each inverse gives the image back."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import halo
+    from dwt_tpu_torch.parallel import tiled
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    cases = 0
+    for w, h, c in HALO_SWEEP:
+        u8 = torch.randint(0, 256, (h, w, c), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+        i32 = torch.randint(-255, 256, (h, w, c), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        for n in (1, 2, 3):
+            for img, colour, to_bytes in ((u8, c == 3, True),
+                                          (u8, False, False),
+                                          (i32, False, False)):
+                pyr = compute_pyramid(w, h)
+                got, want = ((*tiled.play_forward(img, pyr, n, colour, fwd),)
+                             for fwd in (halo.halo_forward,
+                                         halo.halo_forward_plain))
+                got += (tiled.play_inverse(got[0], pyr, n, to_bytes,
+                                           halo.halo_inverse),)
+                want += (tiled.play_inverse(got[0], pyr, n, to_bytes,
+                                            halo.halo_inverse_plain),)
+                torch.cuda.synchronize()
+                for what, a, b in zip(("fine buffer", "coarse grid",
+                                       "inverse"), got, want):
+                    err = max_abs_err("halo", a, b)
+                    if err:
+                        raise AssertionError(
+                            f"halo {w}x{h}x{c} at {n} ranks ({img.dtype}, "
+                            f"colour {colour}, bytes {to_bytes}): the "
+                            f"kernels' {what} differs from the plain "
+                            f"version's (max abs err {err})")
+                back = got[2][:h]
+                if not torch.equal(back, img.to(back.dtype)):
+                    raise AssertionError(f"halo {w}x{h}x{c} at {n} ranks: "
+                                         f"the inverse differs from the "
+                                         f"image")
+                cases += 1
+    return (f"kernels 18 and 19 equal to their plain versions (exact) and "
+            f"the image back on {cases} cases: {len(HALO_SWEEP)} geometries "
+            f"(up to 3840x2160), 1-3 ranks played on the card, uint8 RGB "
+            f"with the colour to uint8 pixels, uint8 and int32 to int32")
+
+
+def halo_fwd_work(calls: list) -> int:
+    """The bytes one 4K sharded encode's forward halo levels (their kept
+    calls, finest first) must move: the image's rows read once, the fine
+    block written once and the coarse grid (the last level's compact LL)
+    written once."""
+    src, fine, ll = calls[0][2], calls[0][4], calls[-1][5]
+    return (src.numel() * src.element_size() + 4 * fine.numel()
+            + 4 * ll.numel())
+
+
+def halo_inv_work(calls: list) -> int:
+    """The bytes one sharded decode's inverse halo levels (coarsest first)
+    must move: the fine block read once, the finest level's pixels
+    written once."""
+    fine, out = calls[0][2], calls[-1][5]
+    return 4 * fine.numel() + out.numel() * out.element_size()
+
+
+def halo_device(card: str) -> dict:
+    """``tools/halo_kernels.py`` in a process of its own (a long process's
+    profiler sessions lose some of their device records): each launch of
+    kernels 18 and 19 in one warm 4K ``halo_dwt2d_fwd`` and
+    ``halo_dwt2d_inv`` by torch.profiler, the call's device launches and
+    its host time; {wrapper: its JSON line}.  Raises unless each call
+    launches its kernel once a halo level and at most three device
+    launches a level in all."""
+    r = subprocess.run([sys.executable, os.path.join(
+        ROOT, "tools", "halo_kernels.py")], capture_output=True, text=True,
+        timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"halo_kernels exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    out = {}
+    for line in r.stdout.splitlines():
+        got = json.loads(line)
+        out[got["wrapper"]] = got
+        n, levels = sum(got["device_launches"].values()), got["halo_levels"]
+        if got["kernel_launches"] != levels or n > 3 * levels:
+            raise AssertionError(f"{got['call']}: {got['kernel_launches']} "
+                                 f"launches of {got['kernel']} and {n} "
+                                 f"device launches for {levels} halo levels")
+        progress(f"device: one warm 4K {got['call']} at world size 1 on "
+                 f"NCCL: kernel {got['kernel']} by launch (stride, columns, "
+                 f"rows: device ms) "
+                 + ", ".join(f"{tuple(p['level'])}: {p['device_ms']:.4f}"
+                             for p in got["launches"] or [])
+                 + f"; sum {got['device_ms']} ms by torch.profiler (None: "
+                 f"records lost); {got['kernel_launches']} launches of the "
+                 f"kernel, {n} device launches in all ({n / levels:.2f} a "
+                 f"halo level: {got['device_launches']}, profiler session "
+                 f"{got['profiler_session']}); CUDA events "
+                 f"{got['event_ms']:.4f} ms; host "
+                 + ", ".join(f"{t:.3f}" for t in got["host_ms"])
+                 + f" ms (synchronised) on {card}")
+    return out
+
+
+def halo_rows(torch, kept: dict, launches: dict, rows: list,
+              device: dict) -> None:
+    """Kernels 18 and 19 on the 4K sharded encode's and decode's kept calls
+    (world size 1: one "bulk" launch a level), replayed in order: held to
+    their plain versions, timed by CUDA events beside the plain versions,
+    and their bounds, with the device time of ``device``
+    (:func:`halo_device`); a row each into ``rows``."""
+    from dwt_tpu_torch.ops import halo
+
+    for name, fn, plain, work in (
+            ("halo_forward", halo.halo_forward, halo.halo_forward_plain,
+             halo_fwd_work),
+            ("halo_inverse", halo.halo_inverse, halo.halo_inverse_plain,
+             halo_inv_work)):
+        calls = kept[name]
+        err = max(max_abs_err(name, fn(*[a.clone() if hasattr(a, "clone")
+                                         else a for a in args]),
+                              plain(*[a.clone() if hasattr(a, "clone")
+                                      else a for a in args]))
+                  for args in calls)
+        if err:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version at 4K (max abs err {err})")
+        ms = time_ms(torch, lambda: [fn(*a) for a in calls])
+        plain_ms = time_ms(torch, lambda: [plain(*a) for a in calls], reps=3)
+        dev = device[name]["device_ms"]
+        dev = float("nan") if dev is None else dev
+        nbytes = work(calls)
+        # The compact LL buffers between the levels (the forward's ll, the
+        # inverse's outputs but the last): each written once, read once.
+        ll = sum(8 * a[5].numel() for a in calls[:-1])
+        bound, by = bound_of(nbytes)
+        row = dict(name=name, route="cuda",
+                   source="dwt_tpu_torch/csrc/halo_lifting.cu",
+                   replaces=next(r for n, _, _, r, _ in Kernels().rows
+                                 if n == name),
+                   batch_launches=None, batch_ms=None, batch_bound_ms=None,
+                   batch_device_ms=None)
+        rows.append(row)
+        row.update(launches=launches[name], max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None, device_ms=dev)
+        progress(f"kernels: {name} at 4K, world size 1, {len(calls)} "
+                 f"launches ({[tuple(a[1][:3]) for a in calls]} as (stride, "
+                 f"columns, rows)), equal to its plain version; {ms:.3f} ms "
+                 f"(plain {plain_ms:.3f} ms, device {dev:.4f} ms by "
+                 f"torch.profiler in tools/halo_kernels.py, share "
+                 f"{bound / dev:.2f}, bound {bound:.4f} ms by {by}, "
+                 f"{nbytes} bytes; with the compact LL buffers "
+                 f"{nbytes + ll} bytes: {bound_of(nbytes + ll)[0]:.4f} ms), "
+                 f"library n/a")
+
+
+def halo_gate(torch, enc, dec, img: np.ndarray, stream: bytes) -> str:
+    """One sharded encode and one sharded decode with the halo levels'
+    plain versions, the eager colour transforms and the eager row pad made
+    to raise: on the card neither runs inside ``halo_dwt2d_fwd``,
+    ``halo_dwt2d_inv``, ``sharded_lin`` or the decoder's inverse.  Raises
+    unless both still give the stream and the frame."""
+    from dwt_tpu_torch.ops import color, halo
+    from dwt_tpu_torch.parallel import tiled
+
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the card's sharded path")
+        return run
+
+    targets = [(halo, "halo_forward_plain"), (halo, "halo_inverse_plain"),
+               (halo, "rgb_to_ycocg"), (halo, "ycocg_to_rgb"),
+               (color, "rgb_to_ycocg"), (color, "ycocg_to_rgb"),
+               (tiled, "pad_rows")]
+    with contextlib.ExitStack() as stack:
+        for obj, name in targets:
+            stack.enter_context(wrapped(obj, name, lambda _, n=name:
+                                        refuse(n)))
+        if enc.encode(img) != stream:
+            raise AssertionError("the gated sharded encode differs from the "
+                                 "stream")
+        if not np.array_equal(dec.decode(stream), img):
+            raise AssertionError("the gated sharded decode differs from the "
+                                 "frame")
+    return ("the sharded encode and decode give the stream and the frame "
+            "with " + ", ".join(f"{getattr(o, '__name__', o)}.{n}"
+                                for o, n in targets) + " made to raise")
+
+
+def halo_exchanges(torch, mesh, img: np.ndarray) -> str:
+    """On this rank of several: the 4K forward (uint8 RGB rows, colour)
+    and inverse (to uint8 pixels) halo levels through the kernels and
+    through their plain versions, with the same exchanges by
+    ``hosts.shift`` and the coarse grid's all-gather; raises unless each
+    rank's ``hosts.comm_log`` and results are the same on both routes."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import halo
+    from dwt_tpu_torch.parallel import hosts, tiled
+
+    pyr = compute_pyramid(W, H)
+    rows = tiled.rank_rows(img, mesh, pyr)
+    rb = tiled._halo_plan(pyr, mesh.size)[1] // mesh.size
+    logs, results = [], []
+    for fwd, inv in ((None, None), (halo.halo_forward_plain,
+                                    halo.halo_inverse_plain)):
+        hosts.comm_log.clear()
+        fine = torch.empty((rb, W, C), dtype=torch.int32, device=mesh.device)
+        ll = tiled.run_levels(tiled.forward_levels(
+            rows, pyr, mesh.size, mesh.rank, True, fine, fwd), mesh)
+        grid = hosts.all_gather(mesh, ll)
+        px = tiled.run_levels(tiled.inverse_levels(
+            fine, pyr, mesh.size, mesh.rank, True, inv), mesh)
+        logs.append(list(hosts.comm_log))
+        results.append((fine, grid, px))
+    if logs[0] != logs[1]:
+        raise AssertionError(f"rank {mesh.rank}: the kernels' exchanges "
+                             f"{logs[0]} differ from the plain route's "
+                             f"{logs[1]}")
+    err = max_abs_err("halo", results[0], results[1])
+    if err:
+        raise AssertionError(f"rank {mesh.rank}: the kernels' halo levels "
+                             f"differ from the plain route's (max abs err "
+                             f"{err})")
+    sends = [b for op, b in logs[0] if op == "send"]
+    return (f"kernels 18 and 19 equal to the plain route, and so are the "
+            f"exchanges: {len(sends)} sends of {sorted(set(sends))} bytes "
+            f"and {len(logs[0]) - len(sends)} all-gathers")
 
 
 def sharded_phase(torch, K: Kernels, img: np.ndarray, stream: bytes,
-                  card: str) -> None:
+                  card: str, rows: list, parent: str | None) -> None:
     """Phase 7: the sharded routes at world size 1 on NCCL, their gates,
-    rates and split; then two ranks where there are two cards."""
+    kernels 18 and 19 (into ``rows``: their 4K calls timed, the sweep,
+    the launches of one halo_dwt2d_fwd and halo_dwt2d_inv), rates and
+    split, the ``parent`` checkout's split in turns where one is given;
+    then two ranks where there are two cards."""
     import torch.distributed as dist
 
     from dwt_tpu_torch.parallel import hosts
@@ -3544,9 +3878,22 @@ def sharded_phase(torch, K: Kernels, img: np.ndarray, stream: bytes,
         mesh = hosts.global_mesh()
         progress(f"sharded: NCCL process group of {mesh.size} rank, rank "
                  f"{mesh.rank} on {mesh.device}")
-        enc, dec = sharded_routes(torch, K, mesh, img, stream)
+        enc, dec, kept, launches = sharded_routes(torch, K, mesh, img,
+                                                  stream)
+        halo_rows(torch, kept, launches, rows, halo_device(card))
+        del kept
+        progress("sharded: " + halo_gate(torch, enc, dec, img, stream))
+        progress("sharded: " + halo_sweep(torch))
         sharded_timing(torch, mesh, enc, dec, img, stream, card)
-        sharded_profile(torch, enc, dec, img, stream)
+        trees = [("this tree", enc, dec)]
+        if parent:
+            psharded = parent_module(parent, "parallel.encode")
+            pmesh = parent_module(parent, "parallel.hosts").global_mesh()
+            trees.append((f"parent {parent}",
+                          psharded.ShardedEncoder(W, H, C, pmesh),
+                          psharded.ShardedDecoder(W, H, C, pmesh)))
+        for tree, e, d in trees * 2:  # in turns
+            sharded_profile(torch, e, d, img, stream, tree)
     finally:
         dist.destroy_process_group()
     if torch.cuda.device_count() < 2:
@@ -4054,8 +4401,9 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     unlift_stamps(parent, card)
 
-    # 7. the sharded routes at world size 1 on NCCL (two ranks: two cards)
-    sharded_phase(torch, K, img, stream, card)
+    # 7. the sharded routes at world size 1 on NCCL, kernels 18 and 19
+    # (two ranks: two cards)
+    sharded_phase(torch, K, img, stream, card, rows, parent)
 
     # 8. the command line, DWT_SELFCHECK, DWT_TRACE, the self-test, and the
     # budgeted tiled encode against the lossless-then-cut route

@@ -36,7 +36,6 @@ from ..codec.stage1 import ALIGN, _stats_from_lin
 from ..codec.tiled import get_batch_encoder, group_tiles, write_container
 from ..geometry import Pyramid, compute_pyramid
 from ..hilbert import padded_layout
-from ..ops.color import rgb_to_ycocg, ycocg_to_rgb
 from ..ops.hilbert_gather import hilbert_gather
 from ..ops.lifting import dwt2d_inv
 from . import hosts
@@ -67,13 +66,13 @@ def sharded_lin(img, mesh: hosts.Mesh, pyr: Pyramid, gray: bool,
     """Row-sharded colour transform and halo DWT, then the linearization.
 
     ``img``: the whole (H, W, C) image (every rank passes it; each copies
-    only its rows to its device).  ``src``: :func:`_composed_perm` on the
-    mesh's device.  Returns the (C, nlin) linearized coefficients, equal to
-    the single-stream stage-1 ``lin``, on every rank."""
-    x = rank_rows(img, mesh, pyr)
-    if not gray:
-        x = rgb_to_ycocg(x)
-    fine, coarse = halo_dwt2d_fwd(x, mesh, pyr)
+    only its rows to its device, as they are: the halo DWT's first level
+    reads them with the colour applied as they load and the pad rows as
+    zeros).  ``src``: :func:`_composed_perm` on the mesh's device.
+    Returns the (C, nlin) linearized coefficients, equal to the
+    single-stream stage-1 ``lin``, on every rank."""
+    fine, coarse = halo_dwt2d_fwd(rank_rows(img, mesh, pyr), mesh, pyr,
+                                  colour=not gray)
     # The whole (h_pad, W, C) buffer on every rank, the coarse pyramid on
     # its dyadic grid, then one gather.
     fine = hosts.all_gather(mesh, fine)
@@ -165,13 +164,12 @@ class ShardedDecoder:
         fine[self._hp] = pyr2d.reshape(-1, C)
         fine = fine.reshape(self.h_pad, W, C)
         fine[0:hc * S:S, 0:wc * S:S] = coarse
+        # The finest level stores the pixels: the inverse colour (RGB), the
+        # clamps and the cast in its launch; the ranks gather bytes.
         rb = self.h_pad // mesh.size
-        spat = halo_dwt2d_inv(fine[mesh.rank * rb:(mesh.rank + 1) * rb],
-                              mesh, pyr)
-        spat = hosts.all_gather(mesh, spat)[:H]
-        if not gray:
-            spat = ycocg_to_rgb(spat)
-        return spat.clamp(0, 255).to(torch.uint8).cpu().numpy()
+        px = halo_dwt2d_inv(fine[mesh.rank * rb:(mesh.rank + 1) * rb], mesh,
+                            pyr, to_bytes=True)
+        return hosts.all_gather(mesh, px)[:H].cpu().numpy()
 
 
 def _gather_payloads(mesh: hosts.Mesh, payloads: list) -> list:

@@ -85,24 +85,25 @@ def global_mesh(device=None) -> Mesh:
     return Mesh(group, size, rank, dev)
 
 
-def shift(mesh: Mesh, t: torch.Tensor, step: int) -> torch.Tensor:
+def shift(mesh: Mesh, t: torch.Tensor, step: int,
+          out: torch.Tensor) -> torch.Tensor:
     """JAX's ``ppermute`` with pairs ``[(i + step, i)]``: this rank sends
-    ``t`` to rank ``rank - step`` and returns the ``t`` of rank
-    ``rank + step``, or zeros where there is no such rank (as ``ppermute``
-    gives them).  One ``batch_isend_irecv``."""
+    ``t`` to rank ``rank - step`` and receives the ``t`` of rank ``rank +
+    step`` into ``out`` (left as it was where there is no such rank, where
+    ``ppermute`` gives zeros: the halo levels never read it there).  One
+    ``batch_isend_irecv``; returns ``out``."""
     t = t.contiguous()
-    got = torch.zeros_like(t)
     ops = []
     dst, src = mesh.rank - step, mesh.rank + step
     if 0 <= dst < mesh.size:
         ops.append(dist.P2POp(dist.isend, t, dst, group=mesh.group))
         comm_log.append(("send", t.numel() * t.element_size()))
     if 0 <= src < mesh.size:
-        ops.append(dist.P2POp(dist.irecv, got, src, group=mesh.group))
+        ops.append(dist.P2POp(dist.irecv, out, src, group=mesh.group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return got
+    return out
 
 
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:

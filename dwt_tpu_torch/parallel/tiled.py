@@ -19,63 +19,25 @@ process a rank (``parallel/hosts.py``), each holding its own block of rows.
 * **Global truncation allocation** (:func:`allocate_budget`): the byte
   budget of the reference's CAPACITY mechanism across many tiles.
 
-The lifting and the exchanges are plain PyTorch and ``torch.distributed``,
-as they are plain array code in the JAX package.
+Each halo level runs on this rank's block as up to three launches of a
+hand-written kernel (``ops/halo.py``: kernel 18 forward, kernel 19
+inverse), with the two boundary rows exchanged between them
+(:func:`launch_plan`); at world size 1 a level is one launch.  On a CPU
+mesh the same steps run the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..geometry import Pyramid, compute_pyramid
+from ..ops.halo import BOT, NXT, PRV, TOP, Level, halo_forward, halo_inverse
 from ..ops.lifting import dwt2d_fwd
 from . import hosts
-
-
-def _tdiv(a: torch.Tensor, d: int) -> torch.Tensor:
-    return torch.div(a, d, rounding_mode="trunc")
-
-
-def _lift_fwd_strided(x: torch.Tensor, axis: int, stride: int,
-                      n_active: int) -> torch.Tensor:
-    """In-place (interleaved) forward lifting of ``x`` along ``axis`` on the
-    dyadic grid with ``stride``: positions i*stride for i < n_active
-    participate.  Equal to ``cdf53_fwd`` on the gathered active samples,
-    with the results left at their positions: evens keep their spots, odds
-    hold the high-pass values.  Writes into ``x`` (a view is fine) and
-    returns it."""
-    xm = x.movedim(axis, 0)
-    ev, od = xm[::2 * stride], xm[stride::2 * stride]
-    ne, no = ev.shape[0], od.shape[0]
-    right = ev[1:] if ne > no else torch.cat([ev[1:], ev[-1:]])
-    d = od - _tdiv(ev[:no] + right, 2)
-    upd = _tdiv(torch.cat([d[:1], d[:-1]]) + d, 4)
-    nupd = ne if n_active % 2 == 0 else ne - 1
-    s = torch.cat([ev[:nupd] + upd[:nupd], ev[nupd:]])
-    xm[::2 * stride] = s
-    xm[stride::2 * stride] = d
-    return x
-
-
-def _lift_inv_strided(x: torch.Tensor, axis: int, stride: int,
-                      n_active: int) -> torch.Tensor:
-    """Inverse of :func:`_lift_fwd_strided`, in place: un-update the evens,
-    then un-predict the odds, on the dyadic grid (cdf53.h:36-61 order and
-    signs)."""
-    xm = x.movedim(axis, 0)
-    ev, d = xm[::2 * stride], xm[stride::2 * stride]
-    ne, no = ev.shape[0], d.shape[0]
-    upd = _tdiv(torch.cat([d[:1], d[:-1]]) + d, 4)
-    nupd = ne if n_active % 2 == 0 else ne - 1
-    s = torch.cat([ev[:nupd] - upd[:nupd], ev[nupd:]])
-    right = s[1:] if ne > no else torch.cat([s[1:], s[-1:]])
-    od = d + _tdiv(s[:no] + right, 2)
-    xm[::2 * stride] = s
-    xm[stride::2 * stride] = od
-    return x
 
 
 def _deinterleave_map(pyr: Pyramid, n_levels: int) -> np.ndarray:
@@ -134,15 +96,15 @@ def pad_rows(x: torch.Tensor, pyr: Pyramid, n_dev: int) -> torch.Tensor:
 
 
 def rank_rows(img, mesh: hosts.Mesh, pyr: Pyramid) -> torch.Tensor:
-    """This rank's (h_pad / n, W, C) int32 block of ``pad_rows(img)`` on its
-    device, from an (H, W, C) numpy array or tensor: only these rows are
-    copied to the device, in their own dtype (widened there)."""
+    """This rank's rows of the (H, W, C) image (a numpy array or tensor)
+    on its device, as they are (uint8 for an image): the rows of its block
+    of the padded image that lie in the image, none on a rank whose block
+    is all pad.  Only these rows are copied; :func:`halo_dwt2d_fwd` reads
+    the rows past them as zeros."""
     _, h_pad = _halo_plan(pyr, mesh.size)
     rb = h_pad // mesh.size
-    rows = torch.as_tensor(img[mesh.rank * rb:(mesh.rank + 1) * rb])
-    rows = rows.to(mesh.device).to(torch.int32)
-    return torch.cat([rows, rows.new_zeros((rb - rows.shape[0],)
-                                           + rows.shape[1:])])
+    return torch.as_tensor(img[mesh.rank * rb:(mesh.rank + 1) * rb]).to(
+        mesh.device)
 
 
 def _level_rules(pyr: Pyramid, t: int) -> tuple:
@@ -155,57 +117,220 @@ def _level_rules(pyr: Pyramid, t: int) -> tuple:
     return 1 << t, w_act, n_even, n_even if h_act % 2 == 0 else n_even - 1
 
 
-def halo_dwt2d_fwd(xb: torch.Tensor, mesh: hosts.Mesh, pyr: Pyramid) -> tuple:
+class Step(NamedTuple):
+    """One step of a halo level on one rank: a launch of the level's kernel
+    in ``mode`` (``ops/halo.py``), or, with ``mode`` "shift", an exchange:
+    this rank sends its edge row ``send`` to rank ``rank - step`` and takes
+    rank ``rank + step``'s into its edge row ``recv`` (``hosts.shift``)."""
+    mode: str
+    send: int = 0
+    step: int = 0
+    recv: int = 0
+
+
+class LevelPlan(NamedTuple):
+    """A halo level of one rank (``ops/halo.py:Level``) and its steps in
+    order."""
+    level: Level
+    steps: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(pyr: Pyramid, n: int, rank: int,
+                inverse: bool = False) -> tuple:
+    """Rank ``rank``'s halo levels of ``n`` ranks (:class:`LevelPlan`), in
+    the order they run (the inverse's coarsest first), each with the
+    launches that run between its two exchanges.
+
+    Forward: the previous rank needs this rank's first row-lifted even row
+    before its predict, so "head" writes it and the first exchange sends
+    it; "bulk" runs the level and writes the last detail row, which the
+    second exchange sends to the next rank, whose first even row's update
+    ("fix") waits for it.  Inverse: the previous rank's last detail row is
+    input data, so "pack" writes it and the first exchange sends it before
+    any lifting; "head" un-updates the first even row with it, the second
+    exchange sends that row to the previous rank, and "bulk" runs the
+    level.  Every rank of several makes both exchanges (a rank without a
+    neighbour on one side sends or receives nothing there); a rank with no
+    previous rank has no "head" (nor, forward, "fix"), and, inverse, one
+    with no next rank no "pack".  At world size 1 a level is one "bulk"."""
+    n_halo, h_pad = _halo_plan(pyr, n)
+    rb = h_pad // n
+    plan = []
+    for t in (range(n_halo - 1, -1, -1) if inverse else range(n_halo)):
+        s, w, n_even, n_upd = _level_rules(pyr, t)
+        rows = rb // s
+        lv = Level(s, w, rows, rank * rows // 2, n_even, n_upd, rank > 0,
+                   rank < n - 1, t == n_halo - 1)
+        head = (Step("head"),) if lv.prev else ()
+        if n == 1:
+            steps = (Step("bulk"),)
+        elif inverse:
+            steps = (((Step("pack"),) if lv.next else ())
+                     + (Step("shift", BOT, -1, PRV),) + head
+                     + (Step("shift", TOP, 1, NXT), Step("bulk")))
+        else:
+            steps = (head + (Step("shift", TOP, 1, NXT), Step("bulk"),
+                             Step("shift", BOT, -1, PRV))
+                     + ((Step("fix"),) if lv.prev else ()))
+        plan.append(LevelPlan(lv, steps))
+    return tuple(plan)
+
+
+def forward_levels(rows: torch.Tensor, pyr: Pyramid, n: int, rank: int,
+                   colour: bool, fine: torch.Tensor, step=None):
+    """A generator of rank ``rank``'s forward halo levels on its rows (see
+    :func:`halo_dwt2d_fwd`), writing its fine block ``fine``: it yields
+    (edge rows, :class:`Step`) at each exchange for the caller to make,
+    and returns the coarsest level's compact LL quadrant.  ``step``: the
+    launches' function (``ops/halo.py:halo_forward``, or its plain
+    version; ``halo_forward`` when None)."""
+    step = step or halo_forward
+    C, src = fine.shape[2], rows
+    for lp in launch_plan(pyr, n, rank):
+        lv = lp.level
+        ll = fine.new_empty((lv.rows // 2, (lv.w + 1) // 2, C))
+        edge = fine.new_empty((4, lv.w, C))
+        for st in lp.steps:
+            if st.mode == "shift":
+                yield edge, st
+            else:
+                step(st.mode, lv, src, colour and lv.s == 1, fine, ll, edge)
+        src = ll
+    return src
+
+
+def inverse_levels(fb: torch.Tensor, pyr: Pyramid, n: int, rank: int,
+                   to_bytes: bool, step=None):
+    """A generator of rank ``rank``'s inverse halo levels on its
+    coefficient block ``fb`` (see :func:`halo_dwt2d_inv`): it yields (edge
+    rows, :class:`Step`) at each exchange for the caller to make, and
+    returns the image block.  ``step``: ``ops/halo.py:halo_inverse``, or
+    its plain version (``halo_inverse`` when None)."""
+    step = step or halo_inverse
+    C, ll = fb.shape[2], None
+    for lp in launch_plan(pyr, n, rank, inverse=True):
+        lv = lp.level
+        finest = lv.s == 1
+        out = fb.new_empty((lv.rows, lv.w, C), dtype=torch.uint8
+                           if finest and to_bytes else torch.int32)
+        edge = fb.new_empty((4, lv.w, C))
+        for st in lp.steps:
+            if st.mode == "shift":
+                yield edge, st
+            else:
+                step(st.mode, lv, fb, ll, edge, out)
+        ll = out
+    return ll
+
+
+def run_levels(levels, mesh: hosts.Mesh):
+    """Run a generator of :func:`forward_levels` or
+    :func:`inverse_levels`, making its exchanges with ``hosts.shift``;
+    returns its result."""
+    while True:
+        try:
+            edge, st = next(levels)
+        except StopIteration as done:
+            return done.value
+        hosts.shift(mesh, edge[st.send:st.send + 1], st.step,
+                    edge[st.recv:st.recv + 1])
+
+
+def play_ranks(levels: list) -> list:
+    """Run the generators of every rank (:func:`forward_levels` or
+    :func:`inverse_levels`, in rank order) in one process, in lockstep,
+    making their exchanges by copying edge rows from rank to rank as
+    ``hosts.shift`` moves them between processes; returns their results
+    in rank order.  It checks the steps of several ranks on one device."""
+    while True:
+        got = []
+        for g in levels:
+            try:
+                got.append(next(g))
+            except StopIteration as done:
+                got.append(done)
+        if all(isinstance(x, StopIteration) for x in got):
+            return [x.value for x in got]
+        for r, (edge, st) in enumerate(got):
+            if 0 <= r + st.step < len(got):
+                edge[st.recv] = got[r + st.step][0][st.send]
+
+
+def play_forward(img: torch.Tensor, pyr: Pyramid, n: int, colour: bool,
+                 step=None) -> tuple:
+    """The forward halo levels of the (H, W, C) image ``img`` as ``n`` ranks
+    run them, played in one process (:func:`play_ranks`), ``step`` as in
+    :func:`forward_levels`: (the whole (h_pad, W, C) fine buffer, the
+    coarse grid every rank gathers)."""
+    rb = _halo_plan(pyr, n)[1] // n
+    fines = [torch.empty((rb,) + tuple(img.shape[1:]), dtype=torch.int32,
+                         device=img.device) for _ in range(n)]
+    grids = play_ranks([forward_levels(img[r * rb:(r + 1) * rb], pyr, n, r,
+                                       colour, fines[r], step)
+                        for r in range(n)])
+    return torch.cat(fines), torch.cat(grids)
+
+
+def play_inverse(fine: torch.Tensor, pyr: Pyramid, n: int, to_bytes: bool,
+                 step=None) -> torch.Tensor:
+    """The inverse halo levels of the whole (h_pad, W, C) fine buffer as
+    ``n`` ranks run them, played in one process: the whole image buffer."""
+    rb = fine.shape[0] // n
+    return torch.cat(play_ranks([
+        inverse_levels(fine[r * rb:(r + 1) * rb], pyr, n, r, to_bytes, step)
+        for r in range(n)]))
+
+
+def _check_block(name: str, xb: torch.Tensor, mesh: hosts.Mesh,
+                 pyr: Pyramid, short: bool) -> int:
+    """The rows of a rank's block; raises unless ``xb`` is (rb, W, C) (at
+    most rb rows where ``short``) on the mesh's device."""
+    rb = _halo_plan(pyr, mesh.size)[1] // mesh.size
+    if xb.dim() != 3 or xb.shape[1] != pyr.width or xb.shape[0] > rb \
+            or (xb.shape[0] < rb and not short):
+        raise ValueError(f"{name}: a block of {tuple(xb.shape)} is not one "
+                         f"of {mesh.size} blocks of ({rb * mesh.size}, "
+                         f"{pyr.width}, C)")
+    if xb.device != mesh.device:
+        raise ValueError(f"{name}: a block on {xb.device} for a mesh on "
+                         f"{mesh.device}")
+    return rb
+
+
+def halo_dwt2d_fwd(xb: torch.Tensor, mesh: hosts.Mesh, pyr: Pyramid,
+                   colour: bool = False) -> tuple:
     """Forward multi-level 2-D DWT of a row-sharded image.
 
-    ``xb``: this rank's (h_pad / n, W, C) int32 block of the padded image
-    (:func:`pad_rows`, :func:`rank_rows`).  Returns (fine, coarse): ``fine``
-    is this rank's block of the interleaved buffer holding every halo
-    level's results; ``coarse`` is the deinterleaved transform of the
+    ``xb``: this rank's rows of the padded image (:func:`rank_rows`), at
+    most h_pad / n rows of (W, C), uint8 or int32 (other integer types are
+    widened), on the mesh's device; the rows past them read as zeros, as
+    :func:`pad_rows` makes them.  ``colour``: RGB rows, YCoCg-R applied as
+    they load (C == 3).  Returns (fine, coarse): ``fine`` is this rank's
+    (h_pad / n, W, C) int32 block of the interleaved buffer holding every
+    halo level's results; ``coarse`` is the deinterleaved transform of the
     remaining levels' LL image, the same on every rank.  Reassemble with
-    :func:`assemble_pyramid`.
+    :func:`assemble_pyramid`.  On a card the levels are kernel 18's
+    launches (:func:`launch_plan`); on a CPU mesh its plain version's.
 
     On arbitrary heights: the active grid of level t has exactly
-    heights[L - t] real rows, all inside the image; per-row masks apply the
-    reference's edge rules at the true boundary, so pad rows only ever
+    heights[L - t] real rows, all inside the image; the edge rules apply
+    at the true boundary by global row index, so pad rows only ever
     receive garbage and never feed a real row."""
-    n_halo, h_pad = _halo_plan(pyr, mesh.size)
-    L = pyr.levels
-    if tuple(xb.shape[:2]) != (h_pad // mesh.size, pyr.width):
-        raise ValueError(f"halo_dwt2d_fwd: a block of {tuple(xb.shape)} is "
-                         f"not one of {mesh.size} blocks of ({h_pad}, "
-                         f"{pyr.width}, C)")
-    out = xb.clone()
-    for t in range(n_halo):
-        s, w_act, n_even, n_upd = _level_rules(pyr, t)
-        # Row pass: local, on the active rows (pad rows too: harmless).
-        _lift_fwd_strided(out[::s], 1, s, w_act)
-        # Column pass on the active grid, with one row from each neighbour.
-        ev, od = out[::2 * s, ::s], out[s::2 * s, ::s]
-        ne = ev.shape[0]
-        jg = mesh.rank * ne + torch.arange(ne, device=out.device)
-        # Predict: odd j's right neighbour is even j + 1, the next rank's
-        # first even for the last odd here; at the true edge (j + 1 >=
-        # n_even) the odd clamps to its own left even (cdf53.h:15-17).
-        right = torch.cat([ev[1:], hosts.shift(mesh, ev[:1], 1)])
-        right = torch.where((jg + 1 >= n_even)[:, None, None], ev, right)
-        d = od - _tdiv(ev + right, 2)
-        # Update: even j's left neighbour is odd j - 1, the previous rank's
-        # last odd for the first even here; the global first even clamps to
-        # its own odd (cdf53.h:19-20); evens from n_upd keep their value.
-        prev = hosts.shift(mesh, d[-1:], -1)
-        left = torch.cat([d[:1] if mesh.rank == 0 else prev, d[:-1]])
-        sc = ev + _tdiv(left + d, 4)
-        sc = torch.where((jg < n_upd)[:, None, None], sc, ev)
-        out[::2 * s, ::s] = sc
-        out[s::2 * s, ::s] = d
+    rb = _check_block("halo_dwt2d_fwd", xb, mesh, pyr, short=True)
+    if xb.dtype not in (torch.uint8, torch.int32):
+        xb = xb.to(torch.int32)
+    fine = torch.empty((rb, pyr.width, xb.shape[2]), dtype=torch.int32,
+                       device=xb.device)
+    ll = run_levels(forward_levels(xb.contiguous(), pyr, mesh.size,
+                                   mesh.rank, colour, fine), mesh)
     # Gather the coarse active grid and finish it on every rank.
-    S = 1 << n_halo
+    n_halo, L = _halo_plan(pyr, mesh.size)[0], pyr.levels
     hc, wc = pyr.heights[L - n_halo], pyr.widths[L - n_halo]
-    coarse = hosts.all_gather(mesh, out[::S, ::S][:, :wc])[:hc]
+    coarse = hosts.all_gather(mesh, ll)[:hc]
     if n_halo < L:
         coarse = dwt2d_fwd(coarse, compute_pyramid(wc, hc))
-    return out, coarse
+    return fine, coarse
 
 
 def halo_perm(pyr: Pyramid, n_dev: int) -> np.ndarray:
@@ -233,40 +358,27 @@ def assemble_pyramid(fine: torch.Tensor, coarse: torch.Tensor, pyr: Pyramid,
     return flat[idx].reshape((pyr.height, W) + tuple(out.shape[2:]))
 
 
-def halo_dwt2d_inv(fb: torch.Tensor, mesh: hosts.Mesh,
-                   pyr: Pyramid) -> torch.Tensor:
+def halo_dwt2d_inv(fb: torch.Tensor, mesh: hosts.Mesh, pyr: Pyramid,
+                   to_bytes: bool = False) -> torch.Tensor:
     """Inverse multi-level 2-D DWT of a row-sharded coefficient buffer.
 
     ``fb``: this rank's (h_pad / n, W, C) int32 block of the interleaved
     halo layout with every coefficient placed (the coarse tail already
-    inverted and written onto its dyadic grid, as ``ShardedDecoder`` does).
-    Mirrors :func:`halo_dwt2d_fwd`: level by level, coarsest first, the
-    inverse column lifting with one row from each neighbour (un-update
-    needs the previous rank's last odd, un-predict the next rank's first
-    un-updated even), then the local inverse row lifting (decode.c:16-30
-    order).  Returns this rank's block of the image (rows >= H: garbage)."""
-    n_halo, h_pad = _halo_plan(pyr, mesh.size)
-    if tuple(fb.shape[:2]) != (h_pad // mesh.size, pyr.width):
-        raise ValueError(f"halo_dwt2d_inv: a block of {tuple(fb.shape)} is "
-                         f"not one of {mesh.size} blocks of ({h_pad}, "
-                         f"{pyr.width}, C)")
-    out = fb.clone()
-    for t in range(n_halo - 1, -1, -1):
-        s, w_act, n_even, n_upd = _level_rules(pyr, t)
-        ev, d = out[::2 * s, ::s], out[s::2 * s, ::s]
-        ne = ev.shape[0]
-        jg = mesh.rank * ne + torch.arange(ne, device=out.device)
-        prev = hosts.shift(mesh, d[-1:], -1)
-        left = torch.cat([d[:1] if mesh.rank == 0 else prev, d[:-1]])
-        sc = ev - _tdiv(left + d, 4)
-        sc = torch.where((jg < n_upd)[:, None, None], sc, ev)
-        right = torch.cat([sc[1:], hosts.shift(mesh, sc[:1], 1)])
-        right = torch.where((jg + 1 >= n_even)[:, None, None], sc, right)
-        od = d + _tdiv(sc + right, 2)
-        out[::2 * s, ::s] = sc
-        out[s::2 * s, ::s] = od
-        _lift_inv_strided(out[::s], 1, s, w_act)
-    return out
+    inverted and written onto its dyadic grid, as ``ShardedDecoder`` does),
+    on the mesh's device.  Mirrors :func:`halo_dwt2d_fwd`: level by level,
+    coarsest first, the inverse column lifting with one row from each
+    neighbour (un-update needs the previous rank's last odd, un-predict the
+    next rank's first un-updated even), then the inverse row lifting
+    (decode.c:16-30 order).  Returns this rank's int32 block of the image
+    (rows >= H: garbage); with ``to_bytes`` its uint8 pixels instead: for
+    RGB (C == 3) after the inverse colour and its decode-side clamps, then
+    the clamp to [0, 255].  On a card the levels are kernel 19's launches
+    (:func:`launch_plan`); on a CPU mesh its plain version's."""
+    _check_block("halo_dwt2d_inv", fb, mesh, pyr, short=False)
+    if fb.dtype != torch.int32:
+        raise ValueError(f"halo_dwt2d_inv: an int32 block, not {fb.dtype}")
+    return run_levels(inverse_levels(fb.contiguous(), pyr, mesh.size,
+                                     mesh.rank, to_bytes), mesh)
 
 
 # ---------------------------------------------------------------------------

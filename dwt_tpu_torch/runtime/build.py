@@ -83,6 +83,18 @@ def view(t) -> View:
     return View(t.data_ptr(), *t.stride())
 
 
+class HaloArgs(ctypes.Structure):
+    """The C struct of one halo level of one rank's block that the
+    wrappers of kernels 18 and 19 pass by value (``ops/halo.py:_args``)."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("src", "fine", "ll", "edge",
+                                                "out")]
+                + [("fine_row", ctypes.c_int64)]
+                + [(k, ctypes.c_int) for k in (
+                    "src_rows", "src_u8", "colour", "out_u8", "s", "w",
+                    "rows", "g0", "n_even", "n_upd", "prev", "next",
+                    "coarsest", "C", "bp")])
+
+
 # C entry points -> argument types.  Every pointer and the CUDA stream go
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
@@ -166,6 +178,9 @@ ENTRY_POINTS = {
     #  of csrc/emit_tables.cu's 3 outputs and its launch plan, by value
     "dwt_emit_tables": (_P,) * 22 + (_L,) * 9 + (_P, offsets(3), EmitPlan,
                                                  _P),
+    # (level, mode, stream): the level by value
+    "dwt_halo_forward": (HaloArgs, _I, _P),
+    "dwt_halo_inverse": (HaloArgs, _I, _P),
 }
 
 

@@ -959,6 +959,44 @@ def test_sharded_world1_nccl_equals_single(cuda):
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("n", (1, 2, 3))
+@pytest.mark.parametrize("w,h,c", [(63, 64, 3), (200, 37, 1), (31, 270, 3),
+                                   (513, 8, 3), (1001, 777, 3)])
+def test_halo_kernels_equal_plain(cuda, w, h, c, n):
+    """Kernels 18 and 19, every mode of both, at n ranks played on the
+    card, equal their plain versions exactly: uint8 rows with the colour
+    (RGB) to uint8 pixels, and signed int32 rows to int32; each launches
+    once a level at world size 1 and the inverse gives the image back."""
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.ops import halo
+    from dwt_tpu_torch.parallel import tiled
+
+    def played(img, fwd, inv, colour, to_bytes):
+        fine, grid = tiled.play_forward(img, pyr, n, colour, fwd)
+        return fine, grid, tiled.play_inverse(fine, pyr, n, to_bytes, inv)
+
+    pyr = compute_pyramid(w, h)
+    gen = torch.Generator(device=cuda).manual_seed(w * h + n)
+    u8 = torch.randint(0, 256, (h, w, c), dtype=torch.uint8, device=cuda,
+                       generator=gen)
+    i32 = torch.randint(-255, 256, (h, w, c), dtype=torch.int32,
+                        device=cuda, generator=gen)
+    for img, colour, to_bytes in ((u8, c == 3, True), (i32, False, False)):
+        before = (halo.halo_forward.launches, halo.halo_inverse.launches)
+        got = played(img, halo.halo_forward, halo.halo_inverse, colour,
+                     to_bytes)
+        launched = (halo.halo_forward.launches - before[0],
+                    halo.halo_inverse.launches - before[1])
+        want = played(img, halo.halo_forward_plain, halo.halo_inverse_plain,
+                      colour, to_bytes)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(got[2][:h], img.to(got[2].dtype))
+        if n == 1:
+            levels = tiled._halo_plan(pyr, 1)[0]
+            assert launched == (levels, levels)
+
+
 def _cli(argv, device):
     """(exit code, stdout bytes) of the port's CLI run in this process."""
     import contextlib

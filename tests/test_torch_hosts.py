@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from torch_ranks import free_port
+from torch_ranks import reserve_port
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -50,20 +50,23 @@ WORKER = textwrap.dedent("""
 def test_two_process_initialize_and_collective(tmp_path):
     script = tmp_path / "worker.py"
     script.write_text(WORKER % {"root": str(ROOT)})
-    port = str(free_port())
-    procs = [subprocess.Popen([sys.executable, str(script), str(pid), port],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True)
-             for pid in (0, 1)]
-    outs = []
-    for p in procs:
-        try:
-            out, err = p.communicate(timeout=120)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append((p.returncode, out, err))
+    # The coordinator's port stays reserved while the workers run: let go
+    # before rank 0 binds it, another test's ranks could take it.
+    with reserve_port() as held:
+        port = str(held.getsockname()[1])
+        procs = [subprocess.Popen([sys.executable, str(script), str(pid),
+                                   port], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for pid in (0, 1)]
+        outs = []
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            outs.append((p.returncode, out, err))
     for rc, out, err in outs:
         assert rc == 0, f"worker failed rc={rc}\n{out}\n{err}"
         assert "HOSTS_OK" in out, out

@@ -224,7 +224,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert build.library_path().parent.parent == tmp_path
     assert [p.name for p in build.sources()] == [
         "codeword.cu", "compact.cu", "emit_tables.cu", "finish.cu",
-        "hilbert_gather.cu", "hilbert_scatter.cu", "lifting.cu",
+        "halo_lifting.cu", "hilbert_gather.cu", "hilbert_scatter.cu",
+        "lifting.cu",
         "lifting_inv.cu", "pack.cu", "plane_stats.cu", "probe.cu",
         "runtime.cu", "schedule.cu", "transpose.cu", "units.cu",
         "vli_scan.cu"]

@@ -22,10 +22,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def reserve_port() -> socket.socket:
+    """A socket that holds a free TCP port of this host (``getsockname()``)
+    until it is closed: bound with SO_REUSEADDR and not listening, so that
+    a process group's store, which binds its port the same way, can listen
+    on it, while no other socket of the host takes the port meanwhile.  A
+    port found free and let go at once can be taken by the sockets of
+    another test's ranks before the store binds it."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("localhost", 0))
+    return s
 
 
 def halo_image(w: int, h: int, seed: int) -> np.ndarray:
@@ -67,6 +74,31 @@ def halo_inv(mesh, fine: np.ndarray, w: int, h: int) -> tuple:
     return out.numpy(), list(hosts.comm_log)
 
 
+def halo_rgb(mesh, img: np.ndarray, fine: np.ndarray) -> tuple:
+    """The fused colour routes on a uint8 RGB image: this rank's fine
+    block and the coarse result of ``halo_dwt2d_fwd(rank_rows(img),
+    colour=True)`` with the collectives it made, and the gathered uint8
+    pixels (H rows) of ``halo_dwt2d_inv(to_bytes=True)`` of the whole
+    ``fine`` buffer."""
+    import torch
+
+    from dwt_tpu_torch.geometry import compute_pyramid
+    from dwt_tpu_torch.parallel import hosts, tiled
+
+    h, w = img.shape[:2]
+    pyr = compute_pyramid(w, h)
+    hosts.comm_log.clear()
+    fb, coarse = tiled.halo_dwt2d_fwd(tiled.rank_rows(img, mesh, pyr), mesh,
+                                      pyr, colour=True)
+    log = list(hosts.comm_log)
+    rb = fine.shape[0] // mesh.size
+    px = tiled.halo_dwt2d_inv(
+        torch.as_tensor(fine[mesh.rank * rb:(mesh.rank + 1) * rb]), mesh,
+        pyr, to_bytes=True)
+    px = hosts.all_gather(mesh, px)[:h]
+    return fb.numpy(), coarse.numpy(), px.numpy(), log
+
+
 def encode(mesh, img: np.ndarray) -> bytes:
     from dwt_tpu_torch.parallel.encode import ShardedEncoder
 
@@ -87,8 +119,8 @@ def encode_tiled(mesh, img: np.ndarray, tile: tuple, budget: int) -> bytes:
     return encode_tiled_sharded(img, mesh, tile=tile, budget=budget)
 
 
-TASKS = {f.__name__: f for f in (halo_fwd, halo_inv, encode, decode,
-                                 encode_tiled)}
+TASKS = {f.__name__: f for f in (halo_fwd, halo_inv, halo_rgb, encode,
+                                 decode, encode_tiled)}
 
 
 def _serve(rank: int, n: int, port: int, tasks, results) -> None:
@@ -121,7 +153,8 @@ class Ranks:
         self.n, self.timeout = n, timeout
         self.results = ctx.Queue()
         self.tasks = [ctx.Queue() for _ in range(n)]
-        port = free_port()
+        self.port = reserve_port()  # held until close()
+        port = self.port.getsockname()[1]
         self.procs = [ctx.Process(target=_serve, daemon=True,
                                   args=(r, n, port, self.tasks[r],
                                         self.results))
@@ -157,3 +190,4 @@ class Ranks:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
+        self.port.close()
