@@ -188,8 +188,9 @@ seconds:
              to the two container digests ("sharded tiled encode",
              "budgeted sharded tiled encode").  The sharded encode's
              halo levels are kernel 18's launches and the decode's
-             kernel 19's (one a halo level at world size 1; their JSON
-             rows from these calls: held to their plain versions, timed
+             kernel 19's (at world size 1 seven a call at 4K: levels 0
+             and 1 in one, then one a level; their JSON rows
+             from these calls: held to their plain versions, timed
              by CUDA events and torch.profiler beside the plain versions
              and their byte bounds); the two routes are run again with
              the halo levels' plain versions, the eager colour
@@ -201,8 +202,8 @@ seconds:
              int32); ``tools/halo_kernels.py``, in a process of its own
              on an NCCL group of one rank, times each launch of one warm
              4K ``halo_dwt2d_fwd`` and ``halo_dwt2d_inv`` by
-             torch.profiler, counts the call's device launches (a halo
-             level) and times it by the host clock.  The sharded encode
+             torch.profiler with the levels each covers, counts the
+             call's device launches and times it by the host clock.  The sharded encode
              reaches stage 1's transform kernel only through the halo
              DWT's coarse tail (``dwt2d_fwd`` on the
              levels below the halo levels) and its plane statistics
@@ -423,10 +424,22 @@ def sub_batch_launches(pyr) -> dict:
             "forward_transform": len(lifting.launch_levels(pyr))}
 
 
+def fresh(a):
+    """A copy of a kernel's argument: a tensor cloned, anything else as it
+    is."""
+    return a.clone() if hasattr(a, "clone") else a
+
+
 def max_abs_err(name: str, kernel_out, plain_out) -> int:
     """Largest difference of two integer outputs (as uint32 bit patterns),
-    or of two tuples of them, part by part; raises if their shapes or
-    dtypes differ."""
+    or of two tuples of them, part by part (a part None in both, as the
+    halo launches' edge rows without neighbours, differs by 0); raises if
+    their shapes or dtypes differ."""
+    if kernel_out is None or plain_out is None:
+        if kernel_out is not plain_out:
+            raise AssertionError(f"{name}: kernel gives {kernel_out!r}, "
+                                 f"plain {plain_out!r}")
+        return 0
     if isinstance(kernel_out, tuple):
         if len(kernel_out) != len(plain_out):
             raise AssertionError(f"{name}: kernel gives {len(kernel_out)} "
@@ -610,8 +623,9 @@ class Kernels:
              "dwt_tpu/codec/encoder.py:916, :1000, :1018, :844",
              ENCODE_PATHS),
             # Kernels 18 and 19, the halo levels of the row-sharded
-            # transform (up to three launches a level, one at world size
-            # 1).  No TPU kernel: they replace the JAX package's XLA
+            # transform (up to three launches a level; at world size 1 the
+            # two finest levels in one launch, one a level after them).
+            # No TPU kernel: they replace the JAX package's XLA
             # halo_dwt2d_fwd and halo_dwt2d_inv inside shard_map, with the
             # colour of sharded_lin and the ShardedDecoder's inverse.
             ("halo_forward", halo_ops.halo_forward,
@@ -662,8 +676,7 @@ class Kernels:
                 if key not in seen:
                     seen.add(key)
                     store.setdefault(name, []).append(tuple(
-                        a.clone() if hasattr(a, "clone") else a
-                        for a in args))
+                        fresh(a) for a in args))
                 return fn(*args, **kwargs)
             return run
 
@@ -682,16 +695,13 @@ class Kernels:
         held}."""
         import torch
 
-        def fresh(args):
-            return [a.clone() if hasattr(a, "clone") else a for a in args]
-
         for name, calls in store.items():
             kernel, plain = self.pairs[name]
             if name == "emit_tables":
                 emit_in_order(torch, calls)
             for args in calls:
-                err = max_abs_err(name, kernel(*fresh(args)),
-                                  plain(*fresh(args)))
+                err = max_abs_err(name, kernel(*map(fresh, args)),
+                                  plain(*map(fresh, args)))
                 if err != 0:
                     shapes = [tuple(a.shape) for a in args
                               if hasattr(a, "shape")]
@@ -3617,13 +3627,16 @@ def two_ranks(torch) -> None:
 
 
 # Kernels 18 and 19 on seeded images (w, h, C): odd and even sides, strips
-# of 28 columns cut anywhere, pad rows, plans of one level and of the
-# deepest, the 4K frame; each at 1-3 ranks played on the card
+# of 28 columns and the pair's tiles of 504 cut anywhere, widths below a
+# tile, pad rows, plans of one level and of the deepest, the pair with
+# the fewest rows it takes (513x16), the 4K frame; each at 1-3 ranks
+# played on the card
 # (``tiled.play_ranks``), as uint8 RGB (or gray) rows with the colour and
 # uint8 pixels out, as uint8 rows with int32 out, and as signed int32 rows.
 HALO_SWEEP = ((64, 64, 3), (63, 64, 1), (64, 63, 3), (17, 1024, 1),
               (200, 37, 3), (31, 270, 3), (8, 8, 1), (513, 8, 3),
-              (1001, 777, 3), (3840, 2160, 3))
+              (1001, 777, 3), (1001, 77, 3), (100, 600, 1), (513, 16, 3),
+              (3840, 2160, 3))
 HALO_FWD_NAME, HALO_INV_NAME = "halo_fwd_kernel", "halo_inv_kernel"
 
 
@@ -3678,9 +3691,9 @@ def halo_sweep(torch) -> str:
 
 
 def halo_fwd_work(calls: list) -> int:
-    """The bytes one 4K sharded encode's forward halo levels (their kept
+    """The bytes one 4K sharded encode's forward halo launches (their kept
     calls, finest first) must move: the image's rows read once, the fine
-    block written once and the coarse grid (the last level's compact LL)
+    block written once and the coarse grid (the last launch's compact LL)
     written once."""
     src, fine, ll = calls[0][2], calls[0][4], calls[-1][5]
     return (src.numel() * src.element_size() + 4 * fine.numel()
@@ -3688,8 +3701,8 @@ def halo_fwd_work(calls: list) -> int:
 
 
 def halo_inv_work(calls: list) -> int:
-    """The bytes one sharded decode's inverse halo levels (coarsest first)
-    must move: the fine block read once, the finest level's pixels
+    """The bytes one sharded decode's inverse halo launches (coarsest
+    first) must move: the fine block read once, the finest level's pixels
     written once."""
     fine, out = calls[0][2], calls[-1][5]
     return 4 * fine.numel() + out.numel() * out.element_size()
@@ -3701,8 +3714,8 @@ def halo_device(card: str) -> dict:
     kernels 18 and 19 in one warm 4K ``halo_dwt2d_fwd`` and
     ``halo_dwt2d_inv`` by torch.profiler, the call's device launches and
     its host time; {wrapper: its JSON line}.  Raises unless each call
-    launches its kernel once a halo level and at most three device
-    launches a level in all."""
+    launches its kernel as ``tiled.launch_plan`` plans (seven launches at
+    4K) and makes at most three device launches a kernel launch in all."""
     r = subprocess.run([sys.executable, os.path.join(
         ROOT, "tools", "halo_kernels.py")], capture_output=True, text=True,
         timeout=600)
@@ -3713,20 +3726,21 @@ def halo_device(card: str) -> dict:
     for line in r.stdout.splitlines():
         got = json.loads(line)
         out[got["wrapper"]] = got
-        n, levels = sum(got["device_launches"].values()), got["halo_levels"]
-        if got["kernel_launches"] != levels or n > 3 * levels:
-            raise AssertionError(f"{got['call']}: {got['kernel_launches']} "
-                                 f"launches of {got['kernel']} and {n} "
-                                 f"device launches for {levels} halo levels")
+        n, k = sum(got["device_launches"].values()), got["kernel_launches"]
+        if k != got["planned_launches"] or n > 3 * k:
+            raise AssertionError(f"{got['call']}: {k} launches of "
+                                 f"{got['kernel']} ({got['planned_launches']}"
+                                 f" planned) and {n} device launches")
         progress(f"device: one warm 4K {got['call']} at world size 1 on "
-                 f"NCCL: kernel {got['kernel']} by launch (stride, columns, "
-                 f"rows: device ms) "
-                 + ", ".join(f"{tuple(p['level'])}: {p['device_ms']:.4f}"
+                 f"NCCL: kernel {got['kernel']} by launch (the levels' "
+                 f"stride, columns, rows: device ms) "
+                 + ", ".join(f"{[tuple(lv) for lv in p['levels']]}: "
+                             f"{p['device_ms']:.4f}"
                              for p in got["launches"] or [])
                  + f"; sum {got['device_ms']} ms by torch.profiler (None: "
-                 f"records lost); {got['kernel_launches']} launches of the "
-                 f"kernel, {n} device launches in all ({n / levels:.2f} a "
-                 f"halo level: {got['device_launches']}, profiler session "
+                 f"records lost); {k} launches of the kernel for "
+                 f"{got['halo_levels']} halo levels, {n} device launches in "
+                 f"all ({got['device_launches']}, profiler session "
                  f"{got['profiler_session']}); CUDA events "
                  f"{got['event_ms']:.4f} ms; host "
                  + ", ".join(f"{t:.3f}" for t in got["host_ms"])
@@ -3737,7 +3751,8 @@ def halo_device(card: str) -> dict:
 def halo_rows(torch, kept: dict, launches: dict, rows: list,
               device: dict) -> None:
     """Kernels 18 and 19 on the 4K sharded encode's and decode's kept calls
-    (world size 1: one "bulk" launch a level), replayed in order: held to
+    (world size 1: the pair of the two finest levels, then one "bulk"
+    launch a level), replayed in order: held to
     their plain versions, timed by CUDA events beside the plain versions,
     and their bounds, with the device time of ``device``
     (:func:`halo_device`); a row each into ``rows``."""
@@ -3749,10 +3764,8 @@ def halo_rows(torch, kept: dict, launches: dict, rows: list,
             ("halo_inverse", halo.halo_inverse, halo.halo_inverse_plain,
              halo_inv_work)):
         calls = kept[name]
-        err = max(max_abs_err(name, fn(*[a.clone() if hasattr(a, "clone")
-                                         else a for a in args]),
-                              plain(*[a.clone() if hasattr(a, "clone")
-                                      else a for a in args]))
+        err = max(max_abs_err(name, fn(*map(fresh, args)),
+                              plain(*map(fresh, args)))
                   for args in calls)
         if err:
             raise AssertionError(f"{name}: kernel differs from its plain "
@@ -3762,8 +3775,9 @@ def halo_rows(torch, kept: dict, launches: dict, rows: list,
         dev = device[name]["device_ms"]
         dev = float("nan") if dev is None else dev
         nbytes = work(calls)
-        # The compact LL buffers between the levels (the forward's ll, the
-        # inverse's outputs but the last): each written once, read once.
+        # The compact grids between the launches (the forward's LL
+        # quadrants but the last, the inverse's outputs but the finest):
+        # each written once, read once.
         ll = sum(8 * a[5].numel() for a in calls[:-1])
         bound, by = bound_of(nbytes)
         row = dict(name=name, route="cuda",
@@ -3777,8 +3791,9 @@ def halo_rows(torch, kept: dict, launches: dict, rows: list,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    library_ms=None, device_ms=dev)
         progress(f"kernels: {name} at 4K, world size 1, {len(calls)} "
-                 f"launches ({[tuple(a[1][:3]) for a in calls]} as (stride, "
-                 f"columns, rows)), equal to its plain version; {ms:.3f} ms "
+                 f"launches ({[[tuple(lv[:3]) for lv in a[1]] for a in calls]}"
+                 f" as (stride, columns, rows) of each launch's levels), "
+                 f"equal to its plain version; {ms:.3f} ms "
                  f"(plain {plain_ms:.3f} ms, device {dev:.4f} ms by "
                  f"torch.profiler in tools/halo_kernels.py, share "
                  f"{bound / dev:.2f}, bound {bound:.4f} ms by {by}, "

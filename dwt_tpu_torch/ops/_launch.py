@@ -76,11 +76,11 @@ def arena_layout(specs) -> tuple:
 
 def carve(nbytes: int, views: tuple, device) -> list:
     """One new allocation of ``nbytes`` on ``device`` and the outputs of
-    ``arena_layout`` as views of it (bool ones of its bytes through
-    ``.view(torch.bool)``).  Every call allocates anew: the views of an
+    ``arena_layout`` as views of it (bool and uint8 ones of its bytes).
+    Every call allocates anew: the views of an
     earlier call stay as they were."""
     arena = torch.empty(nbytes, dtype=torch.uint8, device=device)
     typed = {torch.int32: arena.view(torch.int32),
-             torch.bool: arena.view(torch.bool)}
+             torch.bool: arena.view(torch.bool), torch.uint8: arena}
     return [typed[dt].as_strided(shape, strides, off)
             for dt, shape, strides, off in views]

@@ -19,11 +19,13 @@ process a rank (``parallel/hosts.py``), each holding its own block of rows.
 * **Global truncation allocation** (:func:`allocate_budget`): the byte
   budget of the reference's CAPACITY mechanism across many tiles.
 
-Each halo level runs on this rank's block as up to three launches of a
-hand-written kernel (``ops/halo.py``: kernel 18 forward, kernel 19
-inverse), with the two boundary rows exchanged between them
-(:func:`launch_plan`); at world size 1 a level is one launch.  On a CPU
-mesh the same steps run the kernels' plain versions.
+The halo levels run on this rank's block as launches of a hand-written
+kernel (``ops/halo.py``: kernel 18 forward, kernel 19 inverse;
+:func:`launch_plan`): at world size 1 the two finest levels in one launch
+and a launch a level after them (seven launches at 3840x2160), with
+neighbours up to three launches a level with the two boundary rows
+exchanged between them.  On a CPU mesh the same steps run the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ import numpy as np
 import torch
 
 from ..geometry import Pyramid, compute_pyramid
-from ..ops.halo import BOT, NXT, PRV, TOP, Level, halo_forward, halo_inverse
+from ..ops._launch import arena_layout, carve
+from ..ops.halo import (BOT, NXT, PRV, TOP, Level, halo_forward,
+                        halo_inverse, ll_shape)
 from ..ops.lifting import dwt2d_fwd
 from . import hosts
 
@@ -128,98 +132,134 @@ class Step(NamedTuple):
     recv: int = 0
 
 
-class LevelPlan(NamedTuple):
-    """A halo level of one rank (``ops/halo.py:Level``) and its steps in
-    order."""
-    level: Level
+class Launch(NamedTuple):
+    """A launch's halo levels of one rank (``ops/halo.py:Level``, finest
+    first: one, or the pair of the two finest) and its steps in order."""
+    levels: tuple
     steps: tuple
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(pyr: Pyramid, n: int, rank: int,
                 inverse: bool = False) -> tuple:
-    """Rank ``rank``'s halo levels of ``n`` ranks (:class:`LevelPlan`), in
-    the order they run (the inverse's coarsest first), each with the
-    launches that run between its two exchanges.
+    """Rank ``rank``'s halo launches of ``n`` ranks (:class:`Launch`), in
+    the order they run (the inverse's coarsest first).
 
-    Forward: the previous rank needs this rank's first row-lifted even row
-    before its predict, so "head" writes it and the first exchange sends
-    it; "bulk" runs the level and writes the last detail row, which the
-    second exchange sends to the next rank, whose first even row's update
-    ("fix") waits for it.  Inverse: the previous rank's last detail row is
-    input data, so "pack" writes it and the first exchange sends it before
-    any lifting; "head" un-updates the first even row with it, the second
-    exchange sends that row to the previous rank, and "bulk" runs the
-    level.  Every rank of several makes both exchanges (a rank without a
-    neighbour on one side sends or receives nothing there); a rank with no
-    previous rank has no "head" (nor, forward, "fix"), and, inverse, one
-    with no next rank no "pack".  At world size 1 a level is one "bulk"."""
+    At world size 1 the two finest levels are one launch (the pair,
+    ``ops/halo.py``) and every coarser level one more, each one "bulk".
+    With neighbours a launch is one level, with the launches that run
+    between its two exchanges.  Forward: the previous rank needs this
+    rank's first row-lifted even row before its predict, so "head" writes
+    it and the first exchange sends it; "bulk" runs the level and writes
+    the last detail row, which the second exchange sends to the next rank,
+    whose first even row's update ("fix") waits for it.  Inverse: the
+    previous rank's last detail row is input data, so "pack" writes it and
+    the first exchange sends it before any lifting; "head" un-updates the
+    first even row with it, the second exchange sends that row to the
+    previous rank, and "bulk" runs the level.  Every rank of several makes
+    both exchanges (a rank without a neighbour on one side sends or
+    receives nothing there); a rank with no previous rank has no "head"
+    (nor, forward, "fix"), and, inverse, one with no next rank no
+    "pack"."""
     n_halo, h_pad = _halo_plan(pyr, n)
     rb = h_pad // n
-    plan = []
-    for t in (range(n_halo - 1, -1, -1) if inverse else range(n_halo)):
+    levels = []
+    for t in range(n_halo):
         s, w, n_even, n_upd = _level_rules(pyr, t)
         rows = rb // s
-        lv = Level(s, w, rows, rank * rows // 2, n_even, n_upd, rank > 0,
-                   rank < n - 1, t == n_halo - 1)
-        head = (Step("head"),) if lv.prev else ()
-        if n == 1:
-            steps = (Step("bulk"),)
-        elif inverse:
-            steps = (((Step("pack"),) if lv.next else ())
-                     + (Step("shift", BOT, -1, PRV),) + head
-                     + (Step("shift", TOP, 1, NXT), Step("bulk")))
+        levels.append(Level(s, w, rows, rank * rows // 2, n_even, n_upd,
+                            rank > 0, rank < n - 1, t == n_halo - 1))
+    if n == 1:
+        groups = [levels[:2]] + [[lv] for lv in levels[2:]]
+        plan = [Launch(tuple(g), (Step("bulk"),)) for g in groups if g]
+    else:
+        plan = []
+        for lv in levels:
+            head = (Step("head"),) if lv.prev else ()
+            if inverse:
+                steps = (((Step("pack"),) if lv.next else ())
+                         + (Step("shift", BOT, -1, PRV),) + head
+                         + (Step("shift", TOP, 1, NXT), Step("bulk")))
+            else:
+                steps = (head + (Step("shift", TOP, 1, NXT), Step("bulk"),
+                                 Step("shift", BOT, -1, PRV))
+                         + ((Step("fix"),) if lv.prev else ()))
+            plan.append(Launch((lv,), steps))
+    return tuple(plan[::-1] if inverse else plan)
+
+
+@functools.lru_cache(maxsize=256)
+def _layouts(pyr: Pyramid, n: int, rank: int, C: int, inverse: bool,
+             to_bytes: bool) -> tuple:
+    """The one allocation of a call's buffers (``ops/_launch.py``
+    ``arena_layout``): each launch's output (the forward's compact LL
+    quadrant of its last level; the inverse's grid of its first level,
+    the finest uint8 where ``to_bytes``), then each launch's edge rows
+    where the rank has neighbours."""
+    plan = launch_plan(pyr, n, rank, inverse)
+    specs = []
+    for la in plan:
+        lv = la.levels[0]
+        if inverse:
+            specs.append((torch.uint8 if to_bytes and lv.s == 1
+                          else torch.int32, (lv.rows, lv.w, C)))
         else:
-            steps = (head + (Step("shift", TOP, 1, NXT), Step("bulk"),
-                             Step("shift", BOT, -1, PRV))
-                     + ((Step("fix"),) if lv.prev else ()))
-        plan.append(LevelPlan(lv, steps))
-    return tuple(plan)
+            specs.append((torch.int32, ll_shape(la.levels, C)))
+    if n > 1:
+        specs += [(torch.int32, (4, la.levels[0].w, C)) for la in plan]
+    return arena_layout(specs)[:2]
+
+
+def _buffers(ref: torch.Tensor, pyr: Pyramid, n: int, rank: int,
+             inverse: bool, to_bytes: bool = False) -> list:
+    """[(output, edge rows or None)] of each launch of the plan: views of
+    one new allocation on ``ref``'s device."""
+    plan = launch_plan(pyr, n, rank, inverse)
+    nbytes, views = _layouts(pyr, n, rank, ref.shape[2], inverse, to_bytes)
+    bufs = carve(nbytes, views, ref.device)
+    edges = bufs[len(plan):] if n > 1 else [None] * len(plan)
+    return list(zip(bufs[:len(plan)], edges))
 
 
 def forward_levels(rows: torch.Tensor, pyr: Pyramid, n: int, rank: int,
                    colour: bool, fine: torch.Tensor, step=None):
-    """A generator of rank ``rank``'s forward halo levels on its rows (see
-    :func:`halo_dwt2d_fwd`), writing its fine block ``fine``: it yields
-    (edge rows, :class:`Step`) at each exchange for the caller to make,
-    and returns the coarsest level's compact LL quadrant.  ``step``: the
-    launches' function (``ops/halo.py:halo_forward``, or its plain
+    """A generator of rank ``rank``'s forward halo launches on its rows
+    (see :func:`halo_dwt2d_fwd`), writing its fine block ``fine``: it
+    yields (edge rows, :class:`Step`) at each exchange for the caller to
+    make, and returns the coarsest level's compact LL quadrant.  ``step``:
+    the launches' function (``ops/halo.py:halo_forward``, or its plain
     version; ``halo_forward`` when None)."""
     step = step or halo_forward
-    C, src = fine.shape[2], rows
-    for lp in launch_plan(pyr, n, rank):
-        lv = lp.level
-        ll = fine.new_empty((lv.rows // 2, (lv.w + 1) // 2, C))
-        edge = fine.new_empty((4, lv.w, C))
-        for st in lp.steps:
+    src = rows
+    plan = launch_plan(pyr, n, rank)
+    for la, (ll, edge) in zip(plan, _buffers(fine, pyr, n, rank, False)):
+        for st in la.steps:
             if st.mode == "shift":
                 yield edge, st
             else:
-                step(st.mode, lv, src, colour and lv.s == 1, fine, ll, edge)
+                step(st.mode, la.levels, src,
+                     colour and la.levels[0].s == 1, fine, ll, edge)
         src = ll
     return src
 
 
 def inverse_levels(fb: torch.Tensor, pyr: Pyramid, n: int, rank: int,
                    to_bytes: bool, step=None):
-    """A generator of rank ``rank``'s inverse halo levels on its
+    """A generator of rank ``rank``'s inverse halo launches on its
     coefficient block ``fb`` (see :func:`halo_dwt2d_inv`): it yields (edge
     rows, :class:`Step`) at each exchange for the caller to make, and
     returns the image block.  ``step``: ``ops/halo.py:halo_inverse``, or
     its plain version (``halo_inverse`` when None)."""
     step = step or halo_inverse
-    C, ll = fb.shape[2], None
-    for lp in launch_plan(pyr, n, rank, inverse=True):
-        lv = lp.level
-        finest = lv.s == 1
-        out = fb.new_empty((lv.rows, lv.w, C), dtype=torch.uint8
-                           if finest and to_bytes else torch.int32)
-        edge = fb.new_empty((4, lv.w, C))
-        for st in lp.steps:
+    ll = None
+    plan = launch_plan(pyr, n, rank, inverse=True)
+    for la, (out, edge) in zip(plan, _buffers(fb, pyr, n, rank, True,
+                                              to_bytes)):
+        for st in la.steps:
             if st.mode == "shift":
                 yield edge, st
             else:
-                step(st.mode, lv, fb, ll, edge, out)
+                step(st.mode, la.levels, fb, ll, edge, out)
         ll = out
     return ll
 

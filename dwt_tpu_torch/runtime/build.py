@@ -95,6 +95,25 @@ class HaloArgs(ctypes.Structure):
                     "coarsest", "C", "bp")])
 
 
+class HaloLevel(ctypes.Structure):
+    """One level of a pair (``ops/halo.py:Level``), as the C struct of
+    ``csrc/halo_lifting.cu``."""
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "s", "w", "rows", "g0", "n_even", "n_upd", "prev", "next",
+        "coarsest")]
+
+
+class PairArgs(ctypes.Structure):
+    """The C struct of a launch of the pair, the two finest halo levels of
+    a rank without neighbours (``ops/halo.py:_pair_args``); ``bp`` is the
+    entry point's own (the row pairs of a band)."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("src", "fine", "ll", "out")]
+                + [("fine_row", ctypes.c_int64)]
+                + [(k, ctypes.c_int) for k in (
+                    "src_rows", "src_u8", "colour", "out_u8", "C", "bp")]
+                + [("lv", HaloLevel * 2)])
+
+
 # C entry points -> argument types.  Every pointer and the CUDA stream go
 # in as c_void_p: an undeclared Python int would be passed as a 32-bit int
 # and cut the pointer.
@@ -181,6 +200,9 @@ ENTRY_POINTS = {
     # (level, mode, stream): the level by value
     "dwt_halo_forward": (HaloArgs, _I, _P),
     "dwt_halo_inverse": (HaloArgs, _I, _P),
+    # (pair, stream): the two levels by value
+    "dwt_halo_forward_pair": (PairArgs, _P),
+    "dwt_halo_inverse_pair": (PairArgs, _P),
 }
 
 

@@ -961,12 +961,18 @@ def test_sharded_world1_nccl_equals_single(cuda):
 
 @pytest.mark.parametrize("n", (1, 2, 3))
 @pytest.mark.parametrize("w,h,c", [(63, 64, 3), (200, 37, 1), (31, 270, 3),
-                                   (513, 8, 3), (1001, 777, 3)])
+                                   (513, 8, 3), (1001, 777, 3),
+                                   (1001, 77, 3), (100, 600, 1),
+                                   (513, 16, 3)])
 def test_halo_kernels_equal_plain(cuda, w, h, c, n):
-    """Kernels 18 and 19, every mode of both, at n ranks played on the
-    card, equal their plain versions exactly: uint8 rows with the colour
-    (RGB) to uint8 pixels, and signed int32 rows to int32; each launches
-    once a level at world size 1 and the inverse gives the image back."""
+    """Kernels 18 and 19, every mode of both and the pair, at n ranks
+    played on the card, equal their plain versions exactly: uint8 rows
+    with the colour (RGB) to uint8 pixels, and signed int32 rows to int32;
+    at world size 1 each launches as ``tiled.launch_plan`` plans (the two
+    finest levels in one launch, one level in each other), and the inverse
+    gives the image back.  513 x 8 has one halo level (no pair), 513 x 16
+    the pair with the fewest rows it takes, 1001 x 77 the pair on three
+    column tiles, 100 x 600 a width below a tile."""
     from dwt_tpu_torch.geometry import compute_pyramid
     from dwt_tpu_torch.ops import halo
     from dwt_tpu_torch.parallel import tiled
@@ -993,8 +999,9 @@ def test_halo_kernels_equal_plain(cuda, w, h, c, n):
             assert a.dtype == b.dtype and torch.equal(a, b)
         assert torch.equal(got[2][:h], img.to(got[2].dtype))
         if n == 1:
-            levels = tiled._halo_plan(pyr, 1)[0]
-            assert launched == (levels, levels)
+            planned = len(tiled.launch_plan(pyr, 1, 0))
+            assert launched == (planned, planned)
+            assert planned == max(tiled._halo_plan(pyr, 1)[0] - 1, 1)
 
 
 def _cli(argv, device):

@@ -5,17 +5,20 @@ kernels 18 and 19, and ``parallel/tiled.py``'s launch plan) on the CPU.
   mesh, and every rank's steps played in one process by
   ``tiled.play_ranks``) equals the JAX package's ``halo_dwt2d_fwd`` and
   ``halo_dwt2d_inv`` on as many virtual CPU devices: odd and even
-  heights, ``n_halo < levels`` and ``n_halo == levels``, pad rows.
+  heights, ``n_halo < levels`` and ``n_halo == levels``, pad rows, three
+  channels and one.
 * The fused colour routes on gloo ranks 1-3 (``torch_ranks.Ranks``):
   uint8 RGB rows with the colour in kernel 18's plain version equal
   ``rgb_to_ycocg`` and the forward, and kernel 19's uint8 pixels equal
   the JAX ``ShardedDecoder``'s (the inverse, ``ycocg_to_rgb``, the clip).
-* The launch plan: the launches between the two exchanges of each level.
-* Both kernels' plan replayed in torch (:func:`replay_forward`,
-  :func:`replay_inverse`): a warp a strip of 28 stored columns and a band
-  of row pairs, lanes 0-1 and 30-31 the strip's halo read by shuffles,
-  the column lifting walked down the band after its prologue, every mode;
-  equal to the plain version at every rank of 1-3.
+* The launch plan: at world size 1 the two finest levels in one launch
+  and a launch a level after them (seven launches at 4K), with neighbours
+  the launches between each level's two exchanges; one allocation of a
+  call's buffers; the one-level launches' bands.
+* Both kernels' source built for the CPU (``cuda_cpu.build``: a block's
+  threads as threads) and played at every rank of 1-3: equal to the plain
+  version, every mode, the one-level launches and the pair, its bands and
+  tiles at two card sizes.
 
 Every comparison is exact: all of it is integer.
 """
@@ -159,6 +162,19 @@ def test_fused_colour_played_equals_jax():
             np.testing.assert_array_equal(px[:h], img)
 
 
+@pytest.mark.parametrize("n", (1, 2, 3))
+@pytest.mark.parametrize("w,h", SHAPES)
+def test_played_gray_equals_jax(w, h, n):
+    """One channel: the plain steps played at n ranks on channel 0 of the
+    halo image equal channel 0 of the JAX package's fine buffer and
+    inverse (the transform lifts each channel alone)."""
+    jfine, _, jinv, _ = _jax_halo(w, h, n)
+    fine, _, inv = _played(halo_image(w, h, _seed(w, h))[..., :1], w, h, n,
+                           fine_in=jfine[..., :1])
+    np.testing.assert_array_equal(fine, jfine[..., :1])
+    np.testing.assert_array_equal(inv, jinv[..., :1])
+
+
 # --- the fused routes on gloo ranks -----------------------------------------
 
 @pytest.fixture(scope="module", params=(1, 2, 3), ids=lambda n: f"n{n}")
@@ -194,13 +210,15 @@ def test_fused_routes_on_ranks_equal_jax(ranks, w, h):
 @pytest.mark.parametrize("n", (1, 2, 3, 8))
 @pytest.mark.parametrize("w,h", SHAPES + [(3840, 2160)])
 def test_launch_plan(w, h, n):
-    """Each level's launches between its two exchanges: forward "head"
-    (where there is a previous rank), exchange, "bulk", exchange, "fix"
-    (likewise); inverse "pack" (where there is a next rank), exchange,
-    "head" (where there is a previous rank), exchange, "bulk"; at world
-    size 1 one "bulk" a level and no exchange.  A rank sends nothing
-    where it has no neighbour, and reads a received row only where it
-    has one.  The levels tile the rank's block."""
+    """The launches cover every halo level once, in order (the inverse's
+    coarsest first), each level as ``_level_rules`` makes it.  At world
+    size 1: one "bulk" a launch, the two finest levels in the first (where
+    there are two), one level in each other.  With neighbours a
+    launch a level: forward "head" (where there is a previous rank),
+    exchange, "bulk", exchange, "fix" (likewise); inverse "pack" (where
+    there is a next rank), exchange, "head" (where there is a previous
+    rank), exchange, "bulk".  A rank sends nothing where it has no
+    neighbour, and reads a received row only where it has one."""
     from dwt_tpu_torch.ops import halo
     from dwt_tpu_torch.parallel import tiled
 
@@ -210,17 +228,23 @@ def test_launch_plan(w, h, n):
     for r in range(n):
         for inverse in (False, True):
             plan = tiled.launch_plan(pyr, n, r, inverse)
-            ts = list(range(n_halo))[::-1 if inverse else 1]
-            assert len(plan) == n_halo
-            for t, (lv, steps) in zip(ts, plan):
+            order = plan[::-1] if inverse else plan
+            levels = [lv for la in order for lv in la.levels]
+            assert len(levels) == n_halo
+            for t, lv in enumerate(levels):
                 s, w_act, n_even, n_upd = tiled._level_rules(pyr, t)
                 assert lv == halo.Level(s, w_act, rb // s, r * rb // s // 2,
                                         n_even, n_upd, r > 0, r < n - 1,
                                         t == n_halo - 1)
+            if n == 1:
+                assert [len(la.levels) for la in order] == (
+                    [2] + [1] * (n_halo - 2) if n_halo > 1 else [1] * n_halo)
+                assert all([st.mode for st in la.steps] == ["bulk"]
+                           for la in plan)
+                continue
+            for la in plan:
+                (lv,), steps = la
                 modes = [st.mode for st in steps]
-                if n == 1:
-                    assert modes == ["bulk"]
-                    continue
                 i, j = [k for k, m in enumerate(modes) if m == "shift"]
                 before, between, after = (modes[:i], modes[i + 1:j],
                                           modes[j + 1:])
@@ -245,272 +269,212 @@ def test_launch_plan(w, h, n):
                         lv.next if st.step == 1 else lv.prev)
 
 
-def test_world_size_one_is_one_launch_a_level():
-    """At world size 1 a 4K plan is 8 halo levels of one launch each, in
-    both directions, and the coarse grid is the 15x9 the single-device
-    tail transforms."""
+def test_world_size_one_4k_launches():
+    """At world size 1 a 4K plan is 8 halo levels in seven launches in
+    both directions: levels 0 and 1 (the pair), then one level each; the
+    inverse runs them in the opposite order; the coarse grid is the 15x9
+    the single-device tail transforms."""
     from dwt_tpu_torch.parallel import tiled
 
     pyr = _pyr(3840, 2160)
     for inverse in (False, True):
         plan = tiled.launch_plan(pyr, 1, 0, inverse)
-        assert [len(lp.steps) for lp in plan] == [1] * 8
-    lv = tiled.launch_plan(pyr, 1, 0)[-1].level
-    assert (lv.rows // 2, (lv.w + 1) // 2) == (2304 // 256, 15)
+        strides = [[lv.s for lv in la.levels] for la in plan]
+        want = [[1, 2]] + [[1 << t] for t in range(2, 8)]
+        assert strides == (want[::-1] if inverse else want)
+    lv = tiled.launch_plan(pyr, 1, 0)[-1].levels[-1]
+    assert lv.coarsest and (lv.rows // 2, (lv.w + 1) // 2) == (2304 // 256,
+                                                               15)
 
 
-# --- the kernels' plan, replayed --------------------------------------------
-
-def _td(a, b):
-    return torch.div(a, b, rounding_mode="trunc")
-
-
-def _up(v):  # __shfl_up_sync(v, 1): lane 0 keeps its own
-    return torch.cat([v[:, :1], v[:, :-1]], 1)
-
-
-def _down(v):  # __shfl_down_sync(v, 1): lane 31 keeps its own
-    return torch.cat([v[:, 1:], v[:, -1:]], 1)
-
-
-def _lift_row(x, k, w):
-    """csrc lift_row on every strip's 32 lanes: x (S, 32, C), k (S, 32, 1)."""
-    xl, xr = _up(x), _down(x)
-    dd = x - _td(xl + torch.where(k + 1 < w, xr, xl), 2)
-    dl, dr = _up(dd), _down(dd)
-    upd = x + _td(torch.where(k == 0, dr, dl) + dr, 4)
-    keep = (w % 2 == 1) & (k == w - 1)
-    return torch.where((k & 1) == 1, dd, torch.where(keep, x, upd))
-
-
-def _unlift_row(y, k, w):
-    """csrc unlift_row likewise."""
-    yl, yr = _up(y), _down(y)
-    keep = (w % 2 == 1) & (k == w - 1)
-    ev = torch.where(keep, y, y - _td(torch.where(k >= 1, yl, yr) + yr, 4))
-    el, er = _up(ev), _down(ev)
-    return torch.where((k & 1) == 1,
-                       y + _td(el + torch.where(k + 1 < w, er, el), 2), ev)
-
-
-class _Warps:
-    """The warps of a launch over a level's columns: strip s's lane l at
-    column 28 s + l - 2 (clamped into the row for its loads), lanes 2..29
-    storing."""
-
-    def __init__(self, lv):
-        from dwt_tpu_torch.ops import halo
-
-        lanes = torch.arange(32)
-        S = -(-lv.w // halo.STRIP)
-        self.k = (halo.STRIP * torch.arange(S)[:, None] + lanes - 2)
-        self.kc = self.k.clamp(0, lv.w - 1)
-        self.store = (lanes >= 2) & (lanes < 30) & (self.k < lv.w)
-        self.ks = self.k[self.store]
-        self.kk = self.k[..., None]
-
-    def put(self, dst, v):
-        """Stored lanes' values into dst at their columns: dst[k] = v."""
-        dst[self.ks] = v[self.store].to(dst.dtype)
-
-
-def _put_even(lv, wp, g, ll, j, v):
-    ev, od = wp.ks % 2 == 0, wp.ks % 2 == 1
-    vals = v[wp.store]
-    g[2 * j, wp.ks[od]] = vals[od].to(torch.int32)
-    ll[j, wp.ks[ev] // 2] = vals[ev].to(torch.int32)
-    if lv.coarsest or lv.s == 1:
-        g[2 * j, wp.ks[ev]] = vals[ev].to(torch.int32)
-
-
-def replay_forward(mode, lv, src, colour, fine, ll, edge):
-    """csrc halo_fwd_kernel's plan, warp strip by warp strip and band by
-    band, in place; (fine, ll, edge) as ``halo_forward``."""
+def test_band_pairs():
+    """A one-level bulk launch's row pairs a warp: 16 on the 4K finest
+    level, halved on the coarser ones until the launch has 4,096 warps or
+    a pair a warp."""
     from dwt_tpu_torch.ops import halo
-    from dwt_tpu_torch.ops.color import rgb_to_ycocg
+    from dwt_tpu_torch.parallel import tiled
 
-    wp, w, P = _Warps(lv), lv.w, lv.rows // 2
-    x = src.to(torch.int64)
-    if colour:
-        x = rgb_to_ycocg(x)
-    g = halo._grid(fine, lv)
-
-    def lifted(r):
-        row = x[r][wp.kc] if r < x.shape[0] else torch.zeros(
-            wp.k.shape + (x.shape[2],), dtype=torch.int64)
-        return _lift_row(row, wp.kk, w)
-
-    if mode == "head":
-        wp.put(edge[halo.TOP], lifted(0))
-        return fine, ll, edge
-    if mode == "fix":
-        if lv.g0 < lv.n_upd:
-            e = g[0][wp.kc].long()
-            ev = (wp.kc % 2 == 0)
-            e[ev] = ll[0][wp.kc[ev] // 2].long()
-            e = e + _td(edge[halo.PRV][wp.kc].long() + g[1][wp.kc].long(), 4)
-            _put_even(lv, wp, g, ll, 0, e)
-        return fine, ll, edge
-    bp = halo.band_pairs(lv)
-    for band in range(-(-P // bp)):
-        i0, i1 = band * bp, min(band * bp + bp, P)
-        e = lifted(2 * i0)
-        if i0 > 0:
-            q, o = lifted(2 * i0 - 2), lifted(2 * i0 - 1)
-            dp = o - _td(q + (q if lv.g0 + i0 >= lv.n_even else e), 2)
-        for j in range(i0, i1):
-            jg = lv.g0 + j
-            o = lifted(2 * j + 1)
-            if j + 1 < P:
-                en = lifted(2 * j + 2)
-            elif lv.next:
-                en = edge[halo.NXT][wp.kc].long()
-            else:
-                en = e
-            d = o - _td(e + (e if jg + 1 >= lv.n_even else en), 2)
-            upd = jg < lv.n_upd and not (j == 0 and lv.prev)
-            s = e + _td((dp if j > 0 else d) + d, 4) if upd else e
-            wp.put(g[2 * j + 1], d)
-            _put_even(lv, wp, g, ll, j, s)
-            if j == P - 1:
-                wp.put(edge[halo.BOT], d)
-            dp, e = d, en
-    return fine, ll, edge
+    bps = [halo.band_pairs(lv) for la in tiled.launch_plan(
+        _pyr(3840, 2160), 1, 0) for lv in la.levels]
+    assert bps[0] == 16 and bps[-1] == 1
+    assert bps == sorted(bps, reverse=True)
 
 
-def replay_inverse(mode, lv, fine, ll, edge, out):
-    """csrc halo_inv_kernel's plan likewise; (out, edge) as
-    ``halo_inverse``."""
+@pytest.mark.parametrize("inverse", (False, True))
+def test_one_allocation_a_call(inverse):
+    """A call's launch outputs and edge rows are views of one allocation,
+    each at a multiple of 256 bytes, of the shapes the wrappers check
+    (the inverse's finest output uint8 where the pixels are asked)."""
     from dwt_tpu_torch.ops import halo
-    from dwt_tpu_torch.ops.color import ycocg_to_rgb
+    from dwt_tpu_torch.parallel import tiled
 
-    wp, w, P = _Warps(lv), lv.w, lv.rows // 2
-    g = halo._grid(fine, lv)
+    pyr, C = _pyr(200, 37), 3
+    for n, r in ((1, 0), (3, 1)):
+        plan = tiled.launch_plan(pyr, n, r, inverse)
+        bufs = tiled._buffers(torch.empty((1, 1, C)), pyr, n, r, inverse,
+                              to_bytes=True)
+        base = bufs[0][0].untyped_storage().data_ptr()
+        assert len(bufs) == len(plan)
+        for la, (o, edge) in zip(plan, bufs):
+            lv = la.levels[0]
+            want = ((lv.rows, lv.w, C) if inverse
+                    else halo.ll_shape(la.levels, C))
+            assert tuple(o.shape) == want and o.is_contiguous()
+            assert o.untyped_storage().data_ptr() == base
+            assert (o.data_ptr() - base) % 256 == 0
+            assert o.dtype == (torch.uint8 if inverse and lv.s == 1
+                               else torch.int32)
+            assert (edge is None) == (n == 1)
+            if edge is not None:
+                assert tuple(edge.shape) == (4, lv.w, C)
+                assert edge.untyped_storage().data_ptr() == base
 
-    def even(j):
-        v = g[2 * j][wp.kc].long()
-        if ll is not None:
-            ev = wp.kc % 2 == 0
-            v[ev] = ll[j][wp.kc[ev] // 2].long()
-        return v
 
-    def unupdate(j, e, left, d):
-        return e - _td(left + d, 4) if lv.g0 + j < lv.n_upd else e
+# --- the kernels' source, built for the CPU ----------------------------------
 
-    def put(r, v):
-        if out.dtype == torch.uint8:
-            v = (ycocg_to_rgb(v) if v.shape[-1] == 3 else v).clamp(0, 255)
-        wp.put(out[r], v)
+def _cpu_steps(sms, per_sm):
+    """Kernel 18's and 19's C entry points of ``csrc/halo_lifting.cu``
+    built for the CPU (``cuda_cpu.build``) as ``step`` functions of
+    ``tiled.play_forward`` and ``play_inverse``, the pair planning for a
+    card of ``sms`` SMs of ``per_sm`` blocks."""
+    import ctypes
 
-    if mode == "pack":
-        wp.put(edge[halo.BOT], g[lv.rows - 1][wp.kc])
+    import cuda_cpu
+    from dwt_tpu_torch.ops import halo
+    from dwt_tpu_torch.runtime import build
+
+    lib = cuda_cpu.build("halo_lifting.cu")
+    for name in ("dwt_halo_forward", "dwt_halo_inverse",
+                 "dwt_halo_forward_pair", "dwt_halo_inverse_pair"):
+        getattr(lib, name).argtypes = build.ENTRY_POINTS[name]
+    lib.emu_card(sms, per_sm)
+
+    def fwd(mode, levels, src, colour, fine, ll, edge):
+        src = src.contiguous()  # held through the call: the kernel reads it
+        assert halo._forward_call(lib, None, mode, levels, fine.shape[2], src,
+                                  colour, fine, ll, edge) == 0
+        return fine, ll, edge
+
+    def inv(mode, levels, fine, ll, edge, out):
+        assert halo._inverse_call(lib, None, mode, levels, fine.shape[2],
+                                  fine, ll, edge, out) == 0
         return out, edge
-    if mode == "head":
-        wp.put(edge[halo.TOP], unupdate(0, even(0), edge[halo.PRV][wp.kc]
-                                        .long(), g[1][wp.kc].long()))
-        return out, edge
-    bp = halo.band_pairs(lv)
-    for band in range(-(-P // bp)):
-        i0, i1 = band * bp, min(band * bp + bp, P)
-        d = g[2 * i0 + 1][wp.kc].long()
-        if i0 > 0:
-            left = g[2 * i0 - 1][wp.kc].long()
-        elif lv.prev:
-            left = edge[halo.PRV][wp.kc].long()
-        else:
-            left = g[1][wp.kc].long()
-        sc = unupdate(i0, even(i0), left, d)
-        for j in range(i0, i1):
-            if j + 1 < P:
-                dn = g[2 * j + 3][wp.kc].long()
-                sn = unupdate(j + 1, even(j + 1), d, dn)
-            elif lv.next:
-                dn, sn = d, edge[halo.NXT][wp.kc].long()
-            else:
-                dn, sn = d, sc
-            clamp = lv.g0 + j + 1 >= lv.n_even
-            od = d + _td(sc + (sc if clamp else sn), 2)
-            put(2 * j, _unlift_row(sc, wp.kk, w))
-            put(2 * j + 1, _unlift_row(od, wp.kk, w))
-            d, sc = dn, sn
-    return out, edge
+
+    return fwd, inv
 
 
 @pytest.mark.parametrize("n", (1, 2, 3))
-@pytest.mark.parametrize("w,h", SHAPES[:6] + [(31, 270)])
+@pytest.mark.parametrize("w,h", SHAPES)
 def test_kernel_plan_replayed_equals_plain(w, h, n):
-    """Kernels 18 and 19 replayed lane by lane (every mode, every rank of
-    n played in one process) equal their plain versions: the fine buffer,
-    the coarse grid, the int32 inverse and the uint8 pixels with and
-    without the colour."""
+    """Kernels 18 and 19, their source built for the CPU and played at
+    every rank of n (every mode of the one-level launches, the pair at n =
+    1 with the bands and tiles of a card of 3 SMs of 2 blocks), equal
+    their plain versions: the fine buffer, the coarse grid, the int32
+    inverse and the uint8 pixels with and without the colour."""
     from dwt_tpu_torch.ops import halo
 
+    fwd, inv = _cpu_steps(3, 2)
     img = halo_image(w, h, _seed(w, h))
     want = _played(img, w, h, n, fwd=halo.halo_forward_plain,
                    inv=halo.halo_inverse_plain)
-    got = _played(img, w, h, n, fwd=replay_forward, inv=replay_inverse)
+    got = _played(img, w, h, n, fwd=fwd, inv=inv)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     rgb = _rgb(w, h)
     want = _played(rgb, w, h, n, True, halo.halo_forward_plain,
                    halo.halo_inverse_plain, True)
-    got = _played(rgb, w, h, n, True, replay_forward, replay_inverse, True)
+    got = _played(rgb, w, h, n, True, fwd, inv, True)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got[2][:h], rgb)
     gray = rgb[..., :1]
     want = _played(gray, w, h, n, False, halo.halo_forward_plain,
                    halo.halo_inverse_plain, True)
-    got = _played(gray, w, h, n, False, replay_forward, replay_inverse, True)
+    got = _played(gray, w, h, n, False, fwd, inv, True)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
 
-def test_band_pairs():
-    """A bulk launch's row pairs a warp: 16 on the 4K finest level, halved
-    on the coarser ones until the launch has 4,096 warps or a pair a
-    warp."""
-    from dwt_tpu_torch.parallel import tiled
+@pytest.mark.parametrize("w,h,c,n", [(1001, 77, 3, 1), (600, 40, 1, 1),
+                                     (100, 600, 1, 1), (513, 16, 3, 1),
+                                     (513, 8, 3, 2)])
+def test_kernel_source_at_card_plans_equals_plain(w, h, c, n):
+    """The CPU build at the bands of a card of 132 SMs of 2 blocks: the
+    pair on three column tiles (1001 x 77) and on two (600 x 40), a width
+    below a tile with bands of two pairs, the pair with the fewest rows it
+    takes (513 x 16: eight at level 1), the one-level launches of two
+    ranks; uint8 rows (with the colour for RGB) to uint8 pixels."""
     from dwt_tpu_torch.ops import halo
 
-    bps = [halo.band_pairs(lp.level)
-           for lp in tiled.launch_plan(_pyr(3840, 2160), 1, 0)]
-    assert bps[0] == 16 and bps[-1] == 1
-    assert bps == sorted(bps, reverse=True)
+    fwd, inv = _cpu_steps(132, 2)
+    img = _rgb(w, h)[..., :c]
+    got = _played(img, w, h, n, c == 3, fwd, inv, True)
+    want = _played(img, w, h, n, c == 3, halo.halo_forward_plain,
+                   halo.halo_inverse_plain, True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[2][:h], img)
 
 
 # --- the wrappers -----------------------------------------------------------
 
 def test_wrappers_check_their_arguments():
-    """Each wrapper raises on a mode, a shape or a type it does not take;
-    on CPU tensors it runs its plain version, which launches nothing."""
+    """Each wrapper raises on a mode, a level group, a shape or a type it
+    does not take; on CPU tensors it runs its plain version, which
+    launches nothing."""
     from dwt_tpu_torch.ops import halo
 
-    lv = halo.Level(1, 8, 8, 0, 4, 4, False, False, True)
+    lv = halo.Level(1, 8, 8, 0, 4, 4, False, False, False)
+    lv2 = halo.Level(2, 4, 4, 0, 2, 2, False, False, True)
     fine = torch.zeros((8, 8, 3), dtype=torch.int32)
     src = torch.zeros((8, 8, 3), dtype=torch.uint8)
-    ll = torch.zeros((4, 4, 3), dtype=torch.int32)
-    edge = torch.zeros((4, 8, 3), dtype=torch.int32)
+    ll = torch.zeros((2, 2, 3), dtype=torch.int32)
     out = torch.zeros((8, 8, 3), dtype=torch.uint8)
     before = (halo.halo_forward.launches, halo.halo_inverse.launches)
-    halo.halo_forward("bulk", lv, src, True, fine, ll, edge)
-    halo.halo_inverse("bulk", lv, fine, None, edge, out)
+    halo.halo_forward("bulk", (lv, lv2), src, True, fine, ll, None)
+    halo.halo_inverse("bulk", (lv, lv2), fine, None, None, out)
     assert (halo.halo_forward.launches, halo.halo_inverse.launches) == before
     with pytest.raises(ValueError, match="mode"):
-        halo.halo_forward("pack", lv, src, True, fine, ll, edge)
+        halo.halo_forward("pack", (lv, lv2), src, True, fine, ll, None)
+    with pytest.raises(ValueError, match="levels for mode"):
+        halo.halo_forward("head", (lv, lv2), src, True, fine, ll, None)
+    with pytest.raises(ValueError, match="levels for mode"):
+        halo.halo_inverse("bulk", (lv, lv2, lv2._replace(
+            s=4, w=2, rows=2, g0=0)), fine, None, None, out)
+    with pytest.raises(ValueError, match="not the two finest"):
+        halo.halo_forward("bulk", (lv, lv), src, True, fine, ll, None)
+    with pytest.raises(ValueError, match="not the two finest"):
+        halo.halo_forward("bulk", (lv2, lv2._replace(s=4, w=2, rows=2)),
+                          src, True, fine, ll, None)
+    with pytest.raises(ValueError, match="neighbours"):
+        halo.halo_forward("bulk", (lv._replace(next=True),
+                                   lv2._replace(next=True)), src, True,
+                          fine, ll, torch.zeros((4, 8, 3),
+                                                dtype=torch.int32))
     with pytest.raises(ValueError, match="grid"):
-        halo.halo_forward("bulk", lv, src, True, fine[:6], ll, edge)
+        halo.halo_forward("bulk", (lv, lv2), src, True, fine[:6], ll, None)
     with pytest.raises(ValueError, match="input rows"):
-        halo.halo_forward("bulk", lv, src.float(), False, fine, ll, edge)
+        halo.halo_forward("bulk", (lv, lv2), src.float(), False, fine, ll,
+                          None)
     with pytest.raises(ValueError, match="colour"):
-        halo.halo_forward("bulk", lv, src[..., :1], True, fine[..., :1],
-                          ll[..., :1], edge[..., :1])
+        halo.halo_forward("bulk", (lv, lv2), src[..., :1], True,
+                          fine[..., :1], ll[..., :1], None)
     with pytest.raises(ValueError, match="ll must be"):
-        halo.halo_inverse("bulk", lv, fine, ll[:2], edge, out)
+        halo.halo_forward("bulk", (lv,), src, True, fine, ll, None)
+    with pytest.raises(ValueError, match="edge must be"):
+        halo.halo_forward("bulk", (lv._replace(prev=True),), src, True,
+                          fine, torch.zeros((4, 4, 3), dtype=torch.int32),
+                          None)
+    with pytest.raises(ValueError, match="edge must be"):
+        halo.halo_forward("head", (lv,), src, True, fine,
+                          torch.zeros((4, 4, 3), dtype=torch.int32), None)
+    with pytest.raises(ValueError, match="ll must be"):
+        halo.halo_inverse("bulk", (lv,), fine, ll, None, out)
     with pytest.raises(ValueError, match="out must be"):
-        halo.halo_inverse("bulk", lv, fine, None, edge, out.long())
+        halo.halo_inverse("bulk", (lv, lv2), fine, None, None, out.long())
     with pytest.raises(ValueError, match="edge"):
-        halo.halo_inverse("head", lv, fine, None, edge[:3], out)
+        halo.halo_inverse("head", (lv._replace(prev=True),), fine, None,
+                          torch.zeros((3, 8, 3), dtype=torch.int32), out)
 
 
 def test_halo_entry_points_check_their_blocks():
